@@ -1,4 +1,5 @@
-"""The ``PADDLE_TPU_SERVE_*`` environment knobs the serving engine reads.
+"""The environment knobs the port reads: the ``PADDLE_TPU_SERVE_*`` rows
+of the serving engine and the training health policy.
 
 The port keeps its own copy of the rows it needs, with the same names,
 types, defaults and parse rules as the JAX package's registry, so one
@@ -41,6 +42,9 @@ _ALL = (
     _k("SERVE_TOKEN_BUDGET", "int", None,
        "Token axis of the ragged step "
        "(default: SERVE_SLOTS + SERVE_PREFILL_CHUNK)."),
+    _k("HEALTH", "str", "off",
+       "Training health policy: off|warn|skip|raise (only off is ported: "
+       "TrainStep raises on the others)."),
 )
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

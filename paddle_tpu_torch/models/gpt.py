@@ -1,14 +1,15 @@
 """GPT-3 family decoder-only LM, as PyTorch modules.
 
-Port of ``paddle_tpu/models/gpt.py`` for serving. Parameters carry the
-JAX package's names (``gpt.h.{i}.attn.qkv_proj.weight``, ...) and keep
-Paddle's ``[in, out]`` linear layout, so a JAX model's ``state_dict``
-maps onto this one by copy (:func:`paddle_tpu_torch.convert.
-params_from_paddle_tpu`).
+Port of ``paddle_tpu/models/gpt.py``. Parameters carry the JAX package's
+names (``gpt.h.{i}.attn.qkv_proj.weight``, ...) and keep Paddle's
+``[in, out]`` linear layout, so a JAX model's ``state_dict`` maps onto
+this one by copy (:func:`paddle_tpu_torch.convert.params_from_paddle_tpu`).
 
-The full-sequence training ``forward`` is not ported: it needs flash
-attention (TPU kernels K1-K3), which belongs to the training slice
-(ROADMAP.md). Serving goes through :meth:`GPTForCausalLM.decode_adapter`.
+Two paths: the full-sequence ``forward`` (training: pre-LN blocks,
+causal attention through the flash-attention kernels K1-K3, tied lm head,
+cross entropy, chunked when ``lm_ce_chunks > 1``), and serving through
+:meth:`GPTForCausalLM.decode_adapter`. Recompute, dropout, MoE, sequence
+parallelism and KV caches in ``forward`` are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -17,12 +18,15 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import DeviceLike, resolve_device
+from ..fusion.chunked import lm_head_chunked_ce
+from ..incubate.nn.functional import scaled_dot_product_attention
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "gpt_tiny", "gpt3_125M",
-           "gpt3_1p3B"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "gpt_tiny", "gpt3_125M", "gpt3_1p3B"]
 
 
 @dataclass
@@ -33,10 +37,21 @@ class GPTConfig:
     num_heads: int = 12
     intermediate_size: Optional[int] = None  # default 4*hidden
     max_position_embeddings: int = 2048
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
     use_bias: bool = True
+    # the JAX package's training options: the port runs recompute=False,
+    # sequence_parallel_mode="gspmd" and moe_num_experts=0 (the others
+    # raise until their slice is ported)
+    recompute: bool = False
+    # > 1: the lm head + cross entropy run in this many token chunks, so
+    # the [tokens, vocab] logits never exist in full (fusion/chunked.py)
+    lm_ce_chunks: int = 0
+    sequence_parallel_mode: str = "gspmd"
+    moe_num_experts: int = 0
 
     def __post_init__(self):
         if self.intermediate_size is None:
@@ -61,8 +76,8 @@ def gpt3_1p3B(**kw) -> GPTConfig:
 
 
 class Linear(nn.Module):
-    """Parameters of ``y = x @ weight + bias`` with Paddle's ``[in, out]``
-    weight; the serving step applies it (``generation._linear``)."""
+    """``y = x @ weight + bias`` with Paddle's ``[in, out]`` weight (one
+    GEMM with the bias in its epilogue)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool, **factory):
         super().__init__()
@@ -70,24 +85,48 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d_out, **factory)) \
             if bias else None
 
+    def forward(self, x):
+        return F.linear(x, self.weight.t(), self.bias)
+
 
 class GPTAttention(nn.Module):
+    """Causal self-attention: fused qkv projection, flash attention on
+    the ``[b, s, heads, head_dim]`` slices of it, output projection."""
+
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
+        self.config = config
         h = config.hidden_size
         self.qkv_proj = Linear(h, 3 * h, config.use_bias, **factory)
         self.out_proj = Linear(h, h, config.use_bias, **factory)
 
+    def forward(self, x):
+        cfg = self.config
+        b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv_proj(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
+                                           training=self.training)
+        return self.out_proj(out.reshape(b, s, cfg.hidden_size))
+
 
 class GPTMLP(nn.Module):
+    """fc1 + bias + tanh-approximate gelu (the JAX ``linear_gelu``,
+    approximate=True), then fc2."""
+
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
         self.fc1 = Linear(h, ffn, config.use_bias, **factory)
         self.fc2 = Linear(ffn, h, config.use_bias, **factory)
 
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
 
 class GPTBlock(nn.Module):
+    """Pre-LN block: x + attn(ln_1(x)), then + mlp(ln_2(.))."""
+
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
         eps = config.layer_norm_eps
@@ -95,6 +134,10 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(config, **factory)
         self.ln_2 = nn.LayerNorm(config.hidden_size, eps, **factory)
         self.mlp = GPTMLP(config, **factory)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
 
 
 class GPTModel(nn.Module):
@@ -116,6 +159,15 @@ class GPTModel(nn.Module):
                                 for _ in range(config.num_layers)])
         self.ln_f = nn.LayerNorm(h, config.layer_norm_eps, **factory)
 
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)[None]
+        x = self.wte(input_ids) + self.wpe(position_ids)
+        for block in self.h:
+            x = block(x)
+        return self.ln_f(x)
+
 
 class GPTForCausalLM(nn.Module):
     """GPT causal LM holding the JAX package's parameter tree.
@@ -132,6 +184,9 @@ class GPTForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
         super().__init__()
+        if config.moe_num_experts:
+            raise NotImplementedError(
+                "MoE GPT is not ported yet: see ROADMAP.md")
         self.config = config
         dev = resolve_device(device)
         factory = {"device": dev, "dtype": dtype}
@@ -157,11 +212,45 @@ class GPTForCausalLM(nn.Module):
         if self.lm_head is not None:
             self.lm_head.weight.normal_(0.0, std, generator=g)
 
-    def forward(self, input_ids, position_ids=None, labels=None):
-        raise NotImplementedError(
-            "the full-sequence forward needs flash attention (TPU kernels "
-            "K1-K3), which comes with the training slice: see ROADMAP.md. "
-            "Serve through decode_adapter() / serving.ServingEngine.")
+    def _check_supported(self, caches) -> None:
+        cfg = self.config
+        if caches is not None:
+            raise NotImplementedError(
+                "forward with KV caches is not ported; serve through "
+                "decode_adapter() / serving.ServingEngine (ROADMAP.md)")
+        if self.training and (cfg.dropout or cfg.attention_dropout):
+            raise NotImplementedError(
+                "hidden and attention dropout are not ported yet: see "
+                "ROADMAP.md")
+        if self.training and cfg.recompute:
+            raise NotImplementedError(
+                "block recompute is not ported yet: see ROADMAP.md")
+        if cfg.sequence_parallel_mode != "gspmd":
+            raise NotImplementedError(
+                "sequence_parallel_mode=%r is not ported yet: see "
+                "ROADMAP.md" % cfg.sequence_parallel_mode)
+
+    def forward(self, input_ids, position_ids=None, labels=None,
+                caches=None):
+        """Full-sequence forward. ``input_ids`` [b, s] (int); with
+        ``labels`` [b, s] (already shifted; -100 = ignored) returns the
+        mean token cross entropy, else the logits [b, s, vocab]. With
+        ``lm_ce_chunks > 1`` (and b*s divisible by it) the loss is the
+        chunked lm head + cross entropy, whose logits never exist in
+        full."""
+        self._check_supported(caches)
+        x = self.gpt(input_ids, position_ids)
+        tied = self.lm_head is None
+        w = self.gpt.wte.weight if tied else self.lm_head.weight
+        chunks = int(self.config.lm_ce_chunks or 0)
+        if labels is not None and chunks > 1 \
+                and x.shape[0] * x.shape[1] % chunks == 0:
+            return lm_head_chunked_ce(x, w, labels, chunks,
+                                      transpose_weight=tied)
+        logits = x @ w.t() if tied else x @ w
+        if labels is None:
+            return logits
+        return GPTPretrainingCriterion()(logits, labels)
 
     def decode_adapter(self):
         """Weight-extraction protocol of the serving engine
@@ -169,3 +258,22 @@ class GPTForCausalLM(nn.Module):
         from .generation import GPTDecodeAdapter
 
         return GPTDecodeAdapter(self)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Token-level cross entropy, mean over non-ignored positions, on
+    pre-shifted labels (no shift happens here). Log-softmax in f32; the
+    mean divides by max(count, 1) as the JAX package does."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        logp = torch.log_softmax(logits.reshape(-1, logits.shape[-1])
+                                 .float(), dim=-1)
+        lab = labels.reshape(-1).long()
+        valid = lab != self.ignore_index
+        picked = logp.gather(1, torch.where(valid, lab, 0)[:, None])[:, 0]
+        nll = -torch.where(valid, picked, 0.0)
+        return nll.sum() / valid.sum().clamp_min(1)

@@ -197,6 +197,10 @@ def test_entry_points_refuse_cpu_fallback(models):
         ServingEngine(tm)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPTForCausalLM(gpt_tiny())
+    # the full-sequence forward runs on the CPU model (plain attention);
+    # KV caches stay with the serving engine
+    assert tm(torch.zeros(1, 4, dtype=torch.long)).shape == \
+        (1, 4, tm.config.vocab_size)
     with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 4, dtype=torch.long))
+        tm(torch.zeros(1, 4, dtype=torch.long), caches=[])
     assert tpa.ragged_paged_attention.launches == 0

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``paddle_tpu_torch/`` and no line of
-``chip_smoke.py`` imports JAX or the JAX package, and the kernel wrapper
-has no ``except`` that could fall back to the plain version when a
+``chip_smoke.py`` imports JAX or the JAX package, and no kernel wrapper
+has an ``except`` that could fall back to the plain version when a
 launch fails."""
 import ast
 import sys
@@ -53,12 +53,24 @@ def test_chip_smoke_imports_only_the_port_torch_numpy():
     assert third_party <= SMOKE_ALLOWED, third_party - SMOKE_ALLOWED
 
 
+# module of incubate/nn/cuda -> the functions that build, bind or launch
+WRAPPERS = {
+    "paged_attention.py": ("ragged_paged_attention", "_bind"),
+    "flash_attn.py": ("flash_fwd", "flash_bwd_fused", "flash_bwd_split",
+                      "flash_bwd", "_launch_bwd", "_bind", "_raise_on",
+                      "_FlashAttention"),
+}
+
+
 def test_kernel_wrapper_has_no_except():
-    src = PORT / "incubate" / "nn" / "cuda" / "paged_attention.py"
-    tree = ast.parse(src.read_text())
-    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
-              and n.name == "ragged_paged_attention")
-    assert not [n for n in ast.walk(fn) if isinstance(n, ast.Try)]
+    for fname, names in WRAPPERS.items():
+        tree = ast.parse((PORT / "incubate" / "nn" / "cuda" / fname)
+                         .read_text())
+        defs = {n.name: n for n in tree.body if isinstance(
+            n, (ast.FunctionDef, ast.ClassDef))}
+        for name in names:
+            assert not [n for n in ast.walk(defs[name])
+                        if isinstance(n, ast.Try)], (fname, name)
     build = PORT / "incubate" / "nn" / "cuda" / "_build.py"
     handlers = [n for n in ast.walk(ast.parse(build.read_text()))
                 if isinstance(n, ast.ExceptHandler)]
