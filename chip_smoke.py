@@ -13,13 +13,19 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    source, all started together) and print the build seconds and
    ``ptxas``'s register / shared-memory report;
 3. K4: hold the ragged paged-attention kernel against its plain PyTorch
-   version on the card at the serving path's shapes (bf16, page 16,
+   version on the card at GPT-3 1.3B's serving shapes (bf16, page 16,
    head_dim 128, 16 heads, 8 rows, a 136-token axis), in several prefill
    / decode mixes, and time the kernel, the plain version, a library call
    computing the same function (``scaled_dot_product_attention`` over
    pre-gathered K/V, timed only) and the least time the card could take
    (``bound``);
-4. K1, K2, K3: hold the flash-attention forward, fused backward and split
+4. K5 and K7: the same for K5 over int8 pools at Llama-2 7B's serving
+   shapes (32 heads, d 128, bf16 q; GQA groups 4 and 8 and d 64 too; K4's
+   time on the bf16 pool of each mix beside it), and for K7's RMSNorm
+   (with and without a bias) and LayerNorm, bf16 and f32, d 4096 and
+   2048, on 136, 8192 and 1001 rows (library: ``F.rms_norm`` /
+   ``F.layer_norm``, timed only);
+5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (b 8,
    s 1024, 16 heads, d 128, bf16, causal) and at sq < sk, a ragged s,
    full attention, d 64 and 256, and a sequence past the fused
@@ -27,7 +33,7 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    beside its plain version, the library's flash attention (forward:
    ``scaled_dot_product_attention``; backward: its aten backward op; both
    timed only) and its bound;
-5. train GPT-3 1.3B (bf16, random weights from seed 0, full width and
+6. train GPT-3 1.3B (bf16, random weights from seed 0, full width and
    depth) as ``bench.py`` configures it: batch 8 x 1024 tokens, AdamW
    (lr 1e-4, weight decay 0.01, bf16 first moment, factored second
    moment), grad clip 1.0, ``lm_ce_chunks=8``. Under no_grad at full
@@ -38,18 +44,25 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    timed steps on one batch, whose loss must fall, with K1 and K2
    launched once per layer per step; prints tokens/s, the median step,
    MFU (``bench.py``'s flops count against 989 TFLOP/s) and peak memory;
-6. serve GPT-3 1.3B (bf16, random weights from seed 0, full width) with
-   ``ServingEngine(max_slots=8, block_size=16, num_blocks=2048,
-   prefill_chunk=128)``: 12 greedy requests of 64-1024 prompt tokens, two
-   of them sharing a 512-token prefix, 32 new tokens each. The first
-   step's logits are held against the same step through the plain
-   attention; every stream must reach its length, the prefix cache must
-   hit, ``shutdown()`` must find no leaked block, and the kernel must
-   have launched once per layer per step;
-7. profiles (torch.profiler) of engine steps and of training steps:
-   device busy share and the kernels with the most device time;
-8. one JSON line listing every ported kernel with its numbers;
-9. last line: ``{"ok": true, "device": {...}}``.
+7. serve GPT-3 1.3B (bf16, bf16 KV pools) and then Llama-2 7B (bf16,
+   int8 KV pools), both with random weights from seed 0 at full width and
+   depth, each with ``ServingEngine(max_slots=8, block_size=16,
+   num_blocks=2048, prefill_chunk=128)``: 12 greedy requests of 64-1024
+   prompt tokens, two of them sharing a 512-token prefix, 32 new tokens
+   each; Llama again on seeds 1 and 2 (its own weights and trace each).
+   The first step's logits and final hidden states are held against the
+   same step through the plain versions of every kernel, and the
+   residual stream's drift between the two is printed layer by layer;
+   every stream must reach its length, the prefix cache must hit,
+   ``shutdown()`` must find no leaked block, and each step must have
+   launched, per layer, K4 once and K7's LayerNorm twice (GPT) or K5 once
+   and K7's RMSNorm twice (Llama), plus one norm before the head;
+8. profiles (torch.profiler) of training steps and of engine steps of
+   both models: device busy share and the kernels with the most device
+   time;
+9. one JSON line with the serving numbers, then one listing every ported
+   kernel with its numbers;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -65,6 +78,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet, at 700 W
 BF16_FLOPS_PER_S = 989e12       # dense bf16 tensor-core peak, same source
+F32_FLOPS_PER_S = 67e12         # f32 outside the tensor cores, same source
 KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)     # bf16 output, f32 inside
 # bf16 logits of |x| <= ~4 after 24 layers: the kernel and the plain
 # version round the same f32 attention to bf16 from other summation
@@ -98,6 +112,40 @@ TRAIN_HIDDEN_RTOL = 4e-2
 TRAIN_GRAD_RTOL = 2e-2
 TRAIN_GNORM_RTOL = 1e-3
 TRAIN_STEPS = 6
+# K5 against its plain version, row by row (see row_err): both decode the
+# same int8 rows to the same f32 values; the difference is the online
+# against the direct softmax and the bf16 output's rounding. Also held,
+# for K4 and K5, on every layer's attention of the serving steps' first
+# step on its own inputs.
+PAGED_ROW_TOL = 6e-2
+# K7 against its plain versions, element by element: |got - want| <=
+# rel * |want| + NORM_ROW_FLOOR * RMS of want's row. bf16: rel 2^-7, one
+# bf16 ulp (f32 values that differ in the last bits may round to either
+# side of a boundary); f32: rel 1e-5. The row floor, far below either,
+# covers LayerNorm's x - mu where x is within rounding of mu.
+NORM_REL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-5}
+NORM_ROW_FLOOR = 1e-6
+# serving, first step through the kernels vs the plain versions of every
+# kernel (attention and norms): final hidden states and logits per token
+# in relative L2 (the head is linear after a norm, so the two read alike),
+# printed beside how far a step whose attention returns zeros is, and the
+# logits element by element. GPT-3 1.3B, bf16 pools, read on an H100:
+# hidden 0.0145, logits 0.0149 (relative L2) and 0.0703 (max abs).
+SERVE_HIDDEN_RTOL = 4e-2
+# Llama-2 7B over int8 pools, read on an H100 with seeds 0, 1 and 2
+# (weights and trace): hidden 0.0547 / 0.0537 / 0.0529 while attention
+# moves them by 1.37; logits 0.0546 / 0.0537 / 0.0529 (relative L2) and
+# 0.332 / 0.344 / 0.336 (max abs, |logit| <= 6.69). The residual stream's
+# drift grows layer by layer from 0.004 after layer 0 (a bf16 ulp) to
+# those values, and reads 0.048-0.050 for the same step over bf16 pools:
+# bf16 roundings of the two paths accumulating over 32 layers, not int8
+# code flips. Limits ~1.5x the largest reading; each layer's attention
+# and each norm on its own inputs is held tightly beside them
+# (PAGED_ROW_TOL, NORM_REL).
+LLAMA_HIDDEN_RTOL = 8e-2
+LLAMA_LOGITS_TOL = dict(rtol=0, atol=0.5)
+SERVE_ENGINE = dict(max_slots=8, block_size=16, num_blocks=2048,
+                    prefill_chunk=128)
 
 
 def check(cond, msg):
@@ -119,6 +167,36 @@ def cuda_ms(fn, iters, warmup=2):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters=20, reps=10):
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured
+    in one CUDA graph, replayed ``reps`` times between CUDA events. A
+    replay launches the calls without the host, so where a call's host
+    time exceeds its device time (a norm at a serving step's 136 rows)
+    this reads the device's time per call, the gaps between a graph's
+    kernels included; back-to-back calls from the host (``cuda_ms``)
+    read the host's time instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (iters * reps)
 
 
 # ------------------------------------------------------------ phase 3
@@ -145,17 +223,21 @@ def make_case(rng, gen, ql, cl, n_heads, n_kv, n_tokens=136, d=128,
 
 def work_of(case):
     """Bytes the function must move (each input read once, the output
-    written once) and the flops it must do, for this case's data."""
+    written once) and the flops it must do, for this case's data. A key
+    row of an int8 pool is d codes and one f32 scale."""
     q, kp, _, bt, cl, ql, _ = case
     n_tokens, n_heads, d = q.shape
-    n_kv = kp.shape[0]
-    window = bt.shape[1] * kp.shape[2]
+    quant = isinstance(kp, dict)
+    n_kv, _, page, _ = (kp["q8"] if quant else kp).shape
+    row_bytes = d + 4 if quant else d * kp.element_size()
+    window = bt.shape[1] * page
     cl_h = cl.cpu().numpy().astype(np.int64)
     ql_h = ql.cpu().numpy().astype(np.int64)
     live = ql_h > 0
-    kv_bytes = int(np.minimum(cl_h[live], window).sum()) * n_kv * d * 2 * 2
-    q_bytes = int(ql_h.sum()) * n_heads * d * 2
-    out_bytes = n_tokens * n_heads * d * 2
+    kv_bytes = int(np.minimum(cl_h[live], window).sum()) * n_kv * \
+        row_bytes * 2
+    q_bytes = int(ql_h.sum()) * n_heads * d * q.element_size()
+    out_bytes = n_tokens * n_heads * d * q.element_size()
     meta = 4 * (bt.numel() + 3 * cl.numel())
     keys = 0                           # (token, key) pairs attended
     for c, n in zip(cl_h[live], ql_h[live]):
@@ -252,6 +334,174 @@ def kernel_phase(card):
 
 
 # ------------------------------------------------------------ phase 4
+def q8_case(case):
+    """The same batch over int8 pools: the bf16 pools quantized by the
+    engine's write rule (one f32 scale per key row)."""
+    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
+        quantize_kv_pages)
+
+    q, kp, vp, *meta = case
+    return (q, quantize_kv_pages(kp), quantize_kv_pages(vp), *meta)
+
+
+def q8_kernel_phase(card):
+    """K5 against its plain version at the Llama-2 7B serving shapes (32
+    heads, d 128, page 16, bf16 q, int8 pools, a 136-token axis of 8
+    rows), in K4's prefill / decode mixes plus GQA groups 4 and 8 and
+    d 64; times K5, the plain version, SDPA over pre-gathered and
+    pre-dequantized K/V (timed only), K4 over the bf16 pool of the same
+    mix, and the bound."""
+    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
+        _dequant, ragged_paged_attention, ragged_paged_attention_ref)
+
+    rng = np.random.RandomState(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    decode_cl = [2048] + rng.randint(1, 2049, 7).tolist()
+    mixes = {
+        # name: (query_lens, context_lens, n_heads, n_kv, head_dim)
+        "decode": ([1] * 8, decode_cl, 32, 32, 128),
+        "mixed": ([128] + [1] * 7,
+                  [640] + rng.randint(1, 2049, 7).tolist(), 32, 32, 128),
+        "idle_rows": ([1, 0, 1, 0, 37, 0, 1, 0],
+                      [300, 0, 1500, 0, 37, 0, 2048, 0], 32, 32, 128),
+        "padding": ([60, 1, 1, 1, 0, 0, 0, 0],
+                    [60, 17, 999, 2048, 0, 0, 0, 0], 32, 32, 128),
+        "gqa4": ([100] + [1] * 7,
+                 [612] + rng.randint(1, 2049, 7).tolist(), 32, 8, 128),
+        "gqa8": ([100] + [1] * 7,
+                 [612] + rng.randint(1, 2049, 7).tolist(), 32, 4, 128),
+        "d64": ([128] + [1] * 7,
+                [640] + rng.randint(1, 2049, 7).tolist(), 32, 32, 64),
+    }
+    results = {}
+    for name, (ql, cl, nh, nkv, d) in mixes.items():
+        fp = make_case(rng, gen, ql, cl, nh, nkv, d=d)
+        case = q8_case(fp)
+        n_live = int(sum(ql))
+        before = (ragged_paged_attention.launches,
+                  ragged_paged_attention.launches_q8)
+        got = ragged_paged_attention(*case)
+        want = ragged_paged_attention_ref(*case)
+        torch.cuda.synchronize()
+        check((ragged_paged_attention.launches,
+               ragged_paged_attention.launches_q8)
+              == (before[0], before[1] + 1),
+              "%s: the int8 pools did not launch K5 alone" % name)
+        check(bool(torch.isfinite(got).all()), "K5 %s: non-finite" % name)
+        check(bool((got[n_live:] == 0).all()),
+              "K5 %s: padding tokens are not exactly zero" % name)
+        err, rel = row_err(got[:n_live], want[:n_live])
+        check(rel <= PAGED_ROW_TOL, "K5 %s: max abs err %.4g, %.4g of its "
+              "row's RMS > %g" % (name, err, rel, PAGED_ROW_TOL))
+        ms = cuda_ms(lambda: ragged_paged_attention(*case), iters=20)
+        plain_ms = cuda_ms(lambda: ragged_paged_attention_ref(*case),
+                           iters=3, warmup=1)
+        k4_ms = cuda_ms(lambda: ragged_paged_attention(*fp), iters=20)
+        deq = [_dequant(p["q8"], p["s"]).bfloat16() for p in case[1:3]]
+        qp, kg, vg, mask = sdpa_inputs((case[0], *deq, *case[3:]))
+        del deq
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(qp, kg, vg, attn_mask=mask),
+                             iters=10)
+        del qp, kg, vg, mask
+        nbytes, flops = work_of(case)
+        bound_ms, bound_by = bound_of(nbytes, flops)
+        results[name] = dict(
+            max_abs_err=err, row_err=rel, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, k4_bf16_ms=k4_ms, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, flops=flops)
+        print("K5 %-9s T=%d rows=%d heads=%d/%d d=%d: max_abs_err=%.3g "
+              "(%.3e of its row's RMS) kernel=%.4f ms plain=%.4f ms "
+              "sdpa=%.4f ms K4 on the bf16 pool=%.4f ms bound=%.4f ms (%s, "
+              "%.1f MB, %.2f GFLOP) [%s]"
+              % (name, case[0].shape[0], len(ql), nh, nkv, d, err, rel, ms,
+                 plain_ms, library_ms, k4_ms, bound_ms, bound_by,
+                 nbytes / 1e6, flops / 1e9, card), flush=True)
+        del fp, case, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def norm_ratio(got, want, rel):
+    """Largest |got - want| over its allowance, rel * |want| plus
+    NORM_ROW_FLOOR of the RMS of want's row (<= 1 passes)."""
+    w = want.float()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    allow = rel * w.abs() + NORM_ROW_FLOOR * rms + 1e-30
+    return ((got.float() - w).abs() / allow).max().item()
+
+
+def norm_phase(card):
+    """K7 against its plain versions: RMSNorm with and without a bias
+    and LayerNorm, bf16 and f32, at d 4096 (Llama-2 7B) and 2048 (GPT-3
+    1.3B), on 136 rows (a serving step's token axis), 8192 (a training
+    batch) and 1001 (ragged); times each beside its plain version, the
+    library call (``F.rms_norm`` / ``F.layer_norm``, timed only; none
+    computes RMSNorm plus a bias in one call) and the bytes bound. At a
+    serving step's 136 rows a call's host time exceeds its device time,
+    so the kernel, plain and library times are device times per call in
+    a CUDA graph (``graph_ms``); ``call_ms`` is the kernel's per call
+    back to back from the host (CUDA events)."""
+    from paddle_tpu_torch.incubate.nn.cuda import norms as kn
+
+    F = torch.nn.functional
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (4096, 2048):
+            g = torch.Generator(device="cuda").manual_seed(d)
+            w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")) \
+                .to(dtype)
+            b = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+            for n in (136, 8192, 1001):
+                x = (1.5 * torch.randn(n, d, generator=g, device="cuda")
+                     + 0.3).to(dtype)
+                for kind in ("rms", "rms_bias", "ln"):
+                    if kind == "ln":
+                        fn, ref, args = kn.layer_norm, kn.layer_norm_ref, \
+                            (x, w, b, 1e-5)
+                        lib = lambda: F.layer_norm(x, (d,), w, b, 1e-5)
+                    else:
+                        bias = b if kind == "rms_bias" else None
+                        fn, ref, args = kn.rms_norm, kn.rms_norm_ref, \
+                            (x, w, bias, 1e-5)
+                        lib = None if bias is not None else \
+                            (lambda: F.rms_norm(x, (d,), w, 1e-5))
+                    got = fn(*args)
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(got).all()),
+                          "K7 %s: non-finite" % kind)
+                    ratio = norm_ratio(got, ref(*args), NORM_REL[dtype])
+                    err = (got.float() - ref(*args).float()).abs().max()
+                    name = "%s %s d %d n %d" % (kind, str(dtype)[6:], d, n)
+                    check(ratio <= 1.0, "K7 %s: error %.3g of its allowance"
+                          % (name, ratio))
+                    call_ms = cuda_ms(lambda: fn(*args), iters=50)
+                    ms = graph_ms(lambda: fn(*args))
+                    plain_ms = graph_ms(lambda: ref(*args))
+                    library_ms = None if lib is None else graph_ms(lib)
+                    nbytes = (2 * n * d + d * (2 if kind != "rms" else 1)) \
+                        * x.element_size()
+                    bound_ms, bound_by = bound_of(
+                        nbytes, 4 * n * d, BF16_FLOPS_PER_S
+                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+                    results[name] = dict(
+                        max_abs_err=err.item(), ratio=ratio, ms=ms,
+                        call_ms=call_ms, plain_ms=plain_ms,
+                        library_ms=library_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, bytes=nbytes)
+                    print("K7 %-28s: max_abs_err %.3g (%.3g of its "
+                          "allowance) kernel=%.4f ms (a call back to back "
+                          "%.4f ms) plain=%s library=%s bound=%.4f ms (%s, "
+                          "%.2f MB) [%s]"
+                          % (name, err.item(), ratio, ms, call_ms,
+                             "%.4f ms" % plain_ms,
+                             "none" if library_ms is None
+                             else "%.4f ms" % library_ms, bound_ms,
+                             bound_by, nbytes / 1e6, card), flush=True)
+    return results
+
+
+# ------------------------------------------------------------ phase 5
 FLASH_SRC = "paddle_tpu_torch/incubate/nn/csrc/flash_attn.cu"
 FLASH_PALLAS = "paddle_tpu/incubate/nn/pallas/flash_attn.py"
 # name -> (b, sq, sk, h, d, causal); "train" is the training path's shape
@@ -292,9 +542,9 @@ def flash_work(b, sq, sk, h, d, causal, backward):
     return 3 * qo + 2 * kv + lse + qo + 2 * kv, 10 * d * pairs
 
 
-def bound_of(nbytes, flops):
+def bound_of(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -433,7 +683,7 @@ def time_flash(fa, q, k, v, do, hm, out, lse, causal, scale, errs, card):
     return res
 
 
-# ------------------------------------------------------------ phase 5
+# ------------------------------------------------------------ phase 6
 def train_config(num_layers=24):
     """bench.py's headline configuration (its depth cut when asked)."""
     from paddle_tpu_torch.models import gpt3_1p3B
@@ -625,7 +875,7 @@ def train_phase(card):
     return launches, step, (ids, labels)
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------------------ phase 7
 def traffic(vocab, seed=0, n=12, shared=512, new_tokens=32):
     """Seeded prompts of 64-1024 tokens; the first and the last share a
     ``shared``-token prefix, so the last one (admitted after the first
@@ -640,34 +890,39 @@ def traffic(vocab, seed=0, n=12, shared=512, new_tokens=32):
     return prompts, new_tokens
 
 
-def engine_phase(card):
-    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_ref)
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3B
-    from paddle_tpu_torch.serving import ServingEngine
+def serving_kernels():
+    """The serving path's kernel counts by name: (wrapper, attribute)."""
+    from paddle_tpu_torch.incubate.nn.cuda import norms
+    from paddle_tpu_torch.incubate.nn.cuda import paged_attention as pa
 
-    cfg = gpt3_1p3B()
-    t0 = time.perf_counter()
-    model = GPTForCausalLM(
-        cfg, dtype=torch.bfloat16,
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    eng = ServingEngine(model, max_slots=8, block_size=16, num_blocks=2048,
-                        prefill_chunk=128)
-    eng.warmup()
-    torch.cuda.synchronize()
-    print("engine: gpt3_1p3B bf16 (%d layers, hidden %d, %d heads, vocab "
-          "%d) built and warmed up in %.2f s"
-          % (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-             cfg.vocab_size, time.perf_counter() - t0), flush=True)
+    return {"K4": (pa.ragged_paged_attention, "launches"),
+            "K5": (pa.ragged_paged_attention, "launches_q8"),
+            "K7 rms_norm": (norms.rms_norm, "launches"),
+            "K7 layer_norm": (norms.layer_norm, "launches")}
 
-    # keep the first step's inputs and logits for the plain-path check
+
+def serving_counts():
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in serving_kernels().items()}
+
+
+def serve_main_path(eng, prompts, new_tokens):
+    """The serving main path: every kernel count set to 0 just before the
+    trace is submitted and read just after the engine drains. Keeps the
+    first step's inputs, logits and final hidden states (the residual
+    stream before the last norm) for the plain-path check."""
     ad = eng._ad
     first = {}
-    real_chunk = ad.ragged_chunk
+    real_chunk, real_logits = ad.ragged_chunk, ad.logits
+
+    def keep_logits(w, x):
+        if "hidden" not in first:
+            first["hidden"] = x.clone()
+        return real_logits(w, x)
 
     def keep_first(w, *args, attn=None):
         out = real_chunk(w, *args, attn=attn)
-        if not first:
+        if "logits" not in first:
             toks, pos, row_of, qs, ql, cl, _, _, bt = args
             first["args"] = [t.clone() for t in
                              (toks, pos, row_of, qs, ql, cl)]
@@ -675,11 +930,12 @@ def engine_phase(card):
             first["logits"] = out[0].clone()
         return out
 
-    ad.ragged_chunk = keep_first
-    prompts, new_tokens = traffic(cfg.vocab_size)
-
+    ad.ragged_chunk, ad.logits = keep_first, keep_logits
+    kernels = serving_kernels()
+    torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts set to 0 just before, read just after
-    ragged_paged_attention.launches = 0
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
     steps0 = eng.ragged_steps
     t_start = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
@@ -690,60 +946,348 @@ def engine_phase(card):
             break
         step_s.append(time.perf_counter() - t)
     wall = time.perf_counter() - t_start
-    launches = ragged_paged_attention.launches
+    launches = serving_counts()
     steps = eng.ragged_steps - steps0
     # ----
-    ad.ragged_chunk = real_chunk
-
+    peak = torch.cuda.max_memory_allocated()
+    del ad.ragged_chunk, ad.logits      # the class's methods again
     reqs = [eng._requests[r] for r in rids]
     outs = [eng.result(r) for r in rids]
+    return dict(reqs=reqs, outs=outs, step_s=step_s, wall=wall,
+                launches=launches, steps=steps, peak=peak, first=first)
+
+
+def check_served(run, prompts, new_tokens, vocab, want_launches, what,
+                 card):
+    """Streams, prefix hit and kernel counts of a served trace; prints
+    the end-to-end numbers."""
+    outs, reqs, steps = run["outs"], run["reqs"], run["steps"]
     for o in outs:
         check(len(o) == new_tokens, "a stream ended at %d tokens" % len(o))
-        check(all(0 <= t < cfg.vocab_size for t in o), "token out of vocab")
+        check(all(0 <= t < vocab for t in o), "token out of vocab")
     hit = reqs[-1].num_cached
-    check(hit > 0, "the shared prefix did not hit the prefix cache")
-    check(steps > 0 and launches == steps * cfg.num_layers,
-          "kernel launches %d != ragged_steps %d x %d layers"
-          % (launches, steps, cfg.num_layers))
-    eng.shutdown()                     # raises on a leaked block
     ttft = [r.first_token_at - r.arrival for r in reqs]
     n_tok = sum(len(o) for o in outs)
-    print("engine: %d requests (%d prompt tokens, %d prefix-cache hit "
-          "tokens), %d steps, %d tokens out in %.3f s = %.1f tok/s, "
-          "median step %.2f ms, TTFT median %.1f ms max %.1f ms, kernel "
-          "launches %d [%s]"
-          % (len(prompts), sum(map(len, prompts)), hit, steps, n_tok, wall,
-             n_tok / wall, 1e3 * statistics.median(step_s),
-             1e3 * statistics.median(ttft), 1e3 * max(ttft), launches,
-             card), flush=True)
+    print("engine %s: %d requests (%d prompt tokens, %d prefix-cache hit "
+          "tokens), %d steps, %d tokens out in %.3f s = %.1f tok/s, median "
+          "step %.2f ms, TTFT median %.1f ms max %.1f ms, peak memory %.2f "
+          "GB, kernel launches %s [%s]"
+          % (what, len(prompts), sum(map(len, prompts)), hit, steps, n_tok,
+             run["wall"], n_tok / run["wall"],
+             1e3 * statistics.median(run["step_s"]),
+             1e3 * statistics.median(ttft), 1e3 * max(ttft),
+             run["peak"] / 1e9, run["launches"], card), flush=True)
+    check(hit > 0, "the shared prefix did not hit the prefix cache")
+    want = {k: per_step * steps for k, per_step in want_launches.items()}
+    check(steps > 0 and run["launches"] == want,
+          "%s: kernel launches %s, want %s (%d steps)"
+          % (what, run["launches"], want, steps))
+    return dict(tok_s=n_tok / run["wall"], steps=steps,
+                median_step_ms=1e3 * statistics.median(run["step_s"]),
+                ttft_median_ms=1e3 * statistics.median(ttft),
+                peak_gb=run["peak"] / 1e9)
 
-    # the first step again through the plain attention, on fresh pools:
-    # the step started every row at position 0, so it read only the K/V
-    # it wrote itself
+
+def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
+    """The main path's first step again with ``attn`` for attention and
+    ``rms`` / ``ln`` for the norms, over the engine's pools (or
+    ``pools``: ``(kp, vp, block_tables)``): the step started every row
+    at position 0, so it reads only the K/V it writes itself, into the
+    same slots. Returns the logits, the final hidden states, each
+    layer's K rows as written at the step's slots, and the residual
+    stream as each norm received it (a layer's input, its state after
+    attention, ..., the final hidden states). With ``plain``, fails if
+    a kernel count moved: a substitution that missed would otherwise run
+    the kernels on the plain side."""
+    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
+        kv_write_slots, pool_shape)
+    from paddle_tpu_torch.models import generation
+
+    ad = eng._ad
+    kept = {}
+    real_logits = ad.logits
+
+    def keep_logits(w, x):
+        kept["hidden"] = x
+        return real_logits(w, x)
+
+    stream = []
+
+    def recorded(norm):
+        def fn(x, *args):
+            stream.append(x)
+            return norm(x, *args)
+        return fn
+
+    toks, pos, row_of, qs, ql, cl = first["args"]
+    kp, vp, bt = pools or (eng._kp, eng._vp, first["bt"])
+    saved = generation._rms, generation._ln
+    counts = serving_counts()
+    ad.logits = keep_logits
+    generation._rms, generation._ln = recorded(rms), recorded(ln)
+    try:
+        logits, kp, _ = ad.ragged_chunk(
+            eng._w, toks, pos, row_of, qs, ql, cl, kp, vp, bt, attn=attn)
+    finally:
+        del ad.logits
+        generation._rms, generation._ln = saved
+    if plain:
+        torch.cuda.synchronize()
+        check(serving_counts() == counts, "the plain rerun launched "
+              "kernels: counts %s, before it %s" % (serving_counts(), counts))
+    n_kv, total, page, d = pool_shape(kp[0])
+    bt_tok = bt[row_of.clamp(0, bt.shape[0] - 1).long()]
+    _, slots = kv_write_slots(bt_tok, pos[:, None], page, total)
+    written = [(p["q8"] if isinstance(p, dict) else p)
+               .reshape(n_kv, total * page, d)[:, slots].clone() for p in kp]
+    return logits, kept["hidden"], written, stream
+
+
+def first_step_check(eng, first, logits_tol, hidden_rtol, what):
+    """The first step's logits and final hidden states through the
+    kernels against the same step through the plain versions of every
+    kernel (attention and norms): the logits element by element within
+    ``logits_tol``, the logits and the hidden states token by token in
+    relative L2 within ``hidden_rtol``, printed beside how far attention
+    moves the hidden states. The step is also run again through the
+    kernels with every kernel call held against its plain version on the
+    same inputs (each layer's attention on its own q and pools, each norm
+    on its own x); the residual stream of the two reruns is compared at
+    every layer's input, and the K rows they write: what one layer's
+    rounding difference turns into after all of them."""
+    from paddle_tpu_torch.incubate.nn.cuda import norms
+    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
+        pool_shape, ragged_paged_attention, ragged_paged_attention_ref)
+    from paddle_tpu_torch.models import generation
+
     toks, pos, row_of, qs, ql, cl = first["args"]
     check(bool((cl == ql).all()), "first step carried earlier context")
-    kp = tuple(torch.zeros_like(p) for p in eng._kp)
-    vp = tuple(torch.zeros_like(p) for p in eng._vp)
-    ref, _, _ = ad.ragged_chunk(eng._w, toks, pos, row_of, qs, ql, cl, kp,
-                                vp, first["bt"],
-                                attn=ragged_paged_attention_ref)
+    page = eng.config.block_size
+    n_pages = -(-int(cl.max()) // page)
+
+    def plain_attn(q, kp, vp, bt, *args, **kw):
+        # the step's keys all lie in its rows' first n_pages pages: cut
+        # the gather of the plain version to them
+        return ragged_paged_attention_ref(q, kp, vp, bt[:, :n_pages], *args,
+                                          **kw)
+
+    def no_attn(q, *args, **kw):
+        return torch.zeros_like(q)
+
+    def plain_rms(x, w, eps):
+        return norms.rms_norm_ref(x, w, None, eps)
+
+    errs = {"attention": [], "norm": []}
+
+    def compared_attn(q, kp, vp, bt, *args, **kw):
+        out = ragged_paged_attention(q, kp, vp, bt, *args, **kw)
+        errs["attention"].append(
+            row_err(out, plain_attn(q, kp, vp, bt, *args, **kw))[1])
+        return out
+
+    def compared(kernel, plain):
+        def fn(x, *args):
+            out = kernel(x, *args)
+            errs["norm"].append(norm_ratio(out, plain(x, *args),
+                                           NORM_REL[x.dtype]))
+            return out
+        return fn
+
+    again, _, k_kernel, s_kernel = rerun_first_step(
+        eng, first, compared_attn, compared(generation._rms, plain_rms),
+        compared(generation._ln, norms.layer_norm_ref))
+    ref, ref_h, k_plain, s_plain = rerun_first_step(
+        eng, first, plain_attn, plain_rms, norms.layer_norm_ref, plain=True)
+    _, bare_h, _, _ = rerun_first_step(eng, first, no_attn, plain_rms,
+                                       norms.layer_norm_ref, plain=True)
+    if k_kernel[0].dtype == torch.int8:
+        flips = [(a != b).float().mean().item()
+                 for a, b in zip(k_kernel, k_plain)]
+        written = "K codes written that differ: %.3g%% in layer 0, %.3g%% " \
+            "in the last, %.3g%% at most" % (100 * flips[0],
+                                             100 * flips[-1], 100 * max(flips))
+        # the same step over bf16 pools holding only the step's pages:
+        # how far the two paths drift without int8 codes to flip
+        n_kv, total, _, d = pool_shape(eng._kp[0])
+        used = torch.unique(first["bt"][:, :n_pages].clamp(0, total - 1))
+        compact = torch.zeros(total, dtype=torch.int32, device=used.device)
+        compact[used.long()] = torch.arange(len(used), dtype=torch.int32,
+                                            device=used.device)
+        bt16 = compact[first["bt"].clamp(0, total - 1).long()]
+        dt = eng._w["wte"].dtype
+
+        def bf16_pools():
+            return [torch.zeros(n_kv, len(used), page, d, dtype=dt,
+                                device=used.device)
+                    for _ in range(2 * len(eng._kp))]
+
+        p16 = bf16_pools()
+        _, h16, _, _ = rerun_first_step(eng, first, None, generation._rms,
+                                        generation._ln,
+                                        (p16[::2], p16[1::2], bt16))
+        p16 = bf16_pools()
+        _, h16_ref, _, _ = rerun_first_step(
+            eng, first, plain_attn, plain_rms, norms.layer_norm_ref,
+            (p16[::2], p16[1::2], bt16), plain=True)
+        del p16
+        e16 = ((h16 - h16_ref).float().norm(dim=-1)
+               / h16_ref.float().norm(dim=-1))[pos >= 0]
+        written += "; over bf16 pools the same step's final hidden states " \
+            "differ by %.4g (largest token; median %.3g)" % (
+                e16.max().item(), e16.median().item())
+    else:
+        rel = [rel_l2(a, b) for a, b in zip(k_kernel, k_plain)]
+        written = "K rows written: relative L2 %.3g in layer 0, %.3g in " \
+            "the last" % (rel[0], rel[-1])
     live = pos >= 0
     got, want = first["logits"][live].float(), ref[live].float()
     check(bool(torch.isfinite(got).all()), "non-finite logits")
     err = (got - want).abs().max().item()
+    excess = ((got - want).abs() - logits_tol["atol"]
+              - logits_tol["rtol"] * want.abs()).max().item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    print("engine: first step (%d tokens) logits vs plain attention: "
-          "max_abs_err %.4g (max |logit| %.3g), argmax agreement %.4f"
-          % (int(live.sum()), err, want.abs().max().item(), agree),
-          flush=True)
-    torch.testing.assert_close(got, want, **LOGITS_TOL)
-    return launches
+    h, h_ref, h_bare = (x[live].float() for x in
+                        (first["hidden"], ref_h, bare_h))
+    h_err = ((h - h_ref).norm(dim=-1) / h_ref.norm(dim=-1))
+    moved = ((h_bare - h_ref).norm(dim=-1) / h_ref.norm(dim=-1))
+    att_max, norm_max = max(errs["attention"]), max(errs["norm"])
+    logits_rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+    # the residual stream, kernels vs plain, at each layer's input and at
+    # the final norm: largest per-token relative L2
+    check(len(s_kernel) == len(s_plain), "the two reruns normed %d and %d "
+          "times" % (len(s_kernel), len(s_plain)))
+    drift = [((a[live].float() - b[live].float()).norm(dim=-1)
+              / b[live].float().norm(dim=-1)).max().item()
+             for a, b in zip(s_kernel[::2], s_plain[::2])]
+    print("engine %s: first step, residual stream kernels vs plain (largest "
+          "token's relative L2) at the input of layer 0, 1, ... and at the "
+          "final norm: %s" % (what, " ".join("%.3g" % x for x in drift)))
+    print("engine %s: first step (%d tokens) again through the kernels, each "
+          "call against its plain version on its own inputs: %d attention "
+          "calls, largest error %.4g of its row's RMS; %d norm calls, largest "
+          "error %.3g of its allowance; %s; its logits repeat the main path's "
+          "to %.3g" % (what, int(live.sum()), len(errs["attention"]), att_max,
+                       len(errs["norm"]), norm_max, written,
+                       (again - first["logits"]).abs().max().item()))
+    print("engine %s: first step through the kernels vs the plain versions: "
+          "logits max_abs_err %.4g (max |logit| %.3g, largest excess over "
+          "atol %g + rtol %g of %.3g; largest per-token relative L2 %.4g), "
+          "argmax agreement %.4f; final hidden "
+          "states: largest per-token relative L2 %.4g (median %.3g); "
+          "attention moves them by %.4g (median token; least %.4g)"
+          % (what, err, want.abs().max().item(), logits_tol["atol"],
+             logits_tol["rtol"], excess, logits_rel, agree,
+             h_err.max().item(),
+             h_err.median().item(), moved.median().item(),
+             moved.min().item()), flush=True)
+    check(att_max <= PAGED_ROW_TOL, "a layer's attention is off by %.4g of "
+          "its row's RMS > %g" % (att_max, PAGED_ROW_TOL))
+    check(norm_max <= 1.0, "a norm is off by %.3g of its allowance"
+          % norm_max)
+    check(bool(torch.isfinite(h).all()), "non-finite hidden states")
+    check(h_err.max().item() <= hidden_rtol, "hidden states off by %.4g of "
+          "their norm > %g" % (h_err.max().item(), hidden_rtol))
+    check(logits_rel <= hidden_rtol, "logits off by %.4g of their norm > %g"
+          % (logits_rel, hidden_rtol))
+    torch.testing.assert_close(got, want, **logits_tol)
+    return dict(logits_err=err, logits_rel_l2=logits_rel,
+                hidden_rel_l2=h_err.max().item(),
+                moved_median=moved.median().item(),
+                attention_row_err=att_max, norm_ratio=norm_max,
+                stream_drift=drift)
+
+
+def engine_phase(card):
+    """GPT-3 1.3B serving over bf16 pools: K4 once per layer per step,
+    K7's LayerNorm twice per layer and once before the head."""
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3B
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = gpt3_1p3B()
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(
+        cfg, dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(model, **SERVE_ENGINE)
+    eng.warmup()
+    torch.cuda.synchronize()
+    print("engine: gpt3_1p3B bf16 (%d layers, hidden %d, %d heads, vocab "
+          "%d) built and warmed up in %.2f s"
+          % (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+             cfg.vocab_size, time.perf_counter() - t0), flush=True)
+    prompts, new_tokens = traffic(cfg.vocab_size)
+    run = serve_main_path(eng, prompts, new_tokens)
+    L = cfg.num_layers
+    res = check_served(run, prompts, new_tokens, cfg.vocab_size,
+                       {"K4": L, "K5": 0, "K7 rms_norm": 0,
+                        "K7 layer_norm": 2 * L + 1}, "gpt3_1p3B", card)
+    eng.shutdown()                     # raises on a leaked block
+    res.update(first_step_check(eng, run["first"], LOGITS_TOL,
+                                SERVE_HIDDEN_RTOL, "gpt3_1p3B"))
+    res["launches"] = run["launches"]
+    return res
+
+
+def llama_engine_phase(card, seeds=(0, 1, 2)):
+    """Llama-2 7B (bf16, full width and depth) serving over int8 pools:
+    per step K5 once per layer and K7's RMSNorm twice per layer and once
+    before the head. The main path runs on weights and traffic from seed
+    0; each further seed serves its own weights and trace the same way,
+    so that the first step's limits rest on more than one reading.
+    Returns seed 0's numbers (the others under ``"seeds"``) and the last
+    model (for the profile)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7B
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = llama2_7B()
+    L = cfg.num_layers
+    res = None
+    for seed in seeds:
+        what = "llama2_7B int8" + (" seed %d" % seed if seed else "")
+        t0 = time.perf_counter()
+        model = LlamaForCausalLM(
+            cfg, dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(seed))
+        n_params = sum(p.numel() for p in model.parameters())
+        eng = ServingEngine(model, kv_quant="int8", **SERVE_ENGINE)
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for p in eng._kp + eng._vp for t in p.values())
+        eng.warmup()
+        torch.cuda.synchronize()
+        print("engine: %s bf16 (%d layers, hidden %d, %d heads / %d kv, ffn "
+              "%d, vocab %d, %d parameters) with int8 KV pools of %.2f GB, "
+              "built and warmed up in %.2f s"
+              % (what, cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+                 cfg.num_kv_heads, cfg.intermediate_size, cfg.vocab_size,
+                 n_params, pool_bytes / 1e9, time.perf_counter() - t0),
+              flush=True)
+        prompts, new_tokens = traffic(cfg.vocab_size, seed=seed)
+        run = serve_main_path(eng, prompts, new_tokens)
+        r = check_served(run, prompts, new_tokens, cfg.vocab_size,
+                         {"K4": 0, "K5": L, "K7 rms_norm": 2 * L + 1,
+                          "K7 layer_norm": 0}, what, card)
+        eng.shutdown()                 # raises on a leaked block
+        r.update(first_step_check(eng, run["first"], LLAMA_LOGITS_TOL,
+                                  LLAMA_HIDDEN_RTOL, what))
+        r["launches"] = run["launches"]
+        if res is None:
+            res = dict(r, seeds={})
+        else:
+            res["seeds"][seed] = r
+        del eng, run
+        if seed != seeds[-1]:
+            del model
+        torch.cuda.empty_cache()
+    return res, model
 
 
 # kernel-name fragments -> group, first match wins
 PROFILE_GROUPS = (
     ("flash K1-K3", ("flash_fwd_kernel", "flash_bwd_")),
+    ("K5", ("ragged_paged_attention_kernel<__nv_bfloat16, true>",
+            "ragged_paged_attention_kernel<float, true>")),
     ("K4", ("ragged_paged_attention_kernel",)),
+    ("K7", ("row_norm_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("copies and casts", ("copy",)),
     ("reductions", ("reduce_kernel",)),
@@ -783,22 +1327,17 @@ def print_profile(prof, wall_us, what, card):
     sys.stdout.flush()
 
 
-def profile_phase(card):
-    """Where an engine step's device time goes: a fresh engine serves 8
-    new requests under torch.profiler. Runs after the main path."""
+def profile_phase(card, model, what, **knobs):
+    """Where an engine step's device time goes: a fresh engine on
+    ``model`` serves 8 new requests under torch.profiler. Runs after the
+    main paths."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3B
     from paddle_tpu_torch.serving import ServingEngine
 
-    cfg = gpt3_1p3B()
-    model = GPTForCausalLM(
-        cfg, dtype=torch.bfloat16,
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    eng = ServingEngine(model, max_slots=8, block_size=16, num_blocks=2048,
-                        prefill_chunk=128)
+    eng = ServingEngine(model, **knobs)
     eng.warmup()
-    prompts, new_tokens = traffic(cfg.vocab_size, seed=1, n=8)
+    prompts, new_tokens = traffic(model.config.vocab_size, seed=1, n=8)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -812,7 +1351,8 @@ def profile_phase(card):
     for r in rids:
         eng.result(r)
     eng.shutdown()
-    print_profile(prof, wall_us, "serve(%d steps)" % steps, card)
+    print_profile(prof, wall_us, "serve %s (%d steps)" % (what, steps),
+                  card)
 
 
 def train_profile(step, batch, card, steps=2):
@@ -837,6 +1377,7 @@ def main():
               file=sys.stderr)
         return 1
     from paddle_tpu_torch.incubate.nn.cuda import _build
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3B
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
@@ -856,31 +1397,63 @@ def main():
     sys.stdout.flush()
 
     k4 = kernel_phase(card)
+    k5 = q8_kernel_phase(card)
+    k7 = norm_phase(card)
     flash = flash_kernel_phase(card)
     train_check(card)
     train_launches, step, batch = train_phase(card)
     train_profile(step, batch, card)
     del step, batch
     torch.cuda.empty_cache()
-    launches = engine_phase(card)
-    profile_phase(card)
+    gpt = engine_phase(card)
+    torch.cuda.empty_cache()
+    llama, llama_model = llama_engine_phase(card)
+    profile_phase(card, llama_model, "llama2_7B int8", kv_quant="int8",
+                  **SERVE_ENGINE)
+    del llama_model
+    torch.cuda.empty_cache()
+    gpt_model = GPTForCausalLM(
+        gpt3_1p3B(), dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    profile_phase(card, gpt_model, "gpt3_1p3B", **SERVE_ENGINE)
+    del gpt_model
 
-    at = k4["mixed"]
-    kernels = [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/incubate/nn/csrc/"
-                  "ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:263",
-        "status": "ported",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in k4.values()),
-        "ms": at["ms"], "plain_ms": at["plain_ms"],
-        "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-        "library_ms": at["library_ms"],
-        "at": "mixed: one 128-token prefill chunk + 7 decode rows, "
-              "136-token axis, bf16, 16 heads, d 128, page 16",
-        "mixes": k4}]
+    rpa_src = "paddle_tpu_torch/incubate/nn/csrc/ragged_paged_attention.cu"
+    kernels = []
+    for name, line, runs, at, launches, shape in (
+            ("ragged_paged_attention", 263, k4, "mixed",
+             gpt["launches"]["K4"], "136-token axis, bf16, 16 heads, d 128, "
+             "page 16 (GPT-3 1.3B serving)"),
+            ("ragged_paged_attention_q8", 303, k5, "mixed",
+             llama["launches"]["K5"], "136-token axis, bf16 q, int8 pools, "
+             "32 heads, d 128, page 16 (Llama-2 7B serving)")):
+        r = runs[at]
+        kernels.append({
+            "name": name, "route": "cuda", "source": rpa_src,
+            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:%d"
+                        % line, "status": "ported", "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in runs.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "at": "mixed: one 128-token prefill chunk + 7 decode rows, "
+                  + shape, "mixes": runs})
+    for name, line, case, kinds, launches, shape in (
+            ("rms_norm", 32, "rms bfloat16 d 4096 n 136", ("rms", "rms_bias"),
+             llama["launches"]["K7 rms_norm"], "Llama-2 7B serving"),
+            ("layer_norm", 49, "ln bfloat16 d 2048 n 136", ("ln",),
+             gpt["launches"]["K7 layer_norm"], "GPT-3 1.3B serving")):
+        r = k7[case]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/incubate/nn/csrc/norms.cu",
+            "replaces": "paddle_tpu/incubate/nn/pallas/norms.py:%d" % line,
+            "status": "ported", "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "at": "%s: 136 rows (%s)" % (case, shape),
+            "cases": {k: v for k, v in k7.items() if k.split()[0] in kinds}})
     for kname, name, line in (("K1", "flash_fwd", 53),
                               ("K2", "flash_bwd_fused", 279),
                               ("K3", "flash_bwd_split", 168)):
@@ -894,6 +1467,8 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "training shapes: b 8, s 1024, 16 heads, d 128, bf16, "
                   "causal"})
+    print(json.dumps({"serving": {"gpt3_1p3B": gpt,
+                                  "llama2_7B_int8": llama}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

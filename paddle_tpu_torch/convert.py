@@ -1,9 +1,9 @@
 """Weights and optimizer state from the JAX package into the port.
 
-The port's GPT keeps the JAX package's parameter names and Paddle's
-``[in, out]`` linear layout, and its optimizer keeps the JAX state
-layout, so the conversion is a copy: this module is the one place that
-knows the two trees line up.
+The port's GPT and Llama keep the JAX package's parameter names and
+Paddle's ``[in, out]`` linear layout, and its optimizer keeps the JAX
+state layout, so the conversion is a copy: this module is the one place
+that knows the two trees line up.
 """
 from __future__ import annotations
 

@@ -1,9 +1,14 @@
 // Ragged paged attention for Hopper (sm_90a): mixed prefill + decode rows
 // over one paged KV pool, in one launch.
 //
-// Replaces the TPU kernel `_ragged_kernel` (with `_ragged_accumulate`) of
-// paddle_tpu/incubate/nn/pallas/paged_attention.py, reached there through
-// `ragged_paged_attention`. Same layouts and semantics:
+// Replaces two TPU kernels of paddle_tpu/incubate/nn/pallas/
+// paged_attention.py, both reached there through `ragged_paged_attention`:
+// `_ragged_kernel` (with `_ragged_accumulate`) over a bf16 or f32 pool
+// (rpa_launch), and `_ragged_kernel_q8` over an int8 pool (rpa_q8_launch),
+// whose pages are {"q8": int8 [n_kv, total_pages, page, d], "s": f32
+// [n_kv, total_pages, page]} and whose key rows decode by the one rule of
+// `_dequant`: value = float(q8) * s (the row's scale). Same layouts and
+// semantics:
 //
 //   q            [n_tokens, n_heads, d]           flat token axis
 //   k/v pages    [n_kv, total_pages, page, d]
@@ -20,11 +25,12 @@
 // head share its pages.
 //
 // What bounds it: on the serving path the kernel reads every live row's
-// K and V once per layer, sum_r cl[r] * n_kv * d * 2 (K and V) * 2 bytes
-// in bf16, and does 4 * d flops per (query head, key) pair. A decode row
-// does 4 flops per byte, far below the ~295 flops/byte at which an H100's
-// bf16 tensor cores, not its 3.35 TB/s memory, would be the limit, so the
-// kernel is bound by the bytes of K/V it must read.
+// K and V once per layer, sum_r cl[r] * n_kv * 2 (K and V) * (2 d bytes in
+// bf16, or d + 4 bytes in int8 with the row's f32 scale), and does 4 * d
+// flops per (query head, key) pair. A decode row does 2-4 flops per byte,
+// far below the ~295 flops/byte at which an H100's bf16 tensor cores, not
+// its 3.35 TB/s memory, would be the limit, so the kernel is bound by the
+// bytes of K/V it must read; the int8 pool halves them.
 //
 // What the design does about that, kept simple on purpose:
 // * The TPU grid ran in order and kept one scratch that spanned the whole
@@ -37,7 +43,10 @@
 //   32 keys (one per lane) at a time: the 32 K rows and 32 V rows are
 //   staged in shared memory as f32 through 16-byte loads, with a padded
 //   row stride so that each lane reading its own key row hits its own
-//   bank. Each page is read once per tile.
+//   bank. Each page is read once per tile. The int8 pool differs only
+//   here (template flag kQ8): a 16-byte load brings 16 int8 values of a
+//   row (8 loads a row at d = 128, 4 at d = 64), which are decoded with
+//   the row's scale as they are staged, so the rest of the kernel is one.
 // * Each warp owns 4 query vectors and keeps their online softmax
 //   (m, l, acc) in f32 registers, with the guarded -inf arithmetic of
 //   `_ragged_accumulate`: a fully masked step keeps m at -inf and adds
@@ -81,11 +90,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// kQ8: the pools are int8 with one f32 scale per (kv head, page, slot);
+// otherwise they hold T, and the scales are not read.
+template <typename T, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ block_tables,
+    const T* __restrict__ q, const void* __restrict__ k_pages,
+    const void* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
     const int* __restrict__ context_lens, const int* __restrict__ query_lens,
     const int* __restrict__ q_starts, T* __restrict__ out, int n_tokens,
     int n_heads, int d, int total_pages, int page, int pages_per_seq,
@@ -139,7 +151,8 @@ ragged_paged_attention_kernel(
     for (int r = 0; r < kMaxR; ++r) acc[i][r] = 0.f;
   }
 
-  constexpr int kVec = 16 / sizeof(T);         // elements per 16-byte load
+  // pool elements per 16-byte load
+  constexpr int kVec = kQ8 ? 16 : 16 / (int)sizeof(T);
   const int vec_per_row = d / kVec;
   const size_t head_base = (size_t)kvh * total_pages;
 
@@ -153,16 +166,33 @@ ragged_paged_attention_kernel(
       if (t < kv_end) {
         int pg = bt[t / page];
         pg = min(max(pg, 0), total_pages - 1);
-        const size_t off =
-            ((head_base + pg) * page + (t % page)) * (size_t)d + seg * kVec;
-        const uint4 kraw = *reinterpret_cast<const uint4*>(k_pages + off);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(v_pages + off);
-        const T* kx = reinterpret_cast<const T*>(&kraw);
-        const T* vx = reinterpret_cast<const T*>(&vraw);
+        const size_t slot = (head_base + pg) * page + (t % page);
+        const size_t off = slot * (size_t)d + seg * kVec;
+        if constexpr (kQ8) {
+          const uint4 kraw = *reinterpret_cast<const uint4*>(
+              static_cast<const int8_t*>(k_pages) + off);
+          const uint4 vraw = *reinterpret_cast<const uint4*>(
+              static_cast<const int8_t*>(v_pages) + off);
+          const int8_t* kx = reinterpret_cast<const int8_t*>(&kraw);
+          const int8_t* vx = reinterpret_cast<const int8_t*>(&vraw);
+          const float k_s = k_scales[slot], v_s = v_scales[slot];
 #pragma unroll
-        for (int w = 0; w < kVec; ++w) {
-          kd[w] = to_f32(kx[w]);
-          vd[w] = to_f32(vx[w]);
+          for (int w = 0; w < kVec; ++w) {     // _dequant: q8 * s, in f32
+            kd[w] = (float)kx[w] * k_s;
+            vd[w] = (float)vx[w] * v_s;
+          }
+        } else {
+          const uint4 kraw = *reinterpret_cast<const uint4*>(
+              static_cast<const T*>(k_pages) + off);
+          const uint4 vraw = *reinterpret_cast<const uint4*>(
+              static_cast<const T*>(v_pages) + off);
+          const T* kx = reinterpret_cast<const T*>(&kraw);
+          const T* vx = reinterpret_cast<const T*>(&vraw);
+#pragma unroll
+          for (int w = 0; w < kVec; ++w) {
+            kd[w] = to_f32(kx[w]);
+            vd[w] = to_f32(vx[w]);
+          }
         }
       } else {                                 // no garbage reaches acc
 #pragma unroll
@@ -238,8 +268,9 @@ ragged_paged_attention_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool kQ8>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
+                   const float* k_scales, const float* v_scales,
                    const int* block_tables, const int* context_lens,
                    const int* query_lens, const int* q_starts, void* out,
                    int n_tokens, int n_heads, int n_kv, int d,
@@ -250,14 +281,14 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                       sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ragged_paged_attention_kernel<T>,
+        ragged_paged_attention_kernel<T, kQ8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((n_tokens + tile_tokens - 1) / tile_tokens, n_kv, n_rows);
-  ragged_paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), block_tables, context_lens, query_lens,
+  ragged_paged_attention_kernel<T, kQ8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), k_pages, v_pages, k_scales, v_scales,
+      block_tables, context_lens, query_lens,
       q_starts, static_cast<T*>(out), n_tokens, n_heads, d, total_pages,
       page, pages_per_seq, group, tile_tokens, scale);
   return cudaGetLastError();
@@ -279,14 +310,36 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
                float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)launch<__nv_bfloat16>(
-        q, k_pages, v_pages, block_tables, context_lens, query_lens,
-        q_starts, out, n_tokens, n_heads, n_kv, d, total_pages, page,
-        n_rows, pages_per_seq, tile_tokens, scale, s);
-  return (int)launch<float>(q, k_pages, v_pages, block_tables, context_lens,
-                            query_lens, q_starts, out, n_tokens, n_heads,
-                            n_kv, d, total_pages, page, n_rows,
-                            pages_per_seq, tile_tokens, scale, s);
+    return (int)launch<__nv_bfloat16, false>(
+        q, k_pages, v_pages, nullptr, nullptr, block_tables, context_lens,
+        query_lens, q_starts, out, n_tokens, n_heads, n_kv, d, total_pages,
+        page, n_rows, pages_per_seq, tile_tokens, scale, s);
+  return (int)launch<float, false>(
+      q, k_pages, v_pages, nullptr, nullptr, block_tables, context_lens,
+      query_lens, q_starts, out, n_tokens, n_heads, n_kv, d, total_pages,
+      page, n_rows, pages_per_seq, tile_tokens, scale, s);
+}
+
+// The same over an int8 pool: k8/v8 int8 [n_kv, total_pages, page, d] and
+// their scales ks/vs f32 [n_kv, total_pages, page]; q and out bf16
+// (is_bf16) or f32. The caller has also checked that d is a multiple of 16.
+int rpa_q8_launch(const void* q, const void* k8, const float* ks,
+                  const void* v8, const float* vs, const int* block_tables,
+                  const int* context_lens, const int* query_lens,
+                  const int* q_starts, void* out, int n_tokens, int n_heads,
+                  int n_kv, int d, int total_pages, int page, int n_rows,
+                  int pages_per_seq, int tile_tokens, float scale,
+                  int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)launch<__nv_bfloat16, true>(
+        q, k8, v8, ks, vs, block_tables, context_lens, query_lens, q_starts,
+        out, n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
+        pages_per_seq, tile_tokens, scale, s);
+  return (int)launch<float, true>(
+      q, k8, v8, ks, vs, block_tables, context_lens, query_lens, q_starts,
+      out, n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
+      pages_per_seq, tile_tokens, scale, s);
 }
 
 const char* rpa_error_string(int err) {

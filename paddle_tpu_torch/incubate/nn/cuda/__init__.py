@@ -4,10 +4,13 @@ kernel is compiled on its first launch."""
 from .flash_attn import (flash_attention, flash_attention_ref, flash_bwd,
                          flash_bwd_fused, flash_bwd_ref, flash_bwd_split,
                          flash_fwd, flash_fwd_ref)
-from .paged_attention import (paged_kv_write_chunk, ragged_paged_attention,
+from .norms import layer_norm, layer_norm_ref, rms_norm, rms_norm_ref
+from .paged_attention import (paged_kv_write_chunk, quantize_kv_pages,
+                              ragged_paged_attention,
                               ragged_paged_attention_ref)
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
-           "paged_kv_write_chunk", "flash_attention", "flash_attention_ref",
+           "paged_kv_write_chunk", "quantize_kv_pages", "flash_attention", "flash_attention_ref",
            "flash_fwd", "flash_fwd_ref", "flash_bwd", "flash_bwd_fused",
-           "flash_bwd_split", "flash_bwd_ref"]
+           "flash_bwd_split", "flash_bwd_ref", "rms_norm", "rms_norm_ref",
+           "layer_norm", "layer_norm_ref"]

@@ -1,12 +1,15 @@
 """Ragged paged attention over a paged KV pool, and the pool writes.
 
-Port of ``paddle_tpu/incubate/nn/pallas/paged_attention.py`` for the fp
-pools of the serving path. Layouts are the JAX package's:
+Port of ``paddle_tpu/incubate/nn/pallas/paged_attention.py`` for the
+ragged serving step. Layouts are the JAX package's:
 
   q:            [n_tokens, num_heads, head_dim] -- flat token axis, rows
                 packed contiguously (row r owns tokens q_starts[r] ..
                 q_starts[r] + query_lens[r])
-  k/v_pages:    [num_kv_heads, total_pages, page_size, head_dim]
+  k/v_pages:    fp pool [num_kv_heads, total_pages, page_size, head_dim]
+                (bf16 or f32), or int8 pool ``{"q8": int8 of that shape,
+                "s": f32 [num_kv_heads, total_pages, page_size]}`` whose
+                rows decode by :func:`_dequant` (value = q8 * s)
   block_tables: [n_rows, pages_per_seq] int32
   context_lens: [n_rows] int32 -- KV length INCLUDING this step's tokens
   query_lens:   [n_rows] int32 -- 1 for a decode row, the chunk length for
@@ -14,10 +17,13 @@ pools of the serving path. Layouts are the JAX package's:
   q_starts:     [n_rows] int32 -- exclusive prefix sum of query_lens
   row_of:       [n_tokens] int32 -- owning row per token, -1 for padding
 
-:func:`ragged_paged_attention` launches the hand-written Hopper kernel
-(``csrc/ragged_paged_attention.cu``) on CUDA tensors and takes the plain
-PyTorch version, :func:`ragged_paged_attention_ref`, only for tensors on
-the CPU. The int8 ``{"q8","s"}`` pools are not ported yet.
+:func:`ragged_paged_attention` launches a hand-written Hopper kernel
+(``csrc/ragged_paged_attention.cu``): the counterpart of the TPU kernel
+``_ragged_kernel`` (K4) over an fp pool, of ``_ragged_kernel_q8`` (K5)
+over an int8 pool, each with its own launch count. Both take CUDA
+tensors only and raise on anything else; the plain PyTorch version,
+:func:`ragged_paged_attention_ref`, serves the CPU (the serving step's
+``_ragged_attn`` chooses between them).
 """
 from __future__ import annotations
 
@@ -29,10 +35,42 @@ import torch
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
-           "paged_kv_write_chunk", "kv_write_slots", "kv_scatter"]
+           "paged_kv_write_chunk", "kv_write_slots", "kv_scatter",
+           "quantize_kv_pages", "pool_shape"]
 
 _KERNEL = "ragged_paged_attention"
 _MAX_D = 256
+
+
+def _dequant(q8, s, dtype=torch.float32):
+    """The one int8-page decode rule (the JAX package's ``_dequant``):
+    ``value = q8 * s`` with the per-row scale broadcast over the head
+    dim. K5 decodes each staged key row by the same rule, in f32."""
+    return q8.to(dtype) * s[..., None].to(dtype)
+
+
+def _quantize_rows(x):
+    """Per-row symmetric int8 over the last axis (the JAX package's
+    ``_quantize_rows``): ``s = max|x| / 127`` floored at 1e-8, codes
+    ``round(x / s)`` clipped to +-127. ``torch.round`` rounds half to
+    even, as ``jnp.round`` does, so both packages write the same codes."""
+    xf = x.float()
+    s = (xf.abs().amax(-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_kv_pages(pages):
+    """A bf16/f32 pool ``[n_kv, pages, page, d]`` -> the int8 pool
+    ``{"q8": int8 [n_kv, pages, page, d], "s": f32 [n_kv, pages,
+    page]}``."""
+    q, s = _quantize_rows(pages)
+    return {"q8": q, "s": s}
+
+
+def pool_shape(pages) -> Tuple[int, int, int, int]:
+    """``(n_kv, total_pages, page, d)`` of an fp or int8 pool."""
+    return tuple((pages["q8"] if isinstance(pages, dict) else pages).shape)
 
 
 def _token_rows(q_starts: torch.Tensor, query_lens: torch.Tensor,
@@ -51,24 +89,31 @@ def _paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
     """Gather each sequence's pages, then masked f32 attention. Mirrors
     the JAX package's ``_xla_paged_attention``: sequences with
     ``context_lens == 0`` get zeros (their softmax over nothing would be
-    0/0), and block-table ids are clamped into the pool."""
+    0/0), block-table ids are clamped into the pool, and int8 pools
+    decode through :func:`_dequant`."""
     bsz, n_heads, d = q.shape
-    n_kv, total_pages, page, _ = k_pages.shape
+    n_kv, total_pages, page, _ = pool_shape(k_pages)
     group = n_heads // n_kv
     max_len = block_tables.shape[1] * page
     bt = block_tables.clamp(0, total_pages - 1).long()
 
-    def gather(pages):                 # -> [b, n_kv, max_len, d] f32
-        g = pages[:, bt]               # [n_kv, b, pp, page, d]
-        return g.movedim(1, 0).reshape(bsz, n_kv, max_len, d).float()
+    def gather(pages):                 # -> [b, n_kv, max_len, ...]
+        g = pages[:, bt]               # [n_kv, b, pp, page, ...]
+        return g.movedim(1, 0).reshape((bsz, n_kv, max_len)
+                                       + tuple(pages.shape[3:]))
+
+    def rows(pages):                   # -> [b, n_kv, max_len, d] f32
+        if isinstance(pages, dict):
+            return _dequant(gather(pages["q8"]), gather(pages["s"]))
+        return gather(pages).float()
 
     qg = q.reshape(bsz, n_kv, group, d).float()
-    s = torch.einsum("bkgd,bktd->bkgt", qg, gather(k_pages)) * scale
+    s = torch.einsum("bkgd,bktd->bkgt", qg, rows(k_pages)) * scale
     mask = torch.arange(max_len, device=q.device)[None, None, None, :] \
         < context_lens[:, None, None, None]
     s = s.masked_fill(~mask, float("-inf"))
     w = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
-    out = torch.einsum("bkgt,bktd->bkgd", w, gather(v_pages))
+    out = torch.einsum("bkgt,bktd->bkgd", w, rows(v_pages))
     return out.reshape(bsz, n_heads, d).to(q.dtype)
 
 
@@ -110,19 +155,39 @@ def check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
                         query_lens, q_starts) -> None:
     """Raise ``ValueError`` on anything the kernel does not take: it
     reads raw pointers, so every shape, dtype, layout and alignment is
-    settled here."""
-    if q.dim() != 3 or k_pages.dim() != 4:
+    settled here. fp pools share q's type (bf16 or f32); int8 pools are
+    ``{"q8": int8, "s": f32}`` dicts under a bf16 or f32 q."""
+    quant = isinstance(k_pages, dict)
+    if quant != isinstance(v_pages, dict):
+        raise ValueError("k and v pools must both be fp or both int8")
+    if q.dim() != 3 or len(pool_shape(k_pages)) != 4:
         raise ValueError("q must be [T, heads, d] and the pools "
                          "[n_kv, pages, page, d]")
     n_tokens, n_heads, d = q.shape
-    n_kv, _, page, dk = k_pages.shape
-    if tuple(v_pages.shape) != tuple(k_pages.shape) or dk != d:
+    n_kv, total_pages, page, dk = pool_shape(k_pages)
+    if pool_shape(v_pages) != pool_shape(k_pages) or dk != d:
         raise ValueError("k/v pools must both be [n_kv, pages, page, %d]"
                          % d)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError("kernel takes bf16 or f32, got %s" % q.dtype)
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError("q, k_pages and v_pages must share one dtype")
+    if quant:
+        pools = (("k_pages.q8", k_pages["q8"]), ("k_pages.s", k_pages["s"]),
+                 ("v_pages.q8", v_pages["q8"]), ("v_pages.s", v_pages["s"]))
+        for name, t in pools:
+            want = torch.int8 if name.endswith("q8") else torch.float32
+            if t.dtype != want:
+                raise ValueError("%s must be %s, got %s"
+                                 % (name, want, t.dtype))
+        for name, t in pools[1::2]:
+            if tuple(t.shape) != (n_kv, total_pages, page):
+                raise ValueError("%s must be [n_kv, pages, page]" % name)
+        if d % 16:
+            raise ValueError("an int8 pool's head_dim must be a multiple "
+                             "of 16 (16-byte row loads), got %d" % d)
+    else:
+        pools = (("k_pages", k_pages), ("v_pages", v_pages))
+        if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+            raise ValueError("q, k_pages and v_pages must share one dtype")
     if d > _MAX_D or d % 8:
         raise ValueError("head_dim must be a multiple of 8 and <= %d, "
                          "got %d" % (_MAX_D, d))
@@ -142,20 +207,18 @@ def check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
                     ("query_lens", query_lens), ("q_starts", q_starts)):
         if tuple(t.shape) != (n_rows,):
             raise ValueError("%s must be [%d]" % (name, n_rows))
-    tensors = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-               ("block_tables", block_tables),
-               ("context_lens", context_lens), ("query_lens", query_lens),
-               ("q_starts", q_starts))
-    for name, t in tensors[3:]:
+    meta = (("block_tables", block_tables), ("context_lens", context_lens),
+            ("query_lens", query_lens), ("q_starts", q_starts))
+    for name, t in meta:
         if t.dtype != torch.int32:
             raise ValueError("%s must be int32, got %s" % (name, t.dtype))
-    for name, t in tensors:
+    for name, t in (("q", q),) + pools + meta:
         if t.device != q.device:
             raise ValueError("%s is on %s, q on %s"
                              % (name, t.device, q.device))
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
-    for name, t in tensors[:3]:
+    for name, t in (("q", q),) + pools:
         if t.data_ptr() % 16:
             raise ValueError("%s must be 16-byte aligned" % name)
 
@@ -172,17 +235,61 @@ def _bind() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rpa_launch.argtypes = [p] * 8 + [i] * 9 + [ctypes.c_float, i, p]
         lib.rpa_launch.restype = i
+        lib.rpa_q8_launch.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float,
+                                                           i, p]
+        lib.rpa_q8_launch.restype = i
         lib.rpa_error_string.argtypes = [i]
         lib.rpa_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def _launch(q, k_pages, v_pages, block_tables, context_lens, query_lens,
+            q_starts, scale):
+    """Check, then launch K4 (fp pool) or K5 (int8 pool); returns the
+    output and whether a kernel was launched."""
+    if q.device.type != "cuda":
+        raise ValueError("ragged_paged_attention takes CUDA tensors, got "
+                         "%s (ragged_paged_attention_ref serves the CPU)"
+                         % q.device)
+    n_tokens, n_heads, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    if q_starts is None:
+        q_starts = _q_starts(query_lens)
+    check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
+                        query_lens, q_starts)
+    out = torch.zeros_like(q)          # padding tokens stay exactly zero
+    n_kv, total_pages, page, _ = pool_shape(k_pages)
+    n_rows, pages_per_seq = block_tables.shape
+    if n_tokens == 0 or n_rows == 0:
+        return out, False
+    lib = _bind()
+    if isinstance(k_pages, dict):
+        fn = lib.rpa_q8_launch
+        pools = (k_pages["q8"], k_pages["s"], v_pages["q8"], v_pages["s"])
+    else:
+        fn = lib.rpa_launch
+        pools = (k_pages, v_pages)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                block_tables.data_ptr(), context_lens.data_ptr(),
+                query_lens.data_ptr(), q_starts.data_ptr(), out.data_ptr(),
+                n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
+                pages_per_seq, _tile_tokens(n_heads // n_kv), float(scale),
+                int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError("ragged_paged_attention launch failed: %s"
+                           % lib.rpa_error_string(rc).decode())
+    return out, True
+
+
 def ragged_paged_attention(q, k_pages, v_pages, block_tables, context_lens,
                            query_lens, q_starts=None, row_of=None,
                            scale=None):
     """Attention for a RAGGED batch mixing prefill and decode rows over
-    one paged fp KV pool, in one launch.
+    one paged KV pool, in one launch, on CUDA tensors.
 
     Token j of row r attends to KV positions
     ``< context_lens[r] - query_lens[r] + j + 1`` (causal within the
@@ -191,49 +298,27 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     pool; the ``num_heads // num_kv_heads`` query heads of a group share
     one kv head.
 
-    CPU tensors take :func:`ragged_paged_attention_ref`. CUDA tensors
-    launch the Hopper kernel (bf16 or f32, contiguous, head_dim <= 256,
-    page size a multiple of 8, int32 metadata) or raise; ``row_of`` is
-    not needed there, since the kernel reads each row's span from
-    ``q_starts``/``query_lens``. Each launch adds one to
-    ``ragged_paged_attention.launches``."""
-    n_tokens, n_heads, d = q.shape
-    if scale is None:
-        scale = d ** -0.5
-    if q_starts is None:
-        q_starts = _q_starts(query_lens)
-    if q.device.type == "cpu":
-        return ragged_paged_attention_ref(
-            q, k_pages, v_pages, block_tables, context_lens, query_lens,
-            q_starts, row_of, scale)
-    if q.device.type != "cuda":
-        raise ValueError("ragged_paged_attention runs on cuda or cpu, "
-                         "not %s" % q.device)
-    check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
-                        query_lens, q_starts)
-    out = torch.zeros_like(q)          # padding tokens stay exactly zero
-    n_kv, total_pages, page, _ = k_pages.shape
-    n_rows, pages_per_seq = block_tables.shape
-    if n_tokens == 0 or n_rows == 0:
-        return out
-    lib = _bind()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.rpa_launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(),
-            query_lens.data_ptr(), q_starts.data_ptr(), out.data_ptr(),
-            n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
-            pages_per_seq, _tile_tokens(n_heads // n_kv), float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError("ragged_paged_attention launch failed: %s"
-                           % lib.rpa_error_string(rc).decode())
-    ragged_paged_attention.launches += 1
+    An fp pool launches K4 (bf16 or f32, contiguous, head_dim <= 256,
+    page size a multiple of 8, int32 metadata) and adds one to
+    ``ragged_paged_attention.launches``; an int8 pool ``{"q8": int8
+    [n_kv, pages, page, d], "s": f32 [n_kv, pages, page]}`` launches K5
+    (the counterpart of ``_ragged_kernel_q8``: each key row decodes as
+    ``q8 * s``; q bf16 or f32, head_dim a multiple of 16) and adds one to
+    ``ragged_paged_attention.launches_q8``. Anything the kernels do not
+    take, CPU tensors included, raises ``ValueError``. ``row_of`` is not
+    needed: the kernels read each row's span from
+    ``q_starts``/``query_lens``."""
+    out, launched = _launch(q, k_pages, v_pages, block_tables,
+                            context_lens, query_lens, q_starts, scale)
+    if isinstance(k_pages, dict):
+        ragged_paged_attention.launches_q8 += launched
+    else:
+        ragged_paged_attention.launches += launched
     return out
 
 
-ragged_paged_attention.launches = 0
+ragged_paged_attention.launches = 0        # K4
+ragged_paged_attention.launches_q8 = 0     # K5
 
 
 def kv_write_slots(block_tables: torch.Tensor, pos: torch.Tensor,
@@ -258,13 +343,22 @@ def kv_write_slots(block_tables: torch.Tensor, pos: torch.Tensor,
     return rows, slots[rows]
 
 
-def kv_scatter(pages: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+def kv_scatter(pages, new: torch.Tensor, rows: torch.Tensor,
                slots: torch.Tensor) -> None:
     """Write ``new [b*g, n_kv, d]`` (rows ``rows`` of it) into ``pages``
-    ``[n_kv, total_pages, page, d]`` at flat ``slots``, in place."""
-    n_kv, total_pages, page, d = pages.shape
+    ``[n_kv, total_pages, page, d]`` at flat ``slots``, in place. An int8
+    pool gets the rows quantized at write time (:func:`_quantize_rows`):
+    codes into ``"q8"``, their scales into ``"s"``."""
+    n_kv, total_pages, page, d = pool_shape(pages)
+    kept = new[rows].transpose(0, 1)               # [n_kv, M, d]
+    if isinstance(pages, dict):
+        q8, s = _quantize_rows(kept)
+        pages["q8"].view(n_kv, total_pages * page, d).index_copy_(
+            1, slots, q8)
+        pages["s"].view(n_kv, total_pages * page).index_copy_(1, slots, s)
+        return
     flat = pages.view(n_kv, total_pages * page, d)
-    flat.index_copy_(1, slots, new[rows].to(pages.dtype).transpose(0, 1))
+    flat.index_copy_(1, slots, kept.to(pages.dtype))
 
 
 def paged_kv_write_chunk(k_pages, v_pages, k_new, v_new, block_tables,
@@ -274,11 +368,12 @@ def paged_kv_write_chunk(k_pages, v_pages, k_new, v_new, block_tables,
     ``k/v_new [b, g, n_kv, d]`` are g tokens per row at positions
     ``pos [b, g]``; ``block_tables [b, pages_per_seq]``. Rows with
     ``pos < 0`` or past the block-table window are DROPPED (idle slots,
-    padding). Unlike the JAX version, which returns new pools, this
-    writes the pools IN PLACE, so that a step never copies the whole
-    pool; it returns the same ``(k_pages, v_pages)`` for the same call
-    shape."""
-    n_kv, total_pages, page, d = k_pages.shape
+    padding). Pools may be fp tensors or int8 ``{"q8", "s"}`` dicts
+    (rows quantized at write time, per-row scales in ``"s"``). Unlike
+    the JAX version, which returns new pools, this writes the pools IN
+    PLACE, so that a step never copies the whole pool; it returns the
+    same ``(k_pages, v_pages)`` for the same call shape."""
+    n_kv, total_pages, page, d = pool_shape(k_pages)
     b, g = pos.shape
     rows, slots = kv_write_slots(block_tables, pos, page, total_pages)
     kv_scatter(k_pages, k_new.reshape(b * g, n_kv, d), rows, slots)

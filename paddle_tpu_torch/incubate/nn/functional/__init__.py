@@ -1,4 +1,6 @@
 """Functional layer of the port's incubating operators."""
 from .flash_attention import flash_attention, scaled_dot_product_attention
+from .fused_ops import fused_rms_norm, layer_norm, rms_norm
 
-__all__ = ["flash_attention", "scaled_dot_product_attention"]
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "fused_rms_norm", "rms_norm", "layer_norm"]

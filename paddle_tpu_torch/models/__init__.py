@@ -1,7 +1,11 @@
-"""Model families of the port (so far GPT-3: training and serving)."""
-from .generation import GPTDecodeAdapter
+"""Model families of the port: GPT-3 (training and serving) and Llama-2
+(serving)."""
+from .generation import GPTDecodeAdapter, LlamaDecodeAdapter
 from .gpt import (GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
                   gpt3_125M, gpt3_1p3B, gpt_tiny)
+from .llama import LlamaConfig, LlamaForCausalLM, llama2_7B, llama_tiny
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTDecodeAdapter",
-           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B"]
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B",
+           "LlamaConfig", "LlamaForCausalLM", "LlamaDecodeAdapter",
+           "llama_tiny", "llama2_7B"]

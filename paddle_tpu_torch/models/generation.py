@@ -1,11 +1,13 @@
-"""The GPT serving step over paged KV pools, and the sampler.
+"""The GPT and Llama serving steps over paged KV pools, and the sampler.
 
 Port of the serving half of ``paddle_tpu/models/generation.py``: the
-LayerNorm ``_ln``, the fp ``_linear``, ``GPTDecodeAdapter.ragged_chunk``
-(one ragged mixed prefill + decode step), ``_ragged_attn`` and
+norms ``_ln`` and ``_rms`` (on the card through the Hopper row-norm
+kernel K7), ``_rope``, the fp ``_linear``, ``GPTDecodeAdapter`` and
+``LlamaDecodeAdapter`` with their ``ragged_chunk`` (one ragged mixed
+prefill + decode step over fp or int8 pools), ``_ragged_attn`` and
 ``_sample``. PyTorch runs eagerly, so there is no jit: the pools are
 written in place and the step is a plain function of tensors.
-``generate()``, beam search, speculative decoding and weight / KV
+``generate()``, beam search, speculative decoding and weight
 quantization are later slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -15,18 +17,43 @@ from typing import Callable, Optional, Union
 import torch
 import torch.nn.functional as F
 
-from ..incubate.nn.cuda.paged_attention import (kv_scatter, kv_write_slots,
-                                                 ragged_paged_attention)
+from ..incubate.nn.cuda.paged_attention import (
+    kv_scatter, kv_write_slots, pool_shape, ragged_paged_attention,
+    ragged_paged_attention_ref)
+from ..incubate.nn.functional.fused_ops import layer_norm, rms_norm
 
-__all__ = ["GPTDecodeAdapter"]
+__all__ = ["GPTDecodeAdapter", "LlamaDecodeAdapter"]
 
 
 def _ln(x, w, b, eps):
-    x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = x32.var(-1, unbiased=False, keepdim=True)
-    return ((x32 - mu) * torch.rsqrt(var + eps) * w.float()
-            + b.float()).to(x.dtype)
+    """LayerNorm with f32 statistics (the JAX ``_ln``; K7 on the card)."""
+    return layer_norm(x, w, b, eps)
+
+
+def _rms(x, w, eps):
+    """RMSNorm with f32 statistics (the JAX ``_rms``; K7 on the card)."""
+    return rms_norm(x, w, None, eps)
+
+
+def _rope_angles(pos, head_dim, base):
+    """cos and sin ``[T, 1, head_dim // 2]`` of the f32 angles ``pos *
+    base^(-i/half)`` for positions ``pos [T]``: the same for every layer
+    of a step, so a step computes them once."""
+    half = head_dim // 2
+    freqs = base ** (-torch.arange(half, dtype=torch.float32,
+                                   device=pos.device) / half)
+    ang = pos.float()[:, None, None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope(x, cos, sin):
+    """Rotate ``x [T, nh, hd]`` by the angles of :func:`_rope_angles`:
+    the half-split rotation in f32, rounded back to x's type (the JAX
+    ``_rope``)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
 
 
 def _linear(x, w, b=None):
@@ -96,14 +123,16 @@ class GPTDecodeAdapter:
         (< 0 = padding: write dropped, output ignored); block_tables
         [n_rows, P] is per ROW; context_lens[r] counts the row's KV
         INCLUDING this step's tokens. The per-layer pools are written IN
-        PLACE. ``attn`` replaces the attention function (default: the
-        Hopper kernel's wrapper, :func:`ragged_paged_attention`; pass
-        ``ragged_paged_attention_ref`` to run the plain version).
-        Returns (logits [T, V], kpages, vpages)."""
+        PLACE; they may be fp tensors or int8 ``{"q8", "s"}`` dicts.
+        ``attn`` replaces the attention function (default: the Hopper
+        kernels' wrapper :func:`ragged_paged_attention` on the card, its
+        plain version on the CPU; pass ``ragged_paged_attention_ref`` to
+        run the plain version on the card). Returns (logits [T, V],
+        kpages, vpages)."""
         nh, hd, dt = self.num_heads, self.head_dim, self.dtype
         T = toks.shape[0]
         n_rows = block_tables.shape[0]
-        _, total_pages, page, _ = kpages[0].shape
+        _, total_pages, page, _ = pool_shape(kpages[0])
         bt_tok = block_tables[row_of.clamp(0, n_rows - 1).long()]
         # where this step's k/v rows land: the same slots in every layer
         rows, slots = kv_write_slots(bt_tok, pos[:, None], page,
@@ -128,13 +157,107 @@ class GPTDecodeAdapter:
         return self.logits(w, x), kpages, vpages
 
 
+class LlamaDecodeAdapter:
+    """RMSNorm + rope + GQA + SwiGLU decoder (llama.py LlamaForCausalLM):
+    weights as a plain dict of tensors plus the step functions the
+    serving engine calls."""
+
+    def __init__(self, model):
+        cfg = model.config
+        self.num_layers = cfg.num_layers
+        self.num_heads = cfg.num_heads
+        self.num_kv_heads = cfg.num_kv_heads
+        self.head_dim = cfg.head_dim
+        self.eps = cfg.rms_norm_eps
+        self.rope_base = cfg.rope_base
+        self.vocab_size = cfg.vocab_size
+        self.max_positions = cfg.max_position_embeddings
+        mdl = model.llama
+        layers = []
+        for blk in mdl.layers:
+            att, mlp = blk.self_attn, blk.mlp
+            layers.append({
+                "in_ln": blk.input_layernorm.weight.detach(),
+                "q_w": att.q_proj.weight.detach(),
+                "k_w": att.k_proj.weight.detach(),
+                "v_w": att.v_proj.weight.detach(),
+                "o_w": att.o_proj.weight.detach(),
+                "post_ln": blk.post_attention_layernorm.weight.detach(),
+                "gate_w": mlp.gate_proj.weight.detach(),
+                "up_w": mlp.up_proj.weight.detach(),
+                "down_w": mlp.down_proj.weight.detach(),
+            })
+        head = None if model.lm_head is None else \
+            model.lm_head.weight.detach()
+        self.weights = {
+            "wte": mdl.embed_tokens.weight.detach(),
+            "norm": mdl.norm.weight.detach(),
+            "layers": layers, "lm_head": head,
+        }
+        self.dtype = self.weights["wte"].dtype
+
+    def logits(self, w, x):
+        x = _rms(x, w["norm"], self.eps)
+        head = w["lm_head"]
+        if head is None:
+            return x @ w["wte"].T
+        return _linear(x, head)
+
+    def _qkv(self, W, x):
+        """q [T, nh, hd], k and v [T, kvh, hd] from the residual x."""
+        nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        h1 = _rms(x, W["in_ln"], self.eps)
+        T = x.shape[0]
+        return (_linear(h1, W["q_w"]).reshape(T, nh, hd),
+                _linear(h1, W["k_w"]).reshape(T, kvh, hd),
+                _linear(h1, W["v_w"]).reshape(T, kvh, hd))
+
+    @torch.no_grad()
+    def ragged_chunk(self, w, toks, pos, row_of, q_starts, query_lens,
+                     context_lens, kpages, vpages, block_tables,
+                     attn: Optional[Callable] = None):
+        """ONE ragged mixed prefill+decode step over paged pools, as
+        :meth:`GPTDecodeAdapter.ragged_chunk` (same arguments, same
+        return). GQA pools carry ``num_kv_heads`` panels; rope rotates
+        each token by its absolute position (padding tokens, pos < 0,
+        by 0: their writes are dropped and their outputs ignored)."""
+        nh, hd, dt = self.num_heads, self.head_dim, self.dtype
+        T = toks.shape[0]
+        n_rows = block_tables.shape[0]
+        _, total_pages, page, _ = pool_shape(kpages[0])
+        bt_tok = block_tables[row_of.clamp(0, n_rows - 1).long()]
+        rows, slots = kv_write_slots(bt_tok, pos[:, None], page,
+                                     total_pages)
+        x = w["wte"][toks.long()].to(dt)
+        cos, sin = _rope_angles(pos.clamp_min(0), hd, self.rope_base)
+        for i, W in enumerate(w["layers"]):
+            q, k, v = self._qkv(W, x)
+            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
+            kv_scatter(kpages[i], k, rows, slots)
+            kv_scatter(vpages[i], v, rows, slots)
+            att = _ragged_attn(q, kpages[i], vpages[i], block_tables,
+                               context_lens, query_lens, q_starts, row_of,
+                               hd, attn)
+            x = x + _linear(att.reshape(T, nh * hd), W["o_w"])
+            h2 = _rms(x, W["post_ln"], self.eps)
+            m = F.silu(_linear(h2, W["gate_w"])) * _linear(h2, W["up_w"])
+            x = x + _linear(m, W["down_w"])
+        return self.logits(w, x), kpages, vpages
+
+
 def _ragged_attn(q, kpages, vpages, block_tables, context_lens,
                  query_lens, q_starts, row_of, hd, attn=None):
     """Ragged mixed prefill+decode attention over PAGED pools for the
     serving engine: q [T, nh, hd] flat token axis, per-row spans as in
-    :func:`ragged_paged_attention`, which launches the Hopper kernel on
-    the card and takes its plain version on the CPU."""
-    fn = ragged_paged_attention if attn is None else attn
+    :func:`ragged_paged_attention`. On the card that launches the Hopper
+    kernel (K4 over fp pools, K5 over int8 pools); CPU tensors take its
+    plain version. ``attn`` replaces the function."""
+    if attn is not None:
+        fn = attn
+    elif q.device.type == "cpu":
+        fn = ragged_paged_attention_ref
+    else:
+        fn = ragged_paged_attention
     return fn(q.contiguous(), kpages, vpages, block_tables, context_lens,
               query_lens, q_starts=q_starts, row_of=row_of,
               scale=hd ** -0.5)

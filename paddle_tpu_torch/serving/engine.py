@@ -2,15 +2,17 @@
 
 Port of ``paddle_tpu/serving/engine.py`` in its default ragged mode. The
 engine owns the physical KV pools (per layer, ``[n_kv, num_blocks,
-block_size, head_dim]`` in the model's dtype, on the model's device), a
+block_size, head_dim]`` in the model's dtype, or with ``kv_quant="int8"``
+int8 ``{"q8", "s"}`` pools of that shape with one f32 scale per row, on
+the model's device), a
 :class:`BlockManager` for the page index space and a :class:`Scheduler`
 for slots. Each :meth:`ServingEngine.step` runs ONE ragged step whose
 flat ``[token_budget]`` token axis packs every RUNNING slot's decode
 token next to as many prefill-chunk tokens as fit, so mixed prefill +
 decode traffic costs one step per scheduler tick. Rows join and leave by
 mask (``query_lens == 0`` = idle slot, position ``-1`` = padding). On
-the card every layer's attention is one launch of the Hopper ragged
-paged-attention kernel.
+the card every layer's attention is one launch of a Hopper ragged
+paged-attention kernel (K4 over fp pools, K5 over int8 pools).
 
 Requests stream tokens through per-request queues:
 ``rid = engine.submit(prompt)``, ``for tok in engine.stream(rid)``.
@@ -18,7 +20,7 @@ Requests stream tokens through per-request queues:
 instead call ``engine.step()`` directly for determinism.
 
 Not ported yet (ROADMAP.md): the legacy two-program ``ragged="off"``
-layout, int8 KV pools, disaggregated handoff, the cluster KV hooks, the
+layout, disaggregated handoff, the cluster KV hooks, the
 retry / fault-injection machinery around the step, and the
 observability spans and request log.
 """
@@ -35,6 +37,7 @@ import torch
 
 from ..config import knobs as _knobs
 from ..device import DeviceLike, resolve_device
+from ..incubate.nn.cuda.paged_attention import quantize_kv_pages
 from ..models.generation import _sample
 from .block_manager import BlockManager
 from .scheduler import (CANCELLED, FINISHED, PREFILL, RUNNING, Request,
@@ -93,9 +96,9 @@ class EngineConfig:
     """Resolved engine knobs (ctor args win over env vars)."""
 
     def __init__(self, max_slots=None, block_size=None, num_blocks=None,
-                 prefill_chunk=None, max_seq_len=None, watermark=0.01,
-                 enable_prefix_cache=True, seed=0, ragged=None,
-                 token_budget=None):
+                 prefill_chunk=None, max_seq_len=None, kv_quant=None,
+                 watermark=0.01, enable_prefix_cache=True, seed=0,
+                 ragged=None, token_budget=None):
         self.max_slots = max_slots or _knobs.get_int(
             "PADDLE_TPU_SERVE_SLOTS")
         self.block_size = block_size or _knobs.get_int(
@@ -105,6 +108,7 @@ class EngineConfig:
         self.prefill_chunk = prefill_chunk or _knobs.get_int(
             "PADDLE_TPU_SERVE_PREFILL_CHUNK")
         self.max_seq_len = max_seq_len
+        self.kv_quant = kv_quant        # None | "int8"
         self.watermark = watermark
         self.enable_prefix_cache = enable_prefix_cache
         self.seed = seed
@@ -115,6 +119,8 @@ class EngineConfig:
         self.token_budget = token_budget or _knobs.get_int(
             "PADDLE_TPU_SERVE_TOKEN_BUDGET",
             default=self.max_slots + self.prefill_chunk)
+        if self.kv_quant not in (None, "int8"):
+            raise ValueError("kv_quant must be None or 'int8'")
         if self.ragged == "off":
             raise NotImplementedError(
                 "the two-program ragged='off' layout needs the paged decode "
@@ -129,8 +135,8 @@ class ServingEngine:
     """Continuous-batching engine over one model.
 
     ``device`` defaults to ``cuda`` (``"cpu"`` only when asked for, and
-    then every step runs the plain PyTorch attention); it must be the
-    device the model's weights live on. Plain integer counters:
+    then every step runs the plain PyTorch versions of the kernels); it
+    must be the device the model's weights live on. Plain integer counters:
     ``ragged_steps`` (steps dispatched), ``decode_tokens`` and
     ``prefill_tokens`` (tokens those steps computed)."""
 
@@ -161,10 +167,14 @@ class ServingEngine:
         shape = (ad.num_kv_heads, cfg.num_blocks, cfg.block_size,
                  ad.head_dim)
         kvd = self._w["wte"].dtype
-        self._kp = tuple(torch.zeros(shape, dtype=kvd, device=self.device)
-                         for _ in range(ad.num_layers))
-        self._vp = tuple(torch.zeros(shape, dtype=kvd, device=self.device)
-                         for _ in range(ad.num_layers))
+
+        def pool():
+            zeros = torch.zeros(shape, dtype=kvd, device=self.device)
+            return zeros if cfg.kv_quant is None else \
+                quantize_kv_pages(zeros)
+
+        self._kp = tuple(pool() for _ in range(ad.num_layers))
+        self._vp = tuple(pool() for _ in range(ad.num_layers))
 
         self._gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed)

@@ -55,7 +55,10 @@ def test_chip_smoke_imports_only_the_port_torch_numpy():
 
 # module of incubate/nn/cuda -> the functions that build, bind or launch
 WRAPPERS = {
-    "paged_attention.py": ("ragged_paged_attention", "_bind"),
+    "paged_attention.py": ("ragged_paged_attention", "_launch", "_bind",
+                           "check_kernel_inputs"),
+    "norms.py": ("rms_norm", "layer_norm", "_launch", "_bind",
+                 "check_kernel_inputs"),
     "flash_attn.py": ("flash_fwd", "flash_bwd_fused", "flash_bwd_split",
                       "flash_bwd", "_launch_bwd", "_bind", "_raise_on",
                       "_FlashAttention"),

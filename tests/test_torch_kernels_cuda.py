@@ -1,8 +1,10 @@
 """The port's Hopper kernels against their plain versions.
 
-K4 (ragged paged attention) and K1/K2/K3 (flash attention forward, fused
+K4 and K5 (ragged paged attention over fp and int8 pools), K7 (row
+RMSNorm and LayerNorm) and K1/K2/K3 (flash attention forward, fused
 backward, split backward). These tests need an NVIDIA Hopper GPU
-(``cuda`` marker) and skip elsewhere. The file imports neither JAX nor
+(``cuda`` marker) and skip elsewhere; the tests that every kernel
+wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
 from the repository root::
 
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+from paddle_tpu_torch.incubate.nn.cuda import norms as tn
 from paddle_tpu_torch.incubate.nn.cuda import paged_attention as tpa
 
 # name -> (query_lens, context_lens, n_heads, n_kv, n_pad)
@@ -105,10 +108,204 @@ def test_hopper_wrapper_raises_instead_of_falling_back():
     _need_hopper()
     ql, cl, nh, nkv, pad = MIXES["mixed"]
     case = _cuda(_setup(ql, cl, nh, nkv, pad), torch.float16)
-    before = tpa.ragged_paged_attention.launches
+    counts = (tpa.ragged_paged_attention.launches,
+              tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
+              tn.layer_norm.launches)
     with pytest.raises(ValueError):
         tpa.ragged_paged_attention(*case)
-    assert tpa.ragged_paged_attention.launches == before
+    # K5: an fp16 q over int8 pools, and d 40 (int8 rows load 16 bytes)
+    q8case = _q8(_cuda(_setup(ql, cl, nh, nkv, pad), torch.float32))
+    with pytest.raises(ValueError):
+        tpa.ragged_paged_attention(q8case[0].half(), *q8case[1:])
+    q8case = _q8(_cuda(_setup(ql, cl, nh, nkv, pad, d=40), torch.float32))
+    with pytest.raises(ValueError):
+        tpa.ragged_paged_attention(*q8case)
+    # K7: fp16, a weight of another type, d not a multiple of 8
+    x = torch.randn(4, 64, device="cuda")
+    w = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError):
+        tn.rms_norm(x.half(), w.half())
+    with pytest.raises(ValueError):
+        tn.layer_norm(x.bfloat16(), w, w.bfloat16())
+    with pytest.raises(ValueError):
+        tn.rms_norm(x[:, :60].contiguous(), w[:60])
+    assert (tpa.ragged_paged_attention.launches,
+            tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
+            tn.layer_norm.launches) == counts
+
+
+def test_kernel_wrappers_raise_on_cpu_tensors():
+    """Every kernel wrapper takes CUDA tensors only: the plain versions
+    serve the CPU, chosen by the callers (``_ragged_attn``, the
+    functional norms), never by the wrapper."""
+    ql, cl, nh, nkv, pad = MIXES["mixed"]
+    case = [torch.from_numpy(a) for a in _setup(ql, cl, nh, nkv, pad)]
+    counts = (tpa.ragged_paged_attention.launches,
+              tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
+              tn.layer_norm.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.ragged_paged_attention(*case)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpa.ragged_paged_attention(*_q8(case))
+    x, w = torch.randn(3, 64), torch.ones(64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tn.rms_norm(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tn.rms_norm(x, w, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        tn.layer_norm(x, w, w)
+    assert (tpa.ragged_paged_attention.launches,
+            tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
+            tn.layer_norm.launches) == counts
+
+
+# ------------------------------------------------------------------ K5
+def _q8(case):
+    """The same batch over int8 pools: the fp pools quantized by the
+    port's write rule (one scale per key row)."""
+    q, kp, vp, *meta = case
+    return (q, tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp), *meta)
+
+
+# K5 against its plain version, row by row (see _row_err): both decode
+# the same int8 rows to the same f32 values, so the difference is the
+# online against the direct softmax and, in bf16, the output's rounding.
+Q8_TOL = {"float32": 1e-3, "bfloat16": 6e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_q8_kernel_matches_ref(mix, dtype):
+    _need_hopper()
+    ql, cl, nh, nkv, pad = MIXES[mix]
+    case = _q8(_cuda(_setup(ql, cl, nh, nkv, pad, seed=31), torch.float32))
+    q = case[0].to(getattr(torch, dtype))
+    case = (q,) + case[1:]
+    before = (tpa.ragged_paged_attention.launches,
+              tpa.ragged_paged_attention.launches_q8)
+    got = tpa.ragged_paged_attention(*case)
+    torch.cuda.synchronize()
+    assert (tpa.ragged_paged_attention.launches,
+            tpa.ragged_paged_attention.launches_q8) == \
+        (before[0], before[1] + 1)
+    want = tpa.ragged_paged_attention_ref(*case)
+    n_live = int(case[5].sum())
+    _assert_close(got[:n_live], want[:n_live], Q8_TOL[dtype], mix)
+    assert (got[n_live:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_q8_kernel_groups_dims_pages(group, d, page):
+    """The decode + prefill + padding mix with 8 query heads over 8, 2
+    and 1 kv heads, bf16 q."""
+    _need_hopper()
+    ql, cl, _, _, pad = MIXES["padding"]
+    case = _q8(_cuda(_setup(ql, cl, 8, 8 // group, pad, d=d, page=page,
+                            seed=32), torch.float32))
+    case = (case[0].bfloat16(),) + case[1:]
+    got = tpa.ragged_paged_attention(*case)
+    want = tpa.ragged_paged_attention_ref(*case)
+    n_live = int(case[5].sum())
+    _assert_close(got[:n_live], want[:n_live], Q8_TOL["bfloat16"],
+                  "group %d d %d page %d" % (group, d, page))
+    assert (got[n_live:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q8_kernel_matches_k4_on_the_same_values(dtype):
+    """K5 over int8 pages against K4 over the pool they decode to. The
+    scales are powers of two, so every decoded value (a 7-bit code times
+    2^k) is exact in bf16 too: both kernels then stage the same f32 keys
+    and values and run the same arithmetic, so they agree to the bit."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    ql, cl, nh, nkv, pad = MIXES["gqa2"]
+    q, kp, vp, *meta = _cuda(_setup(ql, cl, nh, nkv, pad, seed=33),
+                             torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def pool(shape):
+        q8 = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                           dtype=torch.int8)
+        e = torch.randint(-9, -3, shape[:3], generator=g, device="cuda")
+        return {"q8": q8, "s": torch.exp2(e.float())}
+
+    k8, v8 = pool(tuple(kp.shape)), pool(tuple(vp.shape))
+    kf, vf = (tpa._dequant(p["q8"], p["s"]).to(dt) for p in (k8, v8))
+    got = tpa.ragged_paged_attention(q.to(dt), k8, v8, *meta)
+    want = tpa.ragged_paged_attention(q.to(dt), kf, vf, *meta)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ------------------------------------------------------------------ K7
+# each element of the kernel's output against the plain version's:
+# |got - want| <= rel * |want| + 1e-6 * RMS of want's row. bf16: rel
+# 2^-7, one bf16 ulp (the two round f32 values that differ in the last
+# bits, summed in other orders, and may land on either side of a rounding
+# boundary). f32: rel 1e-5. The row floor, far below either, covers
+# LayerNorm's x - mu where x is within rounding of mu.
+NORM_REL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+NORM_ROW_FLOOR = 1e-6
+
+
+def _norm_ratio(got, want, rel):
+    """Largest |got - want| over its allowance (<= 1 passes)."""
+    w = want.float()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    allow = rel * w.abs() + NORM_ROW_FLOOR * rms + 1e-30
+    return ((got.float() - w).abs() / allow).max().item()
+
+
+def _norm_inputs(n, d, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.5 * torch.randn(n, d, generator=g, device="cuda") + 0.3).to(dtype)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rms", "rms_bias", "ln"])
+@pytest.mark.parametrize("n", [136, 1001])
+@pytest.mark.parametrize("d", [2048, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_kernel_matches_ref(dtype, d, n, kind):
+    _need_hopper()
+    x, w, b = _norm_inputs(n, d, getattr(torch, dtype), seed=d + n)
+    if kind == "ln":
+        fn, ref, args = tn.layer_norm, tn.layer_norm_ref, (x, w, b, 1e-5)
+    else:
+        bias = b if kind == "rms_bias" else None
+        fn, ref, args = tn.rms_norm, tn.rms_norm_ref, (x, w, bias, 1e-5)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ratio = _norm_ratio(got, ref(*args), NORM_REL[dtype])
+    print("%s %s d %d n %d: largest error %.3g of its allowance"
+          % (kind, dtype, d, n, ratio))
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 136, 24576])
+def test_norm_kernel_odd_widths(d):
+    """Widths that leave threads idle (8, 136) or fill 1024 threads with
+    3 of their 4 register vectors (24576), on 3-D input."""
+    _need_hopper()
+    x, w, b = _norm_inputs(6, d, torch.float32, seed=d)
+    x = x.reshape(2, 3, d)
+    for got, want in ((tn.rms_norm(x, w, None, 1e-6),
+                       tn.rms_norm_ref(x, w, None, 1e-6)),
+                      (tn.layer_norm(x, w, b, 1e-6),
+                       tn.layer_norm_ref(x, w, b, 1e-6))):
+        assert got.shape == x.shape
+        assert _norm_ratio(got, want, NORM_REL["float32"]) <= 1.0
 
 
 # ------------------------------------------------------------ K1, K2, K3

@@ -1,12 +1,15 @@
 """The port's ragged paged attention against the JAX package's.
 
 The same numpy inputs go through the JAX ``ragged_paged_attention`` (its
-Pallas kernel run in interpret mode, and its XLA composition) and the
-port's plain PyTorch version, in f32 on the CPU. Tolerance rtol=atol=2e-4,
-the repo's own for ragged attention (tests/test_paged_attention.py): the
-online softmax of the kernel and the direct softmax of the composition
-sum in different orders. The Hopper kernel itself is held against the
-plain version in tests/test_torch_kernels_cuda.py, on the card.
+Pallas kernels run in interpret mode, and its XLA composition) and the
+port's plain PyTorch version, in f32 on the CPU, over fp pools and over
+int8 ``{"q8", "s"}`` pools. Tolerance rtol=atol=2e-4, the repo's own for
+ragged attention (tests/test_paged_attention.py): the online softmax of
+the kernel and the direct softmax of the composition sum in different
+orders. The int8 pool writes are compared exactly: the same codes, and
+the same f32 scales to within 1 ulp (both divide an f32 max by 127).
+The Hopper kernels themselves are held against the plain version in
+tests/test_torch_kernels_cuda.py, on the card.
 """
 import importlib
 
@@ -48,10 +51,92 @@ def test_ref_matches_jax_xla_composition(mix):
     want = np.asarray(jpa.ragged_paged_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
         jnp.asarray(cl), jnp.asarray(ql), use_kernel=False))
-    # the CPU wrapper dispatches to the plain version
-    got = tpa.ragged_paged_attention(*_torch(q, kp, vp, bt, cl, ql))
+    got = tpa.ragged_paged_attention_ref(*_torch(q, kp, vp, bt, cl, ql))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
-    assert tpa.ragged_paged_attention.launches == 0
+
+
+def _q8_pools(kp, vp):
+    """The same fp pools quantized by each package's own write rule."""
+    jk, jv = (jpa.quantize_kv_pages(jnp.asarray(p)) for p in (kp, vp))
+    tk, tv = (tpa.quantize_kv_pages(torch.from_numpy(p)) for p in (kp, vp))
+    return (jk, jv), (tk, tv)
+
+
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_q8_ref_matches_jax_pallas_kernel(mix):
+    """Over int8 pools (GQA group 2 and idle rows among the mixes) the
+    plain version matches ``_ragged_kernel_q8``, interpreted."""
+    ql, cl, nh, nkv, pad = MIXES[mix]
+    q, kp, vp, bt, cl, ql = _setup(ql, cl, nh, nkv, pad, seed=23)
+    (jk, jv), (tk, tv) = _q8_pools(kp, vp)
+    want = np.asarray(jpa.ragged_paged_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(cl),
+        jnp.asarray(ql), interpret=True, use_kernel=True))
+    got = tpa.ragged_paged_attention_ref(torch.from_numpy(q), tk, tv,
+                                         *_torch(bt, cl, ql))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_array_equal(got.numpy()[int(ql.sum()):], 0.0)
+
+
+@pytest.mark.parametrize("mix", ["mixed", "gqa2"])
+def test_q8_ref_matches_jax_xla_composition(mix):
+    ql, cl, nh, nkv, pad = MIXES[mix]
+    q, kp, vp, bt, cl, ql = _setup(ql, cl, nh, nkv, pad, seed=24)
+    (jk, jv), (tk, tv) = _q8_pools(kp, vp)
+    want = np.asarray(jpa.ragged_paged_attention(
+        jnp.asarray(q), jk, jv, jnp.asarray(bt), jnp.asarray(cl),
+        jnp.asarray(ql), use_kernel=False))
+    got = tpa.ragged_paged_attention_ref(torch.from_numpy(q), tk, tv,
+                                         *_torch(bt, cl, ql))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _assert_pools_equal(got, want):
+    np.testing.assert_array_equal(got["q8"].numpy(), np.asarray(want["q8"]))
+    np.testing.assert_array_max_ulp(got["s"].numpy(), np.asarray(want["s"]),
+                                    maxulp=1)
+
+
+def test_quantize_kv_pages_matches_jax():
+    """Codes, scales, and the 1e-8 floor of an all-zero row; values on
+    exact half steps of their scale exercise round-half-to-even."""
+    rng = np.random.RandomState(25)
+    pages = rng.randn(2, 5, 4, 16).astype(np.float32)
+    pages[0, 1, 2] = 0.0                                 # floored scale
+    pages[1, 3, 0] = np.arange(16) * 0.5 - 3.75          # halves
+    pages[1, 3, 0, -1] = 127.0 / 2                       # s = 0.5
+    _assert_pools_equal(tpa.quantize_kv_pages(torch.from_numpy(pages)),
+                        jpa.quantize_kv_pages(jnp.asarray(pages)))
+    q, s = tpa._quantize_rows(torch.from_numpy(pages))
+    assert s[0, 1, 2].item() == np.float32(1e-8)
+    np.testing.assert_array_equal(                       # ties to even
+        q[1, 3, 0, :8].numpy(), np.round(pages[1, 3, 0, :8] / 0.5))
+    deq = tpa._dequant(q, s).numpy()
+    np.testing.assert_allclose(deq, pages, rtol=0,
+                               atol=float(s.max()) / 2 + 1e-7)
+
+
+def test_q8_paged_kv_write_chunk_matches_jax():
+    rng = np.random.RandomState(26)
+    n_kv, total_pages, page, d = 2, 9, 4, 16
+    b, g = 3, 5
+    fp = rng.randn(n_kv, total_pages, page, d).astype(np.float32)
+    k_new = rng.randn(b, g, n_kv, d).astype(np.float32)
+    v_new = rng.randn(b, g, n_kv, d).astype(np.float32)
+    bt = np.asarray([[3, 1], [7, 2], [5, 8]], np.int32)
+    pos = np.asarray([[0, 1, 2, 3, 4],
+                      [5, -1, 9, 6, -1],
+                      [2, 3, 4, 5, 7]], np.int32)
+    jk, jv = jpa.paged_kv_write_chunk(
+        jpa.quantize_kv_pages(jnp.asarray(fp)),
+        jpa.quantize_kv_pages(jnp.asarray(-fp)), jnp.asarray(k_new),
+        jnp.asarray(v_new), jnp.asarray(bt), jnp.asarray(pos))
+    tk = tpa.quantize_kv_pages(torch.from_numpy(fp))
+    tv = tpa.quantize_kv_pages(torch.from_numpy(-fp))
+    gk, gv = tpa.paged_kv_write_chunk(tk, tv, *_torch(k_new, v_new, bt, pos))
+    assert gk is tk and gv is tv            # written in place
+    _assert_pools_equal(gk, jk)
+    _assert_pools_equal(gv, jv)
 
 
 def test_explicit_row_of_and_q_starts_match_derived():
@@ -128,5 +213,31 @@ def test_kernel_input_checks_raise(bad):
 
 def test_kernel_input_checks_accept_engine_inputs():
     q, kp, vp, bt, cl, ql = _torch(*_setup([1, 3], [5, 3], 4, 2, 1))
-    tpa.check_kernel_inputs(q, kp, vp, bt, cl, ql,
-                            torch.tensor([0, 1], dtype=torch.int32))
+    qs = torch.tensor([0, 1], dtype=torch.int32)
+    tpa.check_kernel_inputs(q, kp, vp, bt, cl, ql, qs)
+    k8, v8 = tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp)
+    tpa.check_kernel_inputs(q, k8, v8, bt, cl, ql, qs)
+    tpa.check_kernel_inputs(q.bfloat16(), k8, v8, bt, cl, ql, qs)
+
+
+@pytest.mark.parametrize("bad", ["mixed_pools", "q8_dtype", "s_dtype",
+                                 "s_shape", "head_dim16", "q_dtype"])
+def test_q8_kernel_input_checks_raise(bad):
+    q, kp, vp, bt, cl, ql = _torch(*_setup([1, 3], [5, 3], 4, 2, 0, d=32))
+    qs = torch.tensor([0, 1], dtype=torch.int32)
+    k8, v8 = tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp)
+    if bad == "mixed_pools":
+        v8 = vp
+    elif bad == "q8_dtype":
+        k8 = {"q8": k8["q8"].to(torch.uint8), "s": k8["s"]}
+    elif bad == "s_dtype":
+        v8 = {"q8": v8["q8"], "s": v8["s"].bfloat16()}
+    elif bad == "s_shape":
+        k8 = {"q8": k8["q8"], "s": k8["s"][..., None]}
+    elif bad == "head_dim16":
+        q = torch.zeros(4, 4, 40)
+        k8 = v8 = tpa.quantize_kv_pages(torch.zeros(2, 9, 16, 40))
+    elif bad == "q_dtype":
+        q = q.half()
+    with pytest.raises(ValueError):
+        tpa.check_kernel_inputs(q, k8, v8, bt, cl, ql, qs)
