@@ -25,6 +25,17 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    (with and without a bias) and LayerNorm, bf16 and f32, d 4096 and
    2048, on 136, 8192 and 1001 rows (library: ``F.rms_norm`` /
    ``F.layer_norm``, timed only);
+4b. K6: hold the paged-decode kernel (one query token a row) over bf16,
+   f32 and int8 pools (bf16 q over int8: the K6-q8 route) against its
+   plain version, in the two shapes the ``ragged="off"`` layout calls it
+   with: a decode batch (8 rows, contexts of 64-1056, two rows empty) and
+   a prefill chunk (128 rows of one sequence at positions 896-1023 over
+   one block table, 20 rows of padding), plus contexts shorter than a
+   page; at Llama-2 7B's (32 heads, d 128) and GPT-3 1.3B's (16 heads)
+   shapes, GQA groups 4 and 8, d 64 and page 128; time K6 and K6-q8
+   beside the plain version, ``scaled_dot_product_attention`` over K/V
+   gathered per row (timed only), K4 / K5 on the same work as one ragged
+   call, and the bound;
 5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (b 8,
    s 1024, 16 heads, d 128, bf16, causal) and at sq < sk, a ragged s,
@@ -57,9 +68,18 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    ``shutdown()`` must find no leaked block, and each step must have
    launched, per layer, K4 once and K7's LayerNorm twice (GPT) or K5 once
    and K7's RMSNorm twice (Llama), plus one norm before the head;
+7b. the two-program layout, ``ServingEngine(..., ragged="off")``, on the
+   same seed-0 models (no new initialisation) and trace, GPT-3 1.3B over
+   bf16 pools and Llama-2 7B over int8 pools: every model pass (a
+   prefill chunk or a decode batch) launches K6 (GPT) or K6-q8 (Llama)
+   once a layer and K7 2L + 1 times, K4 and K5 never; the first prefill
+   chunk and the first decode batch with two live rows are held against
+   the same step through the plain versions of every kernel, as in 7;
+   the share of greedy tokens equal to the ragged layout's stream is
+   printed, not checked;
 8. profiles (torch.profiler) of training steps and of engine steps of
-   both models: device busy share and the kernels with the most device
-   time;
+   both models in both layouts: device busy share and the kernels with
+   the most device time;
 9. one JSON line with the serving numbers, then one listing every ported
    kernel with its numbers;
 10. last line: ``{"ok": true, "device": {...}}``.
@@ -501,6 +521,218 @@ def norm_phase(card):
     return results
 
 
+# ----------------------------------------------------------- phase 4b
+# K6 against its plain version: bf16 pools within KERNEL_TOL and int8
+# pools within PAGED_ROW_TOL of a row's RMS, the limits K4 and K5 are held
+# to in phases 3 and 4; f32 pools within rtol = atol = 2e-4, K4's f32
+# limit in tests/test_torch_kernels_cuda.py (online against direct
+# softmax, other summation orders).
+DECODE_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+DECODE_SRC = "paddle_tpu_torch/incubate/nn/csrc/paged_attention.cu"
+
+
+def decode_case(rng, gen, lens, n_heads, n_kv, d=128, page=16,
+                shared=False, dtype=torch.bfloat16, dev="cuda"):
+    """One K6 batch on the card: q and pools from ``gen``; one query
+    token a row with ``lens`` keys each. Shuffled page ids; a row's
+    unused block-table tail (all of an empty row's) holds out-of-range
+    ids, which the kernel clamps. With ``shared`` every row reads one
+    block table: the rows of an off-layout prefill chunk."""
+    n_rows = len(lens)
+    P = -(-max(lens) // page) + 1
+    n_tables = 1 if shared else n_rows
+    total_pages = n_tables * P + 1
+    q = torch.randn(n_rows, n_heads, d, generator=gen, device=dev)
+    kp = torch.randn(n_kv, total_pages, page, d, generator=gen, device=dev)
+    vp = torch.randn(n_kv, total_pages, page, d, generator=gen, device=dev)
+    bt = (1 + rng.permutation(n_tables * P)).reshape(n_tables, P)
+    bt = np.repeat(bt, n_rows, 0) if shared else bt
+    for r, c in enumerate(lens):
+        if not shared or c == 0:
+            bt[r, -(-c // page):] = [-1, total_pages + 5][r % 2]
+    bt, cl = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+              for a in (bt, lens))
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), bt, cl
+
+
+def decode_work(case):
+    """Bytes K6 must move and the flops it must do for this case's data:
+    each distinct K/V row once (a page that several rows of one prefill
+    chunk share counts once; an int8 row is d codes and an f32 scale),
+    q, out and the metadata; 4 d flops a (query head, key). Also the
+    row-by-row bytes (sum of the rows' K/V), what a kernel that shares no
+    page between rows reads."""
+    q, kp, _, bt, cl = case
+    n_rows, n_heads, d = q.shape
+    quant = isinstance(kp, dict)
+    n_kv, _, page, _ = (kp["q8"] if quant else kp).shape
+    row_bytes = d + 4 if quant else d * kp.element_size()
+    lens = np.minimum(cl.cpu().numpy().astype(np.int64), bt.shape[1] * page)
+    bt_h = bt.cpu().numpy().astype(np.int64).clip(0, None)
+    slots = [bt_h[r, np.arange(n) // page] * page + np.arange(n) % page
+             for r, n in enumerate(lens) if n > 0]
+    distinct = len(np.unique(np.concatenate(slots))) if slots else 0
+    kv_bytes = distinct * n_kv * row_bytes * 2
+    io = 2 * n_rows * n_heads * d * q.element_size() + \
+        4 * (bt.numel() + cl.numel())
+    flops = 4 * d * n_heads * int(lens.sum())
+    rowwise = int(lens.sum()) * n_kv * row_bytes * 2
+    return kv_bytes + io, flops, rowwise + io
+
+
+def decode_as_ragged(case):
+    """The same work as one K4 / K5 call: each live decode row a ragged
+    row of one token; a shared-table prefill chunk one ragged row whose
+    tokens are the chunk's live rows (each one key longer than the one
+    before, as a chunk's rows are)."""
+    q, kp, vp, bt, cl = case
+    live = (cl > 0).nonzero().reshape(-1)
+    if len(live) > 1 and bool((bt[live] == bt[live[:1]]).all()):
+        n = len(live)
+        meta = (bt[live[:1]], cl[live[-1:]], torch.tensor(
+            [n], dtype=torch.int32, device=q.device))
+    else:
+        meta = (bt, cl, (cl > 0).to(torch.int32))
+    return (q[live].contiguous(), kp, vp) + meta
+
+
+def decode_sdpa_inputs(case):
+    """q [R, h, 1, d] and K/V [R, h, L, d] gathered per live row (GQA kv
+    heads repeated), with a boolean key mask: the library yardstick."""
+    q, kp, vp, bt, cl = case
+    n_rows, n_heads, d = q.shape
+    n_kv, total_pages, page, _ = kp.shape
+    live = (cl > 0).nonzero().reshape(-1)
+    L = bt.shape[1] * page
+    mask = (torch.arange(L, device=q.device)[None]
+            < cl[live][:, None])[:, None, None]
+    bt_live = bt[live].clamp(0, total_pages - 1).long()
+
+    def gather(pages):
+        g = pages[:, bt_live].movedim(1, 0).reshape(len(live), n_kv, L, d)
+        return g.repeat_interleave(n_heads // n_kv, dim=1)
+
+    return q[live][:, :, None], gather(kp), gather(vp), mask
+
+
+def decode_kernel_phase(card):
+    """K6 against its plain version on the card, over bf16, f32 and int8
+    pools (bf16 q over int8), in the off layout's two shapes of call: a
+    decode batch (8 rows, contexts drawn from the trace's 64-1056, two
+    rows empty, garbage block ids in their tables) and a prefill chunk
+    (128 rows of one sequence at positions 896-1023 over one block table,
+    the last 20 rows padding of length 0), plus contexts shorter than a
+    page; at Llama-2 7B's shapes (32 / 32 heads, d 128), GPT-3 1.3B's
+    (16 / 16), GQA groups 4 and 8, d 64 and page 128. Times K6 and K6-q8
+    beside the plain version, a library call (SDPA over K/V gathered per
+    row, timed only), K4 / K5 on the same work as one ragged call, and
+    the bound. The kernels and the library call are timed per call in a
+    CUDA graph (``graph_ms``: a call's host time exceeds a decode batch's
+    device time), the plain version back to back from the host."""
+    from paddle_tpu_torch.incubate.nn.cuda import paged_attention as pa
+
+    rng = np.random.RandomState(4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    decode_lens = rng.randint(64, 1057, 8)
+    decode_lens[[2, 5]] = 0
+    decode_lens = decode_lens.tolist()
+    prefill_lens = list(range(897, 1005)) + [0] * 20
+    mixes = {
+        # name: (lens, n_heads, n_kv, head_dim, page, shared)
+        "decode": (decode_lens, 32, 32, 128, 16, False),
+        "prefill": (prefill_lens, 32, 32, 128, 16, True),
+        "short": ([3, 15, 1, 9, 0, 12, 7, 14], 32, 32, 128, 16, False),
+        "gpt_decode": (decode_lens, 16, 16, 128, 16, False),
+        "gpt_prefill": (prefill_lens, 16, 16, 128, 16, True),
+        "gqa4": (decode_lens, 32, 8, 128, 16, False),
+        "gqa8": (decode_lens, 32, 4, 128, 16, False),
+        "d64": (decode_lens, 32, 32, 64, 16, False),
+        "page128": (decode_lens, 32, 32, 128, 128, False),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for name, (lens, nh, nkv, d, page, shared) in mixes.items():
+        fp = decode_case(rng, gen, lens, nh, nkv, d, page, shared)
+        live = fp[4] > 0
+        f32 = tuple(t.float() for t in fp[:3]) + fp[3:]
+        got32 = pa.paged_attention(*f32)
+        torch.testing.assert_close(got32, pa.paged_attention_ref(*f32),
+                                   **DECODE_F32_TOL)
+        q8 = q8_case(fp)
+        res = {}
+        for route, case in (("K6", fp), ("K6-q8", q8)):
+            before = (pa.paged_attention.launches,
+                      pa.paged_attention.launches_q8)
+            got = pa.paged_attention(*case)
+            want = pa.paged_attention_ref(*case)
+            torch.cuda.synchronize()
+            grew = (pa.paged_attention.launches - before[0],
+                    pa.paged_attention.launches_q8 - before[1])
+            check(grew == ((1, 0) if route == "K6" else (0, 1)),
+                  "K6 %s: launches grew by %s" % (name, grew))
+            check(bool(torch.isfinite(got).all()), "%s %s: non-finite"
+                  % (route, name))
+            check(bool((got[~live] == 0).all()),
+                  "%s %s: empty rows are not exactly zero" % (route, name))
+            err, rel = row_err(got[live], want[live])
+            if route == "K6":
+                torch.testing.assert_close(got.float(), want.float(),
+                                           **KERNEL_TOL)
+            else:
+                check(rel <= PAGED_ROW_TOL, "K6-q8 %s: max abs err %.4g, "
+                      "%.4g of its row's RMS > %g"
+                      % (name, err, rel, PAGED_ROW_TOL))
+            ragged = decode_as_ragged(case)
+            same = pa.ragged_paged_attention(*ragged)
+            torch.testing.assert_close(got[live].float(), same.float(),
+                                       **KERNEL_TOL)
+            # a call's host time (~0.05 ms) exceeds a small batch's device
+            # time: the kernels and the library call are timed in a CUDA
+            # graph (device time per call), the plain version from the host
+            ms = graph_ms(lambda: pa.paged_attention(*case))
+            call_ms = cuda_ms(lambda: pa.paged_attention(*case), iters=20)
+            plain_ms = cuda_ms(lambda: pa.paged_attention_ref(*case),
+                               iters=3, warmup=1)
+            ragged_ms = graph_ms(lambda: pa.ragged_paged_attention(*ragged))
+            if route == "K6":
+                lib_case = case
+            else:
+                lib_case = (case[0],) + tuple(
+                    pa._dequant(p["q8"], p["s"]).bfloat16()
+                    for p in case[1:3]) + case[3:]
+            qs, kg, vg, mask = decode_sdpa_inputs(lib_case)
+            del lib_case
+            library_ms = graph_ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+            del qs, kg, vg, mask
+            nbytes, flops, rowwise = decode_work(case)
+            bound_ms, bound_by = bound_of(nbytes, flops)
+            res[route] = dict(
+                max_abs_err=err, row_err=rel, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms,
+                library_ms=library_ms, ragged_ms=ragged_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                rowwise_bytes=rowwise, flops=flops)
+            print("%-5s %-11s rows=%d heads=%d/%d d=%d page=%d: max_abs_err="
+                  "%.3g (%.3e of its row's RMS) kernel=%.4f ms (a call back "
+                  "to back %.4f ms) plain=%.4f ms sdpa=%.4f ms %s on the "
+                  "same work=%.4f ms bound=%.4f ms (%s, %.1f MB distinct, "
+                  "%.1f MB row by row, %.3f GFLOP) [%s]"
+                  % (route, name, len(lens), nh, nkv, d, page, err, rel, ms,
+                     call_ms, plain_ms, library_ms,
+                     "K4" if route == "K6" else "K5", ragged_ms, bound_ms,
+                     bound_by, nbytes / 1e6, rowwise / 1e6, flops / 1e9,
+                     card), flush=True)
+            del got, want, same, ragged
+        err32 = (got32.float() - pa.paged_attention_ref(*f32)).abs().max()
+        res["K6 f32"] = dict(max_abs_err=err32.item())
+        print("K6    %-11s f32 pools: max_abs_err=%.3g (limit rtol = atol = "
+              "2e-4) [%s]" % (name, err32.item(), card), flush=True)
+        results[name] = res
+        del fp, f32, q8, got32
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------ phase 5
 FLASH_SRC = "paddle_tpu_torch/incubate/nn/csrc/flash_attn.cu"
 FLASH_PALLAS = "paddle_tpu/incubate/nn/pallas/flash_attn.py"
@@ -897,6 +1129,8 @@ def serving_kernels():
 
     return {"K4": (pa.ragged_paged_attention, "launches"),
             "K5": (pa.ragged_paged_attention, "launches_q8"),
+            "K6": (pa.paged_attention, "launches"),
+            "K6-q8": (pa.paged_attention, "launches_q8"),
             "K7 rms_norm": (norms.rms_norm, "launches"),
             "K7 layer_norm": (norms.layer_norm, "launches")}
 
@@ -906,37 +1140,103 @@ def serving_counts():
             for k, (fn, attr) in serving_kernels().items()}
 
 
+def snapshot_step(kp, vp, bt, pos, page):
+    """Copies of the pool pages a step's rows read (the first
+    ``ceil((max pos + 1) / page)`` columns of their block tables) as
+    compact pools, and the block tables renumbered into them: what a
+    rerun of the step needs once the engine has reused its pages."""
+    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
+        pool_shape)
+
+    n_pages = -(-(int(pos.max()) + 1) // page)
+    total = pool_shape(kp[0])[1]
+    used = torch.unique(bt[:, :n_pages].clamp(0, total - 1))
+    compact = torch.zeros(total, dtype=torch.int32, device=bt.device)
+    compact[used.long()] = torch.arange(len(used), dtype=torch.int32,
+                                        device=bt.device)
+
+    def sub(p):
+        if isinstance(p, dict):
+            return {k: v[:, used].clone() for k, v in p.items()}
+        return p[:, used].clone()
+
+    return ([sub(p) for p in kp], [sub(p) for p in vp],
+            compact[bt.clamp(0, total - 1).long()].contiguous())
+
+
 def serve_main_path(eng, prompts, new_tokens):
     """The serving main path: every kernel count set to 0 just before the
-    trace is submitted and read just after the engine drains. Keeps the
-    first step's inputs, logits and final hidden states (the residual
-    stream before the last norm) for the plain-path check."""
+    trace is submitted and read just after the engine drains. Keeps a
+    record of the steps the plain-path check reruns (``first``): the
+    ragged layout's first step; the off layout's first prefill chunk and
+    its first decode batch with at least two live rows, each with copies
+    of the pool pages it reads. A record holds the step as a function of
+    ``(kp, vp, bt, attn)``, its inputs, logits and final hidden states
+    (the residual stream before the last norm), per token."""
+    from paddle_tpu_torch.models import generation
+
     ad = eng._ad
     first = {}
-    real_chunk, real_logits = ad.ragged_chunk, ad.logits
+    grab = {}
+    real_ragged, real_paged, real_logits = (ad.ragged_chunk, ad.paged_chunk,
+                                            ad.logits)
 
     def keep_logits(w, x):
-        if "hidden" not in first:
-            first["hidden"] = x.clone()
+        if grab:
+            grab["hidden"] = x.clone()
         return real_logits(w, x)
 
-    def keep_first(w, *args, attn=None):
-        out = real_chunk(w, *args, attn=attn)
-        if "logits" not in first:
+    def keep_ragged(w, *args, attn=None):
+        if "ragged" not in first:
+            grab["on"] = True
+        out = real_ragged(w, *args, attn=attn)
+        if grab:
             toks, pos, row_of, qs, ql, cl, _, _, bt = args
-            first["args"] = [t.clone() for t in
-                             (toks, pos, row_of, qs, ql, cl)]
-            first["bt"] = bt.clone()
-            first["logits"] = out[0].clone()
+            toks, pos, row_of, qs, ql, cl, bt = (
+                t.clone() for t in (toks, pos, row_of, qs, ql, cl, bt))
+            check(bool((cl == ql).all()),
+                  "first step carried earlier context")
+            first["ragged"] = dict(
+                kind="ragged", pos=pos, bt=bt, pools=None, fresh=True,
+                logits=out[0].clone(), hidden=grab.pop("hidden"),
+                step=lambda kp, vp, bt, attn: ad.ragged_chunk(
+                    eng._w, toks, pos, row_of, qs, ql, cl, kp, vp, bt,
+                    attn=attn),
+                slots=lambda kp, bt: generation._ragged_slots(
+                    kp, bt, row_of, pos)[1])
+            grab.clear()
         return out
 
-    ad.ragged_chunk, ad.logits = keep_first, keep_logits
+    def keep_paged(w, toks, pos, kp, vp, bt, attn=None):
+        kind = "prefill" if toks.shape[1] > 1 else "decode"
+        if kind not in first and (kind == "prefill"
+                                  or int((pos >= 0).sum()) >= 2):
+            grab["on"] = True
+        out = real_paged(w, toks, pos, kp, vp, bt, attn=attn)
+        if grab:
+            toks, pos, bt = toks.clone(), pos.clone(), bt.clone()
+            kpc, vpc, btc = snapshot_step(kp, vp, bt, pos,
+                                          eng.config.block_size)
+            first[kind] = dict(
+                kind=kind, pos=pos.reshape(-1), bt=btc, pools=(kpc, vpc),
+                fresh=kind == "prefill" and int(pos[0, 0]) == 0,
+                logits=out[0].reshape(-1, out[0].shape[-1]).clone(),
+                hidden=grab.pop("hidden"),
+                step=lambda kp, vp, bt, attn: ad.paged_chunk(
+                    eng._w, toks, pos, kp, vp, bt, attn=attn),
+                slots=lambda kp, bt: generation._chunk_slots(
+                    kp, bt, pos)[1])
+            grab.clear()
+        return out
+
+    ad.ragged_chunk, ad.paged_chunk = keep_ragged, keep_paged
+    ad.logits = keep_logits
     kernels = serving_kernels()
     torch.cuda.reset_peak_memory_stats()
     # ---- the main path: counts set to 0 just before, read just after
     for fn, attr in kernels.values():
         setattr(fn, attr, 0)
-    steps0 = eng.ragged_steps
+    steps0 = (eng.ragged_steps, eng.prefill_steps, eng.decode_steps)
     t_start = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
     step_s = []
@@ -947,14 +1247,17 @@ def serve_main_path(eng, prompts, new_tokens):
         step_s.append(time.perf_counter() - t)
     wall = time.perf_counter() - t_start
     launches = serving_counts()
-    steps = eng.ragged_steps - steps0
+    programs = [now - then for now, then in zip(
+        (eng.ragged_steps, eng.prefill_steps, eng.decode_steps), steps0)]
     # ----
     peak = torch.cuda.max_memory_allocated()
-    del ad.ragged_chunk, ad.logits      # the class's methods again
+    del ad.ragged_chunk, ad.paged_chunk, ad.logits   # the class's again
     reqs = [eng._requests[r] for r in rids]
     outs = [eng.result(r) for r in rids]
+    # model passes: ragged steps, or prefill chunks + decode batches
     return dict(reqs=reqs, outs=outs, step_s=step_s, wall=wall,
-                launches=launches, steps=steps, peak=peak, first=first)
+                launches=launches, steps=sum(programs), programs=programs,
+                peak=peak, first=first)
 
 
 def check_served(run, prompts, new_tokens, vocab, want_launches, what,
@@ -969,10 +1272,12 @@ def check_served(run, prompts, new_tokens, vocab, want_launches, what,
     ttft = [r.first_token_at - r.arrival for r in reqs]
     n_tok = sum(len(o) for o in outs)
     print("engine %s: %d requests (%d prompt tokens, %d prefix-cache hit "
-          "tokens), %d steps, %d tokens out in %.3f s = %.1f tok/s, median "
-          "step %.2f ms, TTFT median %.1f ms max %.1f ms, peak memory %.2f "
-          "GB, kernel launches %s [%s]"
-          % (what, len(prompts), sum(map(len, prompts)), hit, steps, n_tok,
+          "tokens), %d model passes (ragged, prefill, decode programs: %s) "
+          "in %d engine steps, %d tokens out in %.3f s = %.1f tok/s, median "
+          "engine step %.2f ms, TTFT median %.1f ms max %.1f ms, peak "
+          "memory %.2f GB, kernel launches %s [%s]"
+          % (what, len(prompts), sum(map(len, prompts)), hit, steps,
+             run["programs"], len(run["step_s"]), n_tok,
              run["wall"], n_tok / run["wall"],
              1e3 * statistics.median(run["step_s"]),
              1e3 * statistics.median(ttft), 1e3 * max(ttft),
@@ -980,27 +1285,29 @@ def check_served(run, prompts, new_tokens, vocab, want_launches, what,
     check(hit > 0, "the shared prefix did not hit the prefix cache")
     want = {k: per_step * steps for k, per_step in want_launches.items()}
     check(steps > 0 and run["launches"] == want,
-          "%s: kernel launches %s, want %s (%d steps)"
+          "%s: kernel launches %s, want %s (%d model passes)"
           % (what, run["launches"], want, steps))
     return dict(tok_s=n_tok / run["wall"], steps=steps,
+                programs=run["programs"], engine_steps=len(run["step_s"]),
                 median_step_ms=1e3 * statistics.median(run["step_s"]),
                 ttft_median_ms=1e3 * statistics.median(ttft),
                 peak_gb=run["peak"] / 1e9)
 
 
 def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
-    """The main path's first step again with ``attn`` for attention and
-    ``rms`` / ``ln`` for the norms, over the engine's pools (or
-    ``pools``: ``(kp, vp, block_tables)``): the step started every row
-    at position 0, so it reads only the K/V it writes itself, into the
-    same slots. Returns the logits, the final hidden states, each
-    layer's K rows as written at the step's slots, and the residual
+    """A recorded step (``first``, see :func:`serve_main_path`) again
+    with ``attn`` for attention and ``rms`` / ``ln`` for the norms, over
+    ``pools`` (``(kp, vp, block_tables)``), else the record's copies of
+    the pages it reads, else the engine's pools (the ragged first step
+    started every row at position 0, so it reads only the K/V it writes
+    itself, into the same slots). Every rerun writes the step's own K/V
+    before it reads them. Returns the logits, the final hidden states,
+    each layer's K rows as written at the step's slots, and the residual
     stream as each norm received it (a layer's input, its state after
-    attention, ..., the final hidden states). With ``plain``, fails if
-    a kernel count moved: a substitution that missed would otherwise run
+    attention, ..., the final hidden states). With ``plain``, fails if a
+    kernel count moved: a substitution that missed would otherwise run
     the kernels on the plain side."""
-    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
-        kv_write_slots, pool_shape)
+    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import pool_shape
     from paddle_tpu_torch.models import generation
 
     ad = eng._ad
@@ -1019,15 +1326,16 @@ def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
             return norm(x, *args)
         return fn
 
-    toks, pos, row_of, qs, ql, cl = first["args"]
-    kp, vp, bt = pools or (eng._kp, eng._vp, first["bt"])
+    if pools is None:
+        pools = first["pools"] + (first["bt"],) if first["pools"] \
+            else (eng._kp, eng._vp, first["bt"])
+    kp, vp, bt = pools
     saved = generation._rms, generation._ln
     counts = serving_counts()
     ad.logits = keep_logits
     generation._rms, generation._ln = recorded(rms), recorded(ln)
     try:
-        logits, kp, _ = ad.ragged_chunk(
-            eng._w, toks, pos, row_of, qs, ql, cl, kp, vp, bt, attn=attn)
+        logits, kp, _ = first["step"](kp, vp, bt, attn)
     finally:
         del ad.logits
         generation._rms, generation._ln = saved
@@ -1036,15 +1344,15 @@ def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
         check(serving_counts() == counts, "the plain rerun launched "
               "kernels: counts %s, before it %s" % (serving_counts(), counts))
     n_kv, total, page, d = pool_shape(kp[0])
-    bt_tok = bt[row_of.clamp(0, bt.shape[0] - 1).long()]
-    _, slots = kv_write_slots(bt_tok, pos[:, None], page, total)
+    slots = first["slots"](kp, bt)
     written = [(p["q8"] if isinstance(p, dict) else p)
                .reshape(n_kv, total * page, d)[:, slots].clone() for p in kp]
-    return logits, kept["hidden"], written, stream
+    return (logits.reshape(-1, logits.shape[-1]), kept["hidden"], written,
+            stream)
 
 
 def first_step_check(eng, first, logits_tol, hidden_rtol, what):
-    """The first step's logits and final hidden states through the
+    """A recorded step's logits and final hidden states through the
     kernels against the same step through the plain versions of every
     kernel (attention and norms): the logits element by element within
     ``logits_tol``, the logits and the hidden states token by token in
@@ -1054,22 +1362,26 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
     same inputs (each layer's attention on its own q and pools, each norm
     on its own x); the residual stream of the two reruns is compared at
     every layer's input, and the K rows they write: what one layer's
-    rounding difference turns into after all of them."""
+    rounding difference turns into after all of them. The attention is
+    K4 / K5 for a ragged step, K6 for a prefill chunk or decode batch of
+    the off layout."""
     from paddle_tpu_torch.incubate.nn.cuda import norms
-    from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
-        pool_shape, ragged_paged_attention, ragged_paged_attention_ref)
+    from paddle_tpu_torch.incubate.nn.cuda import paged_attention as pa
     from paddle_tpu_torch.models import generation
 
-    toks, pos, row_of, qs, ql, cl = first["args"]
-    check(bool((cl == ql).all()), "first step carried earlier context")
+    if first["kind"] == "ragged":
+        kernel, plain = pa.ragged_paged_attention, \
+            pa.ragged_paged_attention_ref
+    else:
+        kernel, plain = pa.paged_attention, pa.paged_attention_ref
+    pos = first["pos"]
     page = eng.config.block_size
-    n_pages = -(-int(cl.max()) // page)
+    n_pages = -(-(int(pos.max()) + 1) // page)
 
     def plain_attn(q, kp, vp, bt, *args, **kw):
         # the step's keys all lie in its rows' first n_pages pages: cut
         # the gather of the plain version to them
-        return ragged_paged_attention_ref(q, kp, vp, bt[:, :n_pages], *args,
-                                          **kw)
+        return plain(q, kp, vp, bt[:, :n_pages], *args, **kw)
 
     def no_attn(q, *args, **kw):
         return torch.zeros_like(q)
@@ -1080,7 +1392,7 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
     errs = {"attention": [], "norm": []}
 
     def compared_attn(q, kp, vp, bt, *args, **kw):
-        out = ragged_paged_attention(q, kp, vp, bt, *args, **kw)
+        out = kernel(q, kp, vp, bt, *args, **kw)
         errs["attention"].append(
             row_err(out, plain_attn(q, kp, vp, bt, *args, **kw))[1])
         return out
@@ -1106,9 +1418,16 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
         written = "K codes written that differ: %.3g%% in layer 0, %.3g%% " \
             "in the last, %.3g%% at most" % (100 * flips[0],
                                              100 * flips[-1], 100 * max(flips))
+    else:
+        rel = [rel_l2(a, b) for a, b in zip(k_kernel, k_plain)]
+        written = "K rows written: relative L2 %.3g in layer 0, %.3g in " \
+            "the last" % (rel[0], rel[-1])
+    if k_kernel[0].dtype == torch.int8 and first["fresh"]:
         # the same step over bf16 pools holding only the step's pages:
-        # how far the two paths drift without int8 codes to flip
-        n_kv, total, _, d = pool_shape(eng._kp[0])
+        # how far the two paths drift without int8 codes to flip (a step
+        # that reads earlier context has no bf16 copy of it)
+        kp0 = (first["pools"] or (eng._kp,))[0][0]
+        n_kv, total, _, d = pa.pool_shape(kp0)
         used = torch.unique(first["bt"][:, :n_pages].clamp(0, total - 1))
         compact = torch.zeros(total, dtype=torch.int32, device=used.device)
         compact[used.long()] = torch.arange(len(used), dtype=torch.int32,
@@ -1135,10 +1454,6 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
         written += "; over bf16 pools the same step's final hidden states " \
             "differ by %.4g (largest token; median %.3g)" % (
                 e16.max().item(), e16.median().item())
-    else:
-        rel = [rel_l2(a, b) for a, b in zip(k_kernel, k_plain)]
-        written = "K rows written: relative L2 %.3g in layer 0, %.3g in " \
-            "the last" % (rel[0], rel[-1])
     live = pos >= 0
     got, want = first["logits"][live].float(), ref[live].float()
     check(bool(torch.isfinite(got).all()), "non-finite logits")
@@ -1199,7 +1514,9 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
 
 def engine_phase(card):
     """GPT-3 1.3B serving over bf16 pools: K4 once per layer per step,
-    K7's LayerNorm twice per layer and once before the head."""
+    K7's LayerNorm twice per layer and once before the head. Returns the
+    numbers, the model (for the off layout and the profile) and the
+    streams."""
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3B
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -1219,13 +1536,14 @@ def engine_phase(card):
     run = serve_main_path(eng, prompts, new_tokens)
     L = cfg.num_layers
     res = check_served(run, prompts, new_tokens, cfg.vocab_size,
-                       {"K4": L, "K5": 0, "K7 rms_norm": 0,
-                        "K7 layer_norm": 2 * L + 1}, "gpt3_1p3B", card)
+                       {"K4": L, "K5": 0, "K6": 0, "K6-q8": 0,
+                        "K7 rms_norm": 0, "K7 layer_norm": 2 * L + 1},
+                       "gpt3_1p3B", card)
     eng.shutdown()                     # raises on a leaked block
-    res.update(first_step_check(eng, run["first"], LOGITS_TOL,
+    res.update(first_step_check(eng, run["first"]["ragged"], LOGITS_TOL,
                                 SERVE_HIDDEN_RTOL, "gpt3_1p3B"))
     res["launches"] = run["launches"]
-    return res
+    return res, model, run["outs"]
 
 
 def llama_engine_phase(card, seeds=(0, 1, 2)):
@@ -1234,8 +1552,8 @@ def llama_engine_phase(card, seeds=(0, 1, 2)):
     before the head. The main path runs on weights and traffic from seed
     0; each further seed serves its own weights and trace the same way,
     so that the first step's limits rest on more than one reading.
-    Returns seed 0's numbers (the others under ``"seeds"``) and the last
-    model (for the profile)."""
+    Returns seed 0's numbers (the others under ``"seeds"``), seed 0's
+    model (for the off layout and the profile) and its streams."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7B
     from paddle_tpu_torch.serving import ServingEngine
 
@@ -1264,21 +1582,63 @@ def llama_engine_phase(card, seeds=(0, 1, 2)):
         prompts, new_tokens = traffic(cfg.vocab_size, seed=seed)
         run = serve_main_path(eng, prompts, new_tokens)
         r = check_served(run, prompts, new_tokens, cfg.vocab_size,
-                         {"K4": 0, "K5": L, "K7 rms_norm": 2 * L + 1,
-                          "K7 layer_norm": 0}, what, card)
+                         {"K4": 0, "K5": L, "K6": 0, "K6-q8": 0,
+                          "K7 rms_norm": 2 * L + 1, "K7 layer_norm": 0},
+                         what, card)
         eng.shutdown()                 # raises on a leaked block
-        r.update(first_step_check(eng, run["first"], LLAMA_LOGITS_TOL,
-                                  LLAMA_HIDDEN_RTOL, what))
+        r.update(first_step_check(eng, run["first"]["ragged"],
+                                  LLAMA_LOGITS_TOL, LLAMA_HIDDEN_RTOL, what))
         r["launches"] = run["launches"]
         if res is None:
-            res = dict(r, seeds={})
+            res, kept, outs = dict(r, seeds={}), model, run["outs"]
         else:
             res["seeds"][seed] = r
-        del eng, run
-        if seed != seeds[-1]:
-            del model
+        del eng, run, model
         torch.cuda.empty_cache()
-    return res, model
+    return res, kept, outs
+
+
+def off_engine_phase(card, model, what, ragged_outs, per_pass, logits_tol,
+                     hidden_rtol, **knobs):
+    """The two-program layout (``ragged="off"``) on a model the ragged
+    phase built, with its engine's knobs: the same 12-request trace (seed
+    0). Each prefill chunk and each decode batch is one model pass, which
+    launches ``per_pass`` kernels (K6 or K6-q8 once a layer, K7 2L + 1
+    times; never K4 or K5). The first prefill chunk and the first decode
+    batch with two live rows are held against the same step through the
+    plain versions of every kernel. Prints, and does not check, the share
+    of greedy tokens equal to the ragged layout's stream: random bf16
+    weights leave the top logits within rounding of each other."""
+    from paddle_tpu_torch.serving import ServingEngine
+
+    vocab = model.config.vocab_size
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, ragged="off", **knobs, **SERVE_ENGINE)
+    eng.warmup()
+    torch.cuda.synchronize()
+    print("engine: %s, ragged=off, warmed up in %.2f s"
+          % (what, time.perf_counter() - t0), flush=True)
+    prompts, new_tokens = traffic(vocab)
+    run = serve_main_path(eng, prompts, new_tokens)
+    res = check_served(run, prompts, new_tokens, vocab, per_pass, what,
+                       card)
+    check(run["programs"][0] == 0 and min(run["programs"][1:]) > 0,
+          "%s: programs run %s (ragged, prefill, decode)"
+          % (what, run["programs"]))
+    eng.shutdown()                     # raises on a leaked block
+    for kind in ("prefill", "decode"):
+        check(kind in run["first"], "%s: no %s step to check" % (what, kind))
+        res[kind] = first_step_check(eng, run["first"][kind], logits_tol,
+                                     hidden_rtol, "%s %s" % (what, kind))
+    same = sum(a == b for o, r in zip(run["outs"], ragged_outs)
+               for a, b in zip(o, r))
+    total = sum(len(o) for o in run["outs"])
+    res["greedy_share_equal_to_ragged"] = same / total
+    print("engine %s: %d of %d greedy tokens (%.4f) equal the ragged "
+          "layout's stream (printed, not checked)"
+          % (what, same, total, same / total), flush=True)
+    res["launches"] = run["launches"]
+    return res
 
 
 # kernel-name fragments -> group, first match wins
@@ -1287,6 +1647,9 @@ PROFILE_GROUPS = (
     ("K5", ("ragged_paged_attention_kernel<__nv_bfloat16, true>",
             "ragged_paged_attention_kernel<float, true>")),
     ("K4", ("ragged_paged_attention_kernel",)),
+    ("K6-q8", ("paged_decode_kernel<__nv_bfloat16, true",
+               "paged_decode_kernel<float, true")),
+    ("K6", ("paged_decode_kernel",)),
     ("K7", ("row_norm_kernel",)),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("copies and casts", ("copy",)),
@@ -1377,7 +1740,13 @@ def main():
               file=sys.stderr)
         return 1
     from paddle_tpu_torch.incubate.nn.cuda import _build
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3B
+
+    t_main = time.perf_counter()
+
+    def stamp(what):
+        # where the run's time limit goes, phase by phase
+        print("chip_smoke: %.1f s in, after %s"
+              % (time.perf_counter() - t_main, what), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
     torch.backends.cudnn.allow_tf32 = False
@@ -1399,24 +1768,43 @@ def main():
     k4 = kernel_phase(card)
     k5 = q8_kernel_phase(card)
     k7 = norm_phase(card)
+    k6 = decode_kernel_phase(card)
     flash = flash_kernel_phase(card)
+    stamp("the build and the kernel phases")
     train_check(card)
     train_launches, step, batch = train_phase(card)
     train_profile(step, batch, card)
     del step, batch
     torch.cuda.empty_cache()
-    gpt = engine_phase(card)
+    stamp("training")
+    gpt, gpt_model, gpt_outs = engine_phase(card)
     torch.cuda.empty_cache()
-    llama, llama_model = llama_engine_phase(card)
-    profile_phase(card, llama_model, "llama2_7B int8", kv_quant="int8",
-                  **SERVE_ENGINE)
+    llama, llama_model, llama_outs = llama_engine_phase(card)
+    torch.cuda.empty_cache()
+    stamp("ragged serving")
+    Lg, Ll = gpt_model.config.num_layers, llama_model.config.num_layers
+    off_gpt = off_engine_phase(
+        card, gpt_model, "gpt3_1p3B off", gpt_outs,
+        {"K4": 0, "K5": 0, "K6": Lg, "K6-q8": 0, "K7 rms_norm": 0,
+         "K7 layer_norm": 2 * Lg + 1}, LOGITS_TOL, SERVE_HIDDEN_RTOL)
+    torch.cuda.empty_cache()
+    off_llama = off_engine_phase(
+        card, llama_model, "llama2_7B int8 off", llama_outs,
+        {"K4": 0, "K5": 0, "K6": 0, "K6-q8": Ll,
+         "K7 rms_norm": 2 * Ll + 1, "K7 layer_norm": 0}, LLAMA_LOGITS_TOL,
+        LLAMA_HIDDEN_RTOL, kv_quant="int8")
+    torch.cuda.empty_cache()
+    stamp("off-layout serving")
+    for ragged in ("on", "off"):
+        profile_phase(card, llama_model, "llama2_7B int8 ragged=" + ragged,
+                      kv_quant="int8", ragged=ragged, **SERVE_ENGINE)
     del llama_model
     torch.cuda.empty_cache()
-    gpt_model = GPTForCausalLM(
-        gpt3_1p3B(), dtype=torch.bfloat16,
-        generator=torch.Generator(device="cuda").manual_seed(0))
-    profile_phase(card, gpt_model, "gpt3_1p3B", **SERVE_ENGINE)
+    for ragged in ("on", "off"):
+        profile_phase(card, gpt_model, "gpt3_1p3B ragged=" + ragged,
+                      ragged=ragged, **SERVE_ENGINE)
     del gpt_model
+    stamp("the profiles")
 
     rpa_src = "paddle_tpu_torch/incubate/nn/csrc/ragged_paged_attention.cu"
     kernels = []
@@ -1467,8 +1855,31 @@ def main():
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "training shapes: b 8, s 1024, 16 heads, d 128, bf16, "
                   "causal"})
+    for name, route, mix, line, status, launches, shape in (
+            ("paged_attention", "K6", "gpt_decode", 53, "ported",
+             off_gpt["launches"]["K6"], "bf16 pools, 16 heads, d 128 "
+             "(GPT-3 1.3B serving, ragged=off)"),
+            ("paged_attention_q8", "K6-q8", "decode", 97,
+             "port route, no TPU kernel (the int8 branch of "
+             "_xla_paged_attention)", off_llama["launches"]["K6-q8"],
+             "bf16 q, int8 pools, 32 heads, d 128 (Llama-2 7B serving, "
+             "ragged=off)")):
+        r = k6[mix][route]
+        kernels.append({
+            "name": name, "route": "cuda", "source": DECODE_SRC,
+            "replaces": "paddle_tpu/incubate/nn/pallas/paged_attention.py:%d"
+                        % line, "status": status, "launches": launches,
+            "max_abs_err": max(x[route]["max_abs_err"] for x in k6.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "at": "%s: a decode batch of 8 rows (contexts 64-1056, two "
+                  "empty), page 16, %s" % (mix, shape),
+            "mixes": {k: v[route] for k, v in k6.items()}})
     print(json.dumps({"serving": {"gpt3_1p3B": gpt,
-                                  "llama2_7B_int8": llama}}))
+                                  "llama2_7B_int8": llama,
+                                  "gpt3_1p3B_off": off_gpt,
+                                  "llama2_7B_int8_off": off_llama}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,8 +37,8 @@ _ALL = (
     _k("SERVE_PREFILL_CHUNK", "int", 32,
        "Prefill tokens admitted per engine step."),
     _k("SERVE_RAGGED", "str", "auto",
-       "Single-dispatch ragged step: auto|on (off, the two-program "
-       "layout, is not ported yet)."),
+       "Single-dispatch ragged step: auto|on|off "
+       "(off restores the two-program decode+prefill layout)."),
     _k("SERVE_TOKEN_BUDGET", "int", None,
        "Token axis of the ragged step "
        "(default: SERVE_SLOTS + SERVE_PREFILL_CHUNK)."),

@@ -1,6 +1,8 @@
 """Wrappers of the hand-written Hopper kernels (the counterpart of the
 JAX package's ``incubate/nn/pallas``). Importing builds nothing: each
-kernel is compiled on its first launch."""
+kernel is compiled on its first launch. K6's ``paged_attention`` stays
+in its module (``from .paged_attention import paged_attention`` would
+hide the module of the same name)."""
 from .flash_attn import (flash_attention, flash_attention_ref, flash_bwd,
                          flash_bwd_fused, flash_bwd_ref, flash_bwd_split,
                          flash_fwd, flash_fwd_ref)

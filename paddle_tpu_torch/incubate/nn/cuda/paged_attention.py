@@ -1,7 +1,8 @@
-"""Ragged paged attention over a paged KV pool, and the pool writes.
+"""Paged attention over a paged KV pool (ragged and one token a row),
+and the pool writes.
 
-Port of ``paddle_tpu/incubate/nn/pallas/paged_attention.py`` for the
-ragged serving step. Layouts are the JAX package's:
+Port of ``paddle_tpu/incubate/nn/pallas/paged_attention.py`` for both
+layouts of the serving step. Layouts are the JAX package's:
 
   q:            [n_tokens, num_heads, head_dim] -- flat token axis, rows
                 packed contiguously (row r owns tokens q_starts[r] ..
@@ -20,10 +21,15 @@ ragged serving step. Layouts are the JAX package's:
 :func:`ragged_paged_attention` launches a hand-written Hopper kernel
 (``csrc/ragged_paged_attention.cu``): the counterpart of the TPU kernel
 ``_ragged_kernel`` (K4) over an fp pool, of ``_ragged_kernel_q8`` (K5)
-over an int8 pool, each with its own launch count. Both take CUDA
-tensors only and raise on anything else; the plain PyTorch version,
-:func:`ragged_paged_attention_ref`, serves the CPU (the serving step's
-``_ragged_attn`` chooses between them).
+over an int8 pool, each with its own launch count.
+:func:`paged_attention` (one query token a row: ``q [n_rows, num_heads,
+head_dim]``, ``context_lens [n_rows]`` keys a row) launches
+``csrc/paged_attention.cu``, the counterpart of ``_decode_kernel`` (K6),
+over an fp or an int8 pool, again with a count each. Every wrapper takes
+CUDA tensors only and raises on anything else; the plain PyTorch
+versions, :func:`ragged_paged_attention_ref` and
+:func:`paged_attention_ref`, serve the CPU (the serving step's
+``_ragged_attn`` and ``_paged_attn_chunk`` choose between them).
 """
 from __future__ import annotations
 
@@ -35,10 +41,11 @@ import torch
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
-           "paged_kv_write_chunk", "kv_write_slots", "kv_scatter",
-           "quantize_kv_pages", "pool_shape"]
+           "paged_attention", "paged_attention_ref", "paged_kv_write_chunk",
+           "kv_write_slots", "kv_scatter", "quantize_kv_pages", "pool_shape"]
 
 _KERNEL = "ragged_paged_attention"
+_DECODE_KERNEL = "paged_attention"
 _MAX_D = 256
 
 
@@ -84,14 +91,17 @@ def _token_rows(q_starts: torch.Tensor, query_lens: torch.Tensor,
     return torch.where(in_row.any(dim=0), first, -1)
 
 
-def _paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
-                         scale):
-    """Gather each sequence's pages, then masked f32 attention. Mirrors
-    the JAX package's ``_xla_paged_attention``: sequences with
+def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens,
+                        scale=None):
+    """The plain PyTorch version of K6 (:func:`paged_attention`, same
+    arguments): gather each row's pages, then masked f32 attention.
+    Mirrors the JAX package's ``_xla_paged_attention``: rows with
     ``context_lens == 0`` get zeros (their softmax over nothing would be
     0/0), block-table ids are clamped into the pool, and int8 pools
     decode through :func:`_dequant`."""
     bsz, n_heads, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
     n_kv, total_pages, page, _ = pool_shape(k_pages)
     group = n_heads // n_kv
     max_len = block_tables.shape[1] * page
@@ -141,8 +151,8 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables,
     j = torch.arange(n_tokens, device=q.device) - q_starts[r]
     lens = context_lens[r] - query_lens[r] + j + 1
     lens = torch.where(row_of >= 0, lens.clamp_min(0), 0)
-    return _paged_attention_ref(q, k_pages, v_pages, block_tables[r], lens,
-                                scale)
+    return paged_attention_ref(q, k_pages, v_pages, block_tables[r], lens,
+                               scale)
 
 
 def _tile_tokens(group: int) -> int:
@@ -151,12 +161,16 @@ def _tile_tokens(group: int) -> int:
     return max(1, 16 // group)
 
 
-def check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
-                        query_lens, q_starts) -> None:
-    """Raise ``ValueError`` on anything the kernel does not take: it
-    reads raw pointers, so every shape, dtype, layout and alignment is
-    settled here. fp pools share q's type (bf16 or f32); int8 pools are
-    ``{"q8": int8, "s": f32}`` dicts under a bf16 or f32 q."""
+def _check_common(q, k_pages, v_pages, meta) -> int:
+    """The checks K4, K5 and K6 share (they read raw pointers, so every
+    shape, dtype, layout and alignment is settled here): q ``[rows or
+    tokens, heads, d]`` bf16 or f32; fp pools of q's type, or int8 pools
+    ``{"q8": int8, "s": f32}`` under a bf16 or f32 q; d a multiple of 8
+    (16 over int8 pools: 16-byte row loads) and at most 256; the page
+    size a multiple of 8; at most 16 query heads a kv head; ``meta``, the
+    ``(name, tensor)`` pairs of the int32 metadata. Every tensor on q's
+    device, contiguous, q and the pools 16-byte aligned. Returns the
+    number of rows the block tables hold."""
     quant = isinstance(k_pages, dict)
     if quant != isinstance(v_pages, dict):
         raise ValueError("k and v pools must both be fp or both int8")
@@ -200,19 +214,13 @@ def check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
     if n_heads // n_kv > 16:
         raise ValueError("GQA group %d exceeds the 16 query vectors of "
                          "one kernel block" % (n_heads // n_kv))
+    block_tables = dict(meta)["block_tables"]
     if block_tables.dim() != 2:
         raise ValueError("block_tables must be [n_rows, pages_per_seq]")
-    n_rows = block_tables.shape[0]
-    for name, t in (("context_lens", context_lens),
-                    ("query_lens", query_lens), ("q_starts", q_starts)):
-        if tuple(t.shape) != (n_rows,):
-            raise ValueError("%s must be [%d]" % (name, n_rows))
-    meta = (("block_tables", block_tables), ("context_lens", context_lens),
-            ("query_lens", query_lens), ("q_starts", q_starts))
     for name, t in meta:
         if t.dtype != torch.int32:
             raise ValueError("%s must be int32, got %s" % (name, t.dtype))
-    for name, t in (("q", q),) + pools + meta:
+    for name, t in (("q", q),) + pools + tuple(meta):
         if t.device != q.device:
             raise ValueError("%s is on %s, q on %s"
                              % (name, t.device, q.device))
@@ -221,6 +229,32 @@ def check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
     for name, t in (("q", q),) + pools:
         if t.data_ptr() % 16:
             raise ValueError("%s must be 16-byte aligned" % name)
+    return block_tables.shape[0]
+
+
+def check_kernel_inputs(q, k_pages, v_pages, block_tables, context_lens,
+                        query_lens, q_starts) -> None:
+    """Raise ``ValueError`` on anything K4 / K5 do not take (see
+    :func:`_check_common`); the per-row metadata is ``[n_rows]``."""
+    meta = (("block_tables", block_tables), ("context_lens", context_lens),
+            ("query_lens", query_lens), ("q_starts", q_starts))
+    n_rows = _check_common(q, k_pages, v_pages, meta)
+    for name, t in meta[1:]:
+        if tuple(t.shape) != (n_rows,):
+            raise ValueError("%s must be [%d]" % (name, n_rows))
+
+
+def check_decode_inputs(q, k_pages, v_pages, block_tables,
+                        context_lens) -> None:
+    """Raise ``ValueError`` on anything K6 does not take (see
+    :func:`_check_common`): one query token a row, so q, the block tables
+    and ``context_lens`` share the row axis."""
+    meta = (("block_tables", block_tables), ("context_lens", context_lens))
+    n_rows = _check_common(q, k_pages, v_pages, meta)
+    if q.shape[0] != n_rows or tuple(context_lens.shape) != (n_rows,):
+        raise ValueError("q [%d, ...], block_tables [%d, P] and "
+                         "context_lens %s must share the row axis"
+                         % (q.shape[0], n_rows, tuple(context_lens.shape)))
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -319,6 +353,94 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 
 ragged_paged_attention.launches = 0        # K4
 ragged_paged_attention.launches_q8 = 0     # K5
+
+
+_decode_lib: Optional[ctypes.CDLL] = None
+
+
+def _bind_decode() -> ctypes.CDLL:
+    """K6's library with its C signatures declared (see :func:`_bind`)."""
+    global _decode_lib
+    if _decode_lib is None:
+        lib = _build.load(_DECODE_KERNEL)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.pa_launch.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, i, p]
+        lib.pa_launch.restype = i
+        lib.pa_q8_launch.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, i,
+                                                         p]
+        lib.pa_q8_launch.restype = i
+        lib.pa_error_string.argtypes = [i]
+        lib.pa_error_string.restype = ctypes.c_char_p
+        _decode_lib = lib
+    return _decode_lib
+
+
+def _launch_decode(q, k_pages, v_pages, block_tables, context_lens, scale):
+    """Check, then launch K6 over an fp or an int8 pool; returns the
+    output and whether a kernel was launched."""
+    if q.device.type != "cuda":
+        raise ValueError("paged_attention takes CUDA tensors, got %s "
+                         "(paged_attention_ref serves the CPU)" % q.device)
+    n_rows, n_heads, d = q.shape
+    if scale is None:
+        scale = d ** -0.5
+    check_decode_inputs(q, k_pages, v_pages, block_tables, context_lens)
+    out = torch.zeros_like(q)          # rows with no key stay exactly zero
+    n_kv, total_pages, page, _ = pool_shape(k_pages)
+    if n_rows == 0:
+        return out, False
+    lib = _bind_decode()
+    if isinstance(k_pages, dict):
+        fn = lib.pa_q8_launch
+        pools = (k_pages["q8"], k_pages["s"], v_pages["q8"], v_pages["s"])
+    else:
+        fn = lib.pa_launch
+        pools = (k_pages, v_pages)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
+                block_tables.data_ptr(), context_lens.data_ptr(),
+                out.data_ptr(), n_rows, n_heads, n_kv, d, total_pages, page,
+                block_tables.shape[1], float(scale),
+                int(q.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError("paged_attention launch failed: %s"
+                           % lib.pa_error_string(rc).decode())
+    return out, True
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                    scale=None):
+    """Attention of ONE query token per row over a paged KV pool, in one
+    launch, on CUDA tensors (the JAX package's ``paged_attention``).
+
+    ``q [n_rows, num_heads, head_dim]``; row r attends to its keys
+    ``0 .. context_lens[r] - 1`` through ``block_tables [n_rows,
+    pages_per_seq]``, cut at the table's window. Rows with
+    ``context_lens == 0`` return zeros; block-table ids are clamped into
+    the pool; the ``num_heads // num_kv_heads`` query heads of a group
+    share one kv head.
+
+    An fp pool launches K6 (the counterpart of ``_decode_kernel``: bf16
+    or f32, contiguous, head_dim a multiple of 8 and <= 256, any page
+    size that is a multiple of 8, int32 metadata, at most 16 query heads
+    a kv head) and adds one to ``paged_attention.launches``; an int8 pool
+    ``{"q8", "s"}`` launches the same kernel decoding each row as ``q8 *
+    s`` (head_dim a multiple of 16) and adds one to
+    ``paged_attention.launches_q8``. Anything the kernel does not take,
+    CPU tensors included, raises ``ValueError``; the plain version,
+    :func:`paged_attention_ref`, serves the CPU."""
+    out, launched = _launch_decode(q, k_pages, v_pages, block_tables,
+                                   context_lens, scale)
+    if isinstance(k_pages, dict):
+        paged_attention.launches_q8 += launched
+    else:
+        paged_attention.launches += launched
+    return out
+
+
+paged_attention.launches = 0               # K6
+paged_attention.launches_q8 = 0            # K6 over int8 pools
 
 
 def kv_write_slots(block_tables: torch.Tensor, pos: torch.Tensor,

@@ -4,10 +4,13 @@ Port of the serving half of ``paddle_tpu/models/generation.py``: the
 norms ``_ln`` and ``_rms`` (on the card through the Hopper row-norm
 kernel K7), ``_rope``, the fp ``_linear``, ``GPTDecodeAdapter`` and
 ``LlamaDecodeAdapter`` with their ``ragged_chunk`` (one ragged mixed
-prefill + decode step over fp or int8 pools), ``_ragged_attn`` and
-``_sample``. PyTorch runs eagerly, so there is no jit: the pools are
-written in place and the step is a plain function of tensors.
-``generate()``, beam search, speculative decoding and weight
+prefill + decode step over fp or int8 pools, the engine's default
+layout) and ``paged_chunk`` (g tokens at per-row positions: a decode
+batch or a prefill chunk of the engine's two-program ``ragged="off"``
+layout), ``_ragged_attn`` (K4 / K5 on the card), ``_paged_attn_chunk``
+(K6 on the card) and ``_sample``. PyTorch runs eagerly, so there is no
+jit: the pools are written in place and a step is a plain function of
+tensors. ``generate()``, beam search, speculative decoding and weight
 quantization are later slices (ROADMAP.md).
 """
 from __future__ import annotations
@@ -18,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..incubate.nn.cuda.paged_attention import (
-    kv_scatter, kv_write_slots, pool_shape, ragged_paged_attention,
-    ragged_paged_attention_ref)
+    kv_scatter, kv_write_slots, paged_attention, paged_attention_ref,
+    pool_shape, ragged_paged_attention, ragged_paged_attention_ref)
 from ..incubate.nn.functional.fused_ops import layer_norm, rms_norm
 
 __all__ = ["GPTDecodeAdapter", "LlamaDecodeAdapter"]
@@ -112,6 +115,31 @@ class GPTDecodeAdapter:
             return x @ w["wte"].T
         return _linear(x, head)
 
+    def _forward(self, w, toks, pos, kpages, vpages, rows, slots, attend):
+        """The decoder over a flat token axis: ``toks``, ``pos [T]``
+        (``pos < 0``: padding, embedded at position 0); each layer writes
+        its k/v rows ``rows`` at the flat pool ``slots`` (in place), then
+        ``attend(layer, q [T, nh, hd])`` returns the attention over the
+        pools. Returns logits [T, V]."""
+        nh, hd, dt = self.num_heads, self.head_dim, self.dtype
+        T = toks.shape[0]
+        x = (w["wte"][toks.long()]
+             + w["wpe"][pos.clamp_min(0).long()]).to(dt)
+        for i, W in enumerate(w["layers"]):
+            h1 = _ln(x, W["ln1_w"], W["ln1_b"], self.eps)
+            qkv = _linear(h1, W["qkv_w"], W["qkv_b"]).reshape(T, 3, nh, hd)
+            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
+            kv_scatter(kpages[i], k, rows, slots)
+            kv_scatter(vpages[i], v, rows, slots)
+            att = attend(i, q)
+            x = x + _linear(att.reshape(T, nh * hd),
+                            W["out_w"], W["out_b"])
+            h2 = _ln(x, W["ln2_w"], W["ln2_b"], self.eps)
+            m = F.gelu(_linear(h2, W["fc1_w"], W["fc1_b"]),
+                       approximate="tanh")
+            x = x + _linear(m, W["fc2_w"], W["fc2_b"])
+        return self.logits(w, x)
+
     @torch.no_grad()
     def ragged_chunk(self, w, toks, pos, row_of, q_starts, query_lens,
                      context_lens, kpages, vpages, block_tables,
@@ -129,32 +157,34 @@ class GPTDecodeAdapter:
         plain version on the CPU; pass ``ragged_paged_attention_ref`` to
         run the plain version on the card). Returns (logits [T, V],
         kpages, vpages)."""
-        nh, hd, dt = self.num_heads, self.head_dim, self.dtype
-        T = toks.shape[0]
-        n_rows = block_tables.shape[0]
-        _, total_pages, page, _ = pool_shape(kpages[0])
-        bt_tok = block_tables[row_of.clamp(0, n_rows - 1).long()]
-        # where this step's k/v rows land: the same slots in every layer
-        rows, slots = kv_write_slots(bt_tok, pos[:, None], page,
-                                     total_pages)
-        x = (w["wte"][toks.long()]
-             + w["wpe"][pos.clamp_min(0).long()]).to(dt)
-        for i, W in enumerate(w["layers"]):
-            h1 = _ln(x, W["ln1_w"], W["ln1_b"], self.eps)
-            qkv = _linear(h1, W["qkv_w"], W["qkv_b"]).reshape(T, 3, nh, hd)
-            q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-            kv_scatter(kpages[i], k, rows, slots)
-            kv_scatter(vpages[i], v, rows, slots)
-            att = _ragged_attn(q, kpages[i], vpages[i], block_tables,
-                               context_lens, query_lens, q_starts, row_of,
-                               hd, attn)
-            x = x + _linear(att.reshape(T, nh * hd),
-                            W["out_w"], W["out_b"])
-            h2 = _ln(x, W["ln2_w"], W["ln2_b"], self.eps)
-            m = F.gelu(_linear(h2, W["fc1_w"], W["fc1_b"]),
-                       approximate="tanh")
-            x = x + _linear(m, W["fc2_w"], W["fc2_b"])
-        return self.logits(w, x), kpages, vpages
+        rows, slots = _ragged_slots(kpages, block_tables, row_of, pos)
+        lg = self._forward(
+            w, toks, pos, kpages, vpages, rows, slots,
+            lambda i, q: _ragged_attn(q, kpages[i], vpages[i], block_tables,
+                                      context_lens, query_lens, q_starts,
+                                      row_of, self.head_dim, attn))
+        return lg, kpages, vpages
+
+    @torch.no_grad()
+    def paged_chunk(self, w, toks, pos, kpages, vpages, block_tables,
+                    attn: Optional[Callable] = None):
+        """g tokens at per-row positions over PAGED pools: a decode batch
+        (g = 1) or a prefill chunk (b = 1) of the engine's two-program
+        layout (the JAX adapter's ``paged_chunk``). toks/pos [b, g];
+        ``pos < 0`` marks an inactive row or prefill padding: its write
+        is dropped and its attention is zero. block_tables [b, P]. The
+        pools are written IN PLACE as ``paged_kv_write_chunk`` writes
+        them (its slots computed once for every layer); ``attn``
+        replaces the attention as in :meth:`ragged_chunk` (default:
+        :func:`paged_attention`, K6, on the card). Returns (logits
+        [b, g, V], kpages, vpages)."""
+        b, g = toks.shape
+        rows, slots = _chunk_slots(kpages, block_tables, pos)
+        lg = self._forward(
+            w, toks.reshape(-1), pos.reshape(-1), kpages, vpages, rows,
+            slots, _chunk_attend(kpages, vpages, block_tables, pos,
+                                 self.head_dim, attn))
+        return lg.reshape(b, g, -1), kpages, vpages
 
 
 class LlamaDecodeAdapter:
@@ -212,6 +242,26 @@ class LlamaDecodeAdapter:
                 _linear(h1, W["k_w"]).reshape(T, kvh, hd),
                 _linear(h1, W["v_w"]).reshape(T, kvh, hd))
 
+    def _forward(self, w, toks, pos, kpages, vpages, rows, slots, attend):
+        """The decoder over a flat token axis, as
+        :meth:`GPTDecodeAdapter._forward`; rope rotates each token by its
+        absolute position (padding tokens, pos < 0, by 0)."""
+        nh, hd, dt = self.num_heads, self.head_dim, self.dtype
+        T = toks.shape[0]
+        x = w["wte"][toks.long()].to(dt)
+        cos, sin = _rope_angles(pos.clamp_min(0), hd, self.rope_base)
+        for i, W in enumerate(w["layers"]):
+            q, k, v = self._qkv(W, x)
+            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
+            kv_scatter(kpages[i], k, rows, slots)
+            kv_scatter(vpages[i], v, rows, slots)
+            att = attend(i, q)
+            x = x + _linear(att.reshape(T, nh * hd), W["o_w"])
+            h2 = _rms(x, W["post_ln"], self.eps)
+            m = F.silu(_linear(h2, W["gate_w"])) * _linear(h2, W["up_w"])
+            x = x + _linear(m, W["down_w"])
+        return self.logits(w, x)
+
     @torch.no_grad()
     def ragged_chunk(self, w, toks, pos, row_of, q_starts, query_lens,
                      context_lens, kpages, vpages, block_tables,
@@ -221,28 +271,57 @@ class LlamaDecodeAdapter:
         return). GQA pools carry ``num_kv_heads`` panels; rope rotates
         each token by its absolute position (padding tokens, pos < 0,
         by 0: their writes are dropped and their outputs ignored)."""
-        nh, hd, dt = self.num_heads, self.head_dim, self.dtype
-        T = toks.shape[0]
-        n_rows = block_tables.shape[0]
-        _, total_pages, page, _ = pool_shape(kpages[0])
-        bt_tok = block_tables[row_of.clamp(0, n_rows - 1).long()]
-        rows, slots = kv_write_slots(bt_tok, pos[:, None], page,
-                                     total_pages)
-        x = w["wte"][toks.long()].to(dt)
-        cos, sin = _rope_angles(pos.clamp_min(0), hd, self.rope_base)
-        for i, W in enumerate(w["layers"]):
-            q, k, v = self._qkv(W, x)
-            q, k = _rope(q, cos, sin), _rope(k, cos, sin)
-            kv_scatter(kpages[i], k, rows, slots)
-            kv_scatter(vpages[i], v, rows, slots)
-            att = _ragged_attn(q, kpages[i], vpages[i], block_tables,
-                               context_lens, query_lens, q_starts, row_of,
-                               hd, attn)
-            x = x + _linear(att.reshape(T, nh * hd), W["o_w"])
-            h2 = _rms(x, W["post_ln"], self.eps)
-            m = F.silu(_linear(h2, W["gate_w"])) * _linear(h2, W["up_w"])
-            x = x + _linear(m, W["down_w"])
-        return self.logits(w, x), kpages, vpages
+        rows, slots = _ragged_slots(kpages, block_tables, row_of, pos)
+        lg = self._forward(
+            w, toks, pos, kpages, vpages, rows, slots,
+            lambda i, q: _ragged_attn(q, kpages[i], vpages[i], block_tables,
+                                      context_lens, query_lens, q_starts,
+                                      row_of, self.head_dim, attn))
+        return lg, kpages, vpages
+
+    @torch.no_grad()
+    def paged_chunk(self, w, toks, pos, kpages, vpages, block_tables,
+                    attn: Optional[Callable] = None):
+        """g tokens at per-row positions over PAGED pools, as
+        :meth:`GPTDecodeAdapter.paged_chunk` (same arguments, same
+        return); GQA pools carry ``num_kv_heads`` panels and rope rotates
+        by the per-row positions."""
+        b, g = toks.shape
+        rows, slots = _chunk_slots(kpages, block_tables, pos)
+        lg = self._forward(
+            w, toks.reshape(-1), pos.reshape(-1), kpages, vpages, rows,
+            slots, _chunk_attend(kpages, vpages, block_tables, pos,
+                                 self.head_dim, attn))
+        return lg.reshape(b, g, -1), kpages, vpages
+
+
+def _ragged_slots(kpages, block_tables, row_of, pos):
+    """Where a ragged step's k/v rows land (:func:`kv_write_slots` over
+    each token's row's block table): the same in every layer."""
+    n_rows = block_tables.shape[0]
+    _, total_pages, page, _ = pool_shape(kpages[0])
+    bt_tok = block_tables[row_of.clamp(0, n_rows - 1).long()]
+    return kv_write_slots(bt_tok, pos[:, None], page, total_pages)
+
+
+def _chunk_slots(kpages, block_tables, pos):
+    """Where a [b, g] chunk's k/v rows land: the same in every layer."""
+    _, total_pages, page, _ = pool_shape(kpages[0])
+    return kv_write_slots(block_tables, pos, page, total_pages)
+
+
+def _chunk_attend(kpages, vpages, block_tables, pos, hd, attn):
+    """``attend(layer, q [b*g, nh, hd])`` of a [b, g] chunk: its
+    attention over the layer's pools by :func:`_paged_attn_chunk`."""
+    b, g = pos.shape
+
+    def attend(i, q):
+        out = _paged_attn_chunk(q.reshape((b, g) + tuple(q.shape[1:])),
+                                kpages[i], vpages[i], block_tables, pos, hd,
+                                attn)
+        return out.reshape(q.shape)
+
+    return attend
 
 
 def _ragged_attn(q, kpages, vpages, block_tables, context_lens,
@@ -261,6 +340,33 @@ def _ragged_attn(q, kpages, vpages, block_tables, context_lens,
     return fn(q.contiguous(), kpages, vpages, block_tables, context_lens,
               query_lens, q_starts=q_starts, row_of=row_of,
               scale=hd ** -0.5)
+
+
+def _paged_attn_chunk(q, kpages, vpages, block_tables, pos, hd, attn=None):
+    """Chunked causal attention over PAGED pools for the two-program
+    serving layout (the JAX ``_paged_attn_chunk``): q [b, g, nh, hd] at
+    per-row positions pos [b, g] attends to page slots 0..pos (the
+    chunk's own rows were written before this call, so within-chunk
+    causality falls out of each query's length). The b*g queries become
+    rows of one :func:`paged_attention` call with ``lens = max(pos + 1,
+    0)`` and the row's block table each; ``pos < 0`` rows (inactive
+    slots, prefill padding) come back as zeros. On the card that
+    launches K6 (over fp or int8 pools); CPU tensors take its plain
+    version. ``attn`` replaces the function."""
+    if attn is not None:
+        fn = attn
+    elif q.device.type == "cpu":
+        fn = paged_attention_ref
+    else:
+        fn = paged_attention
+    b, g, nh, _ = q.shape
+    lens = (pos + 1).clamp_min(0).reshape(b * g).to(torch.int32)
+    # each row's table once a query, as its own contiguous copy (K6 reads
+    # the tables by raw pointer)
+    bt = block_tables.repeat_interleave(g, dim=0)
+    out = fn(q.reshape(b * g, nh, hd).contiguous(), kpages, vpages, bt,
+             lens, scale=hd ** -0.5)
+    return out.reshape(b, g, nh, hd)
 
 
 Number = Union[int, float]

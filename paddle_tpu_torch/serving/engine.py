@@ -1,27 +1,32 @@
 """ServingEngine: continuous-batching inference over paged KV pools.
 
-Port of ``paddle_tpu/serving/engine.py`` in its default ragged mode. The
+Port of ``paddle_tpu/serving/engine.py`` in both of its layouts. The
 engine owns the physical KV pools (per layer, ``[n_kv, num_blocks,
 block_size, head_dim]`` in the model's dtype, or with ``kv_quant="int8"``
 int8 ``{"q8", "s"}`` pools of that shape with one f32 scale per row, on
 the model's device), a
 :class:`BlockManager` for the page index space and a :class:`Scheduler`
-for slots. Each :meth:`ServingEngine.step` runs ONE ragged step whose
-flat ``[token_budget]`` token axis packs every RUNNING slot's decode
-token next to as many prefill-chunk tokens as fit, so mixed prefill +
-decode traffic costs one step per scheduler tick. Rows join and leave by
-mask (``query_lens == 0`` = idle slot, position ``-1`` = padding). On
-the card every layer's attention is one launch of a Hopper ragged
-paged-attention kernel (K4 over fp pools, K5 over int8 pools).
+for slots. In the default ragged layout (``ragged="auto"`` or ``"on"``)
+each :meth:`ServingEngine.step` runs ONE ragged step whose flat
+``[token_budget]`` token axis packs every RUNNING slot's decode token
+next to as many prefill-chunk tokens as fit, so mixed prefill + decode
+traffic costs one step per scheduler tick. Rows join and leave by mask
+(``query_lens == 0`` = idle slot, position ``-1`` = padding). On the
+card every layer's attention is one launch of a Hopper ragged
+paged-attention kernel (K4 over fp pools, K5 over int8 pools). The
+two-program layout (``ragged="off"``) runs up to two steps a tick, in
+the JAX engine's order: one ``[1, prefill_chunk]`` chunk of the oldest
+prefilling request, then one ``[max_slots, 1]`` decode batch; on the
+card each layer's attention in either is one launch of the Hopper
+paged-decode kernel K6 (over fp or int8 pools).
 
 Requests stream tokens through per-request queues:
 ``rid = engine.submit(prompt)``, ``for tok in engine.stream(rid)``.
 ``engine.start()`` runs the step loop on a background thread; tests may
 instead call ``engine.step()`` directly for determinism.
 
-Not ported yet (ROADMAP.md): the legacy two-program ``ragged="off"``
-layout, disaggregated handoff, the cluster KV hooks, the
-retry / fault-injection machinery around the step, and the
+Not ported yet (ROADMAP.md): disaggregated handoff, the cluster KV
+hooks, the retry / fault-injection machinery around the step, and the
 observability spans and request log.
 """
 from __future__ import annotations
@@ -40,8 +45,8 @@ from ..device import DeviceLike, resolve_device
 from ..incubate.nn.cuda.paged_attention import quantize_kv_pages
 from ..models.generation import _sample
 from .block_manager import BlockManager
-from .scheduler import (CANCELLED, FINISHED, PREFILL, RUNNING, Request,
-                        Scheduler)
+from .scheduler import (CANCELLED, FINISHED, PREFILL, RUNNING,
+                        PrefillChunk, Request, Scheduler)
 
 __all__ = ["ServingEngine", "RequestError", "EngineConfig",
            "RequestDescriptor", "EngineStats"]
@@ -121,12 +126,8 @@ class EngineConfig:
             default=self.max_slots + self.prefill_chunk)
         if self.kv_quant not in (None, "int8"):
             raise ValueError("kv_quant must be None or 'int8'")
-        if self.ragged == "off":
-            raise NotImplementedError(
-                "the two-program ragged='off' layout needs the paged decode "
-                "kernel (TPU kernel K6), not ported yet: see ROADMAP.md")
-        if self.ragged not in ("auto", "on"):
-            raise ValueError("PADDLE_TPU_SERVE_RAGGED must be auto|on")
+        if self.ragged not in ("auto", "on", "off"):
+            raise ValueError("PADDLE_TPU_SERVE_RAGGED must be auto|on|off")
         if self.token_budget <= 0:
             raise ValueError("token_budget must be > 0")
 
@@ -137,8 +138,10 @@ class ServingEngine:
     ``device`` defaults to ``cuda`` (``"cpu"`` only when asked for, and
     then every step runs the plain PyTorch versions of the kernels); it
     must be the device the model's weights live on. Plain integer counters:
-    ``ragged_steps`` (steps dispatched), ``decode_tokens`` and
-    ``prefill_tokens`` (tokens those steps computed)."""
+    ``ragged_steps`` (ragged steps dispatched), ``prefill_steps`` and
+    ``decode_steps`` (the two programs of ``ragged="off"``),
+    ``decode_tokens`` and ``prefill_tokens`` (tokens those steps
+    computed)."""
 
     def __init__(self, model, device: DeviceLike = None, **knobs):
         self.device = resolve_device(device)
@@ -178,7 +181,10 @@ class ServingEngine:
 
         self._gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        self._ragged = cfg.ragged != "off"      # auto -> on
         self.ragged_steps = 0
+        self.prefill_steps = 0
+        self.decode_steps = 0
         self.decode_tokens = 0
         self.prefill_tokens = 0
         # the flat token axis must cover the worst-case decode rows
@@ -297,14 +303,27 @@ class ServingEngine:
 
     # ------------------------------------------------------- step engine
     def step(self) -> bool:
-        """One scheduler round: admit, then ONE ragged step covering
-        every decode row plus packed prefill chunks. Returns False when
-        there was nothing to do."""
+        """One scheduler round. Ragged layout (the default): admit, then
+        ONE ragged step covering every decode row plus packed prefill
+        chunks. Off layout: admit, one prefill chunk, one decode batch
+        (a request whose last chunk ran emits its first token and then
+        decodes in the same round, as in the JAX engine). Returns False
+        when there was nothing to do."""
         with self._lock:
             self._expire_deadlines()
             admitted = self.scheduler.admit()
-            self.scheduler.ensure_decode_blocks()
-            worked = self._run_ragged()
+            if self._ragged:
+                self.scheduler.ensure_decode_blocks()
+                worked = self._run_ragged()
+            else:
+                chunk = self.scheduler.next_prefill()
+                if chunk is not None:
+                    self._run_prefill(chunk)
+                self.scheduler.ensure_decode_blocks()
+                running = self.scheduler.running()
+                if running:
+                    self._run_decode(running)
+                worked = chunk is not None or bool(running)
             return bool(admitted or worked)
 
     def _run_ragged(self) -> bool:
@@ -397,6 +416,75 @@ class ServingEngine:
             req.state = RUNNING
             self._emit(req, int(out[req.slot]))
         return True
+
+    def _run_prefill(self, chunk: PrefillChunk) -> None:
+        """The off layout's prefill program: one chunk of one request as
+        a [1, prefill_chunk] row (padding at position -1) over its block
+        table; samples the chunk's last real token. The request turns
+        RUNNING and emits that token once its last chunk has run."""
+        req, cfg = chunk.req, self.config
+        C, P = cfg.prefill_chunk, self.pages_per_seq
+        n = len(chunk.tokens)
+        ints = np.zeros(2 * C + P, np.int32)   # toks, pos, block table
+        ints[C:2 * C] = -1
+        ints[:n] = chunk.tokens
+        ints[C:C + n] = np.arange(chunk.start, chunk.start + n)
+        ints[2 * C:2 * C + len(req.blocks)] = req.blocks
+        dev = torch.from_numpy(ints).to(self.device)
+        lg, self._kp, self._vp = self._ad.paged_chunk(
+            self._w, dev[:C].view(1, C), dev[C:2 * C].view(1, C), self._kp,
+            self._vp, dev[2 * C:].view(1, P))
+        if req.temperature == 0.0:      # the argmax lane
+            t_arg, p_arg = 0.0, None
+        else:
+            t_arg = torch.tensor([req.temperature], device=self.device)
+            p_arg = torch.tensor([req.top_p], device=self.device)
+        nxt = int(_sample(lg[0, n - 1][None], self._gen, t_arg, p_arg)[0])
+        self.prefill_steps += 1
+        self.prefill_tokens += n
+        req.prefilled = chunk.start + n
+        if chunk.last:
+            # a preempted request re-prefills but already streamed its
+            # first token: its TTFT stamp stays
+            if req.first_token_at is None:
+                req.first_token_at = time.monotonic()
+            req.state = RUNNING
+            self._emit(req, nxt)
+
+    def _run_decode(self, running: List[Request]) -> None:
+        """The off layout's decode program: every RUNNING slot's last
+        token as a [max_slots, 1] batch, idle slots at position -1, each
+        row sampled with its own temperature and top_p."""
+        S, P = self.config.max_slots, self.pages_per_seq
+        ints = np.zeros(2 * S + S * P, np.int32)   # toks, pos, tables
+        toks, pos = ints[:S], ints[S:2 * S]
+        bt = ints[2 * S:].reshape(S, P)
+        pos[:] = -1
+        temp = np.zeros(S, np.float32)
+        top_p = np.ones(S, np.float32)
+        for req in running:
+            s = req.slot
+            toks[s] = req.generated[-1]
+            pos[s] = req.decode_pos()
+            temp[s] = req.temperature
+            top_p[s] = req.top_p
+            bt[s, :len(req.blocks)] = req.blocks
+        dev = torch.from_numpy(ints).to(self.device)
+        lg, self._kp, self._vp = self._ad.paged_chunk(
+            self._w, dev[:S].view(S, 1), dev[S:2 * S].view(S, 1), self._kp,
+            self._vp, dev[2 * S:].view(S, P))
+        if temp.any():
+            floats = torch.from_numpy(np.concatenate([temp, top_p])) \
+                .to(self.device)
+            t_arg, p_arg = floats[:S], floats[S:]
+        else:                           # all greedy: the argmax lane
+            t_arg, p_arg = 0.0, None
+        out = _sample(lg[:, 0], self._gen, t_arg, p_arg).cpu().numpy()
+        self.decode_steps += 1
+        self.decode_tokens += len(running)
+        for req in running:
+            if req.state == RUNNING:     # not cancelled mid-step
+                self._emit(req, int(out[req.slot]))
 
     def _emit(self, req: Request, tok: int) -> None:
         req.generated.append(tok)

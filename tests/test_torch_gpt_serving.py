@@ -204,3 +204,90 @@ def test_entry_points_refuse_cpu_fallback(models):
     with pytest.raises(NotImplementedError):
         tm(torch.zeros(1, 4, dtype=torch.long), caches=[])
     assert tpa.ragged_paged_attention.launches == 0
+
+
+# ------------------------------------------------- the ragged="off" layout
+def _k6_counts():
+    return (tpa.paged_attention.launches, tpa.paged_attention.launches_q8,
+            tpa.ragged_paged_attention.launches,
+            tpa.ragged_paged_attention.launches_q8)
+
+
+def test_off_engine_prefix_hit_matches_jax_engine_and_generate(models):
+    """The two-program layout: one prefill chunk, then one decode batch a
+    step, through ``paged_chunk``, token for token as the JAX engine's
+    off layout and ``generate()``."""
+    jm, tm = models
+    rng = np.random.RandomState(0)
+    V = tm.config.vocab_size
+    p0, p1, p2 = (rng.randint(0, V, n).tolist() for n in (21, 7, 13))
+    p3 = p0[:16] + rng.randint(0, V, 5).tolist()     # shares 2 blocks
+    knobs = dict(max_slots=4, block_size=8, num_blocks=64, prefill_chunk=8,
+                 ragged="off")
+    counts = _k6_counts()
+    eng = ServingEngine(tm, device="cpu", **knobs)
+    got, reqs = _serve(eng, [p0, p1, p2], 6, then=[p3])
+    assert reqs[3].num_cached == 16                   # prefix-cache hit
+    assert eng.ragged_steps == 0
+    # chunks of 8: 3 + 1 + 2 + 1 (p3's 5 uncached tokens)
+    assert eng.prefill_steps == 7 and eng.decode_steps > 0
+    assert eng.prefill_tokens == 21 + 7 + 13 + 5
+    assert eng.decode_tokens == 4 * 5                 # 1st token: prefill
+    assert _k6_counts() == counts                     # plain on the CPU
+    eng.shutdown()                                     # asserts no leaks
+    jeng = JaxEngine(jm, **knobs)
+    want, _ = _serve(jeng, [p0, p1, p2], 6, then=[p3])
+    jeng.shutdown()
+    assert got == want
+    assert got == [_generate(jm, p, 6) for p in (p0, p1, p2, p3)]
+
+
+def test_off_engine_preemption_matches_jax_engine_and_generate(models):
+    jm, tm = models
+    rng = np.random.RandomState(3)
+    V = tm.config.vocab_size
+    prompts = [rng.randint(0, V, 4).tolist() for _ in range(2)]
+    knobs = dict(max_slots=2, block_size=4, num_blocks=4, prefill_chunk=4,
+                 enable_prefix_cache=False, watermark=0.0, ragged="off")
+    eng = ServingEngine(tm, device="cpu", **knobs)
+    got, _ = _serve(eng, prompts, 12)
+    assert eng.scheduler.preemptions >= 1
+    assert eng.ragged_steps == 0
+    eng.shutdown()
+    jeng = JaxEngine(jm, **knobs)
+    want, _ = _serve(jeng, prompts, 12)
+    jeng.shutdown()
+    assert got == want
+    assert got == [_generate(jm, p, 12) for p in prompts]
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_off_and_on_layouts_stream_the_same_tokens(models, kv_quant):
+    _, tm = models
+    rng = np.random.RandomState(4)
+    V = tm.config.vocab_size
+    prompts = [rng.randint(0, V, n).tolist() for n in (19, 3, 30, 9, 12)]
+    outs = {}
+    for ragged in ("on", "off"):
+        eng = ServingEngine(tm, device="cpu", max_slots=3, block_size=8,
+                            num_blocks=32, prefill_chunk=8, ragged=ragged,
+                            kv_quant=kv_quant)
+        outs[ragged], _ = _serve(eng, prompts[:3], 7, then=prompts[3:])
+        assert (eng.ragged_steps > 0) == (ragged == "on")
+        assert (eng.decode_steps > 0) == (ragged == "off")
+        eng.shutdown()
+    assert outs["off"] == outs["on"]
+
+
+def test_off_engine_warmup_and_stream(models):
+    _, tm = models
+    eng = ServingEngine(tm, device="cpu", max_slots=2, block_size=8,
+                        num_blocks=16, prefill_chunk=8, ragged="off")
+    eng.warmup()
+    assert eng.stats().free_blocks == 16
+    assert (eng.prefill_steps, eng.decode_steps) == (1, 1)
+    rid = eng.submit([1, 2, 3], max_new_tokens=4)
+    eng.start()
+    assert len(list(eng.stream(rid))) == 4
+    eng.shutdown()
+    assert eng.ragged_steps == 0

@@ -56,7 +56,9 @@ def test_chip_smoke_imports_only_the_port_torch_numpy():
 # module of incubate/nn/cuda -> the functions that build, bind or launch
 WRAPPERS = {
     "paged_attention.py": ("ragged_paged_attention", "_launch", "_bind",
-                           "check_kernel_inputs"),
+                           "check_kernel_inputs", "paged_attention",
+                           "_launch_decode", "_bind_decode",
+                           "check_decode_inputs", "_check_common"),
     "norms.py": ("rms_norm", "layer_norm", "_launch", "_bind",
                  "check_kernel_inputs"),
     "flash_attn.py": ("flash_fwd", "flash_bwd_fused", "flash_bwd_split",

@@ -520,3 +520,177 @@ def test_flash_wrapper_raises_instead_of_falling_back():
         fa.flash_bwd(q, k, v, q, lse, do, True, 96 ** -0.5)
     assert (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
             fa.flash_bwd_split.launches) == counts
+
+
+# ------------------------------------------------------------------ K6
+# name -> (context_lens, n_heads, n_kv, shared): one query token a row.
+# "prefill" is an off-layout prefill chunk (rows of one sequence over one
+# block table, each one key longer, padding rows of length 0); "long"
+# rows wrap round the block's 8 warps x 32 keys more than once.
+DECODE_MIXES = {
+    "decode": ([9, 33, 0, 17, 70, 0], 4, 4, False),
+    "prefill": (list(range(20, 41)) + [0] * 5, 4, 4, True),
+    "short": ([1, 5, 15, 3, 8], 4, 4, False),
+    "long": ([1000, 257, 0, 513], 4, 4, False),
+    "gqa2": ([22, 0, 31, 64], 4, 2, False),
+    "gqa4": ([40, 300, 0, 7], 8, 2, False),
+}
+
+
+def _decode_setup(context_lens, n_heads, n_kv, shared=False, d=32, page=16,
+                  seed=0):
+    """q [rows, heads, d], f32 pools, block tables and lengths for K6:
+    shuffled page ids; each row's unused block-table tail (all of an
+    empty row's) holds out-of-range ids, which both sides clamp. With
+    ``shared`` every row reads the same block table."""
+    rng = np.random.RandomState(seed)
+    n_rows = len(context_lens)
+    P = -(-max(context_lens) // page) + 1
+    n_tables = 1 if shared else n_rows
+    total_pages = n_tables * P + 1
+    q = rng.randn(n_rows, n_heads, d).astype(np.float32)
+    kp = rng.randn(n_kv, total_pages, page, d).astype(np.float32)
+    vp = rng.randn(n_kv, total_pages, page, d).astype(np.float32)
+    bt = (1 + rng.permutation(n_tables * P)).reshape(n_tables, P)
+    bt = np.repeat(bt, n_rows, 0) if shared else bt
+    bt = bt.astype(np.int32)
+    for r, c in enumerate(context_lens):
+        if not shared or c == 0:
+            bt[r, -(-c // page):] = [-3, total_pages + 7][r % 2]
+    cl = np.asarray(context_lens, np.int32)
+    return q, kp, vp, bt, cl
+
+
+def _decode_cuda(arrays, dtype):
+    q, kp, vp, bt, cl = [torch.from_numpy(a).cuda() for a in arrays]
+    return q.to(dtype), kp.to(dtype), vp.to(dtype), bt, cl
+
+
+def _decode_counts():
+    return (tpa.paged_attention.launches, tpa.paged_attention.launches_q8,
+            tpa.ragged_paged_attention.launches,
+            tpa.ragged_paged_attention.launches_q8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mix", sorted(DECODE_MIXES))
+def test_decode_kernel_matches_ref(mix, dtype):
+    """K6 over fp pools; tolerances as K4's (online against direct
+    softmax; in bf16 one rounding of an f32 result)."""
+    _need_hopper()
+    lens, nh, nkv, shared = DECODE_MIXES[mix]
+    case = _decode_cuda(_decode_setup(lens, nh, nkv, shared, seed=41),
+                        getattr(torch, dtype))
+    before = _decode_counts()
+    got = tpa.paged_attention(*case)
+    torch.cuda.synchronize()
+    assert _decode_counts() == (before[0] + 1,) + before[1:]
+    want = tpa.paged_attention_ref(*case)
+    tol = dict(rtol=2e-4, atol=2e-4) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (got[case[4] == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mix", sorted(DECODE_MIXES))
+def test_decode_q8_kernel_matches_ref(mix, dtype):
+    """K6 over int8 pools against its plain version, row by row (as K5)."""
+    _need_hopper()
+    lens, nh, nkv, shared = DECODE_MIXES[mix]
+    q, kp, vp, bt, cl = _decode_cuda(
+        _decode_setup(lens, nh, nkv, shared, seed=42), torch.float32)
+    case = (q.to(getattr(torch, dtype)), tpa.quantize_kv_pages(kp),
+            tpa.quantize_kv_pages(vp), bt, cl)
+    before = _decode_counts()
+    got = tpa.paged_attention(*case)
+    torch.cuda.synchronize()
+    assert _decode_counts() == (before[0], before[1] + 1) + before[2:]
+    want = tpa.paged_attention_ref(*case)
+    live = cl > 0
+    _assert_close(got[live], want[live], Q8_TOL[dtype], mix)
+    assert (got[~live] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
+def test_decode_kernel_groups_dims_pages(group, d, page):
+    """The long mix at 16 query heads over 16, 4, 2 and 1 kv heads, bf16,
+    over a bf16 pool and over its int8 quantization."""
+    _need_hopper()
+    lens = DECODE_MIXES["long"][0]
+    q, kp, vp, bt, cl = _decode_cuda(
+        _decode_setup(lens, 16, 16 // group, d=d, page=page, seed=43),
+        torch.float32)
+    what = "group %d d %d page %d" % (group, d, page)
+    fp = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), bt, cl)
+    torch.testing.assert_close(tpa.paged_attention(*fp).float(),
+                               tpa.paged_attention_ref(*fp).float(),
+                               rtol=2e-2, atol=2e-2, msg=what)
+    q8 = (q.bfloat16(), tpa.quantize_kv_pages(kp),
+          tpa.quantize_kv_pages(vp), bt, cl)
+    got, want = tpa.paged_attention(*q8), tpa.paged_attention_ref(*q8)
+    live = cl > 0
+    _assert_close(got[live], want[live], Q8_TOL["bfloat16"], what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_q8_kernel_matches_fp_kernel_on_the_same_values(dtype):
+    """K6 over int8 pages against K6 over the pool they decode to: with
+    power-of-two scales every decoded value is exact in bf16 too, so both
+    routes run the same f32 arithmetic on the same values, bit for bit
+    (as K5 against K4)."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    lens, nh, nkv, _ = DECODE_MIXES["gqa2"]
+    q, kp, vp, bt, cl = _decode_cuda(_decode_setup(lens, nh, nkv, seed=44),
+                                     torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def pool(shape):
+        q8 = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                           dtype=torch.int8)
+        e = torch.randint(-9, -3, shape[:3], generator=g, device="cuda")
+        return {"q8": q8, "s": torch.exp2(e.float())}
+
+    k8, v8 = pool(tuple(kp.shape)), pool(tuple(vp.shape))
+    kf, vf = (tpa._dequant(p["q8"], p["s"]).to(dt) for p in (k8, v8))
+    got = tpa.paged_attention(q.to(dt), k8, v8, bt, cl)
+    want = tpa.paged_attention(q.to(dt), kf, vf, bt, cl)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_decode_wrapper_raises_instead_of_falling_back():
+    _need_hopper()
+    lens, nh, nkv, _ = DECODE_MIXES["decode"]
+    case = _decode_cuda(_decode_setup(lens, nh, nkv), torch.float32)
+    q, kp, vp, bt, cl = case
+    before = _decode_counts()
+    bad = {
+        "fp16": (q.half(), kp.half(), vp.half(), bt, cl),
+        "mixed_types": (q.bfloat16(), kp, vp, bt, cl),
+        "int64_lens": (q, kp, vp, bt, cl.long()),
+        "rows": (q[:-1].contiguous(), kp, vp, bt, cl),
+        "strided_q": (q.transpose(0, 1).contiguous().transpose(0, 1), kp,
+                      vp, bt, cl),
+        "group_32": (torch.zeros(6, 32, 32, device="cuda"), kp[:1], vp[:1],
+                     bt, cl),
+        "d40_q8": _decode_cuda(_decode_setup(lens, nh, nkv, d=40),
+                               torch.float32),
+    }
+    k8, v8 = tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp)
+    bad["fp16_q8"] = (q.half(), k8, v8, bt, cl)
+    bad["mixed_pools"] = (q, k8, vp, bt, cl)
+    d40 = bad["d40_q8"]
+    bad["d40_q8"] = (d40[0], tpa.quantize_kv_pages(d40[1]),
+                     tpa.quantize_kv_pages(d40[2]), *d40[3:])
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            tpa.paged_attention(*args)
+    assert _decode_counts() == before

@@ -233,3 +233,66 @@ def test_kv_quant_is_none_or_int8():
     with pytest.raises(ValueError, match="kv_quant"):
         EngineConfig(kv_quant="fp8")
     assert EngineConfig(kv_quant="int8").kv_quant == "int8"
+
+
+# ------------------------------------------------- the ragged="off" layout
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_off_engine_prefix_hit_matches_jax_engine(models, kv_quant):
+    """The two-program layout over fp and int8 pools (GQA, K6's plain
+    version on the CPU), token for token as the JAX engine's off layout."""
+    jm, tm = models
+    rng = np.random.RandomState(0)
+    V = tm.config.vocab_size
+    p0, p1, p2 = (rng.randint(0, V, n).tolist() for n in (21, 7, 13))
+    p3 = p0[:16] + rng.randint(0, V, 5).tolist()     # shares 2 blocks
+    knobs = dict(max_slots=4, block_size=8, num_blocks=64, prefill_chunk=8,
+                 kv_quant=kv_quant, ragged="off")
+    counts = (tpa.paged_attention.launches, tpa.paged_attention.launches_q8)
+    eng = ServingEngine(tm, device="cpu", **knobs)
+    got, reqs = _serve(eng, [p0, p1, p2], 6, then=[p3])
+    assert reqs[3].num_cached == 16                   # prefix-cache hit
+    assert eng.ragged_steps == 0 and eng.prefill_steps == 7
+    assert eng.prefill_tokens == 21 + 7 + 13 + 5
+    assert (tpa.paged_attention.launches,
+            tpa.paged_attention.launches_q8) == counts
+    eng.shutdown()                                     # asserts no leaks
+    jeng = JaxEngine(jm, **knobs)
+    want, _ = _serve(jeng, [p0, p1, p2], 6, then=[p3])
+    jeng.shutdown()
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_off_engine_preemption_matches_jax_engine(models, kv_quant):
+    jm, tm = models
+    rng = np.random.RandomState(3)
+    V = tm.config.vocab_size
+    prompts = [rng.randint(0, V, 4).tolist() for _ in range(2)]
+    knobs = dict(max_slots=2, block_size=4, num_blocks=4, prefill_chunk=4,
+                 enable_prefix_cache=False, watermark=0.0,
+                 kv_quant=kv_quant, ragged="off")
+    eng = ServingEngine(tm, device="cpu", **knobs)
+    got, _ = _serve(eng, prompts, 12)
+    assert eng.scheduler.preemptions >= 1
+    eng.shutdown()
+    jeng = JaxEngine(jm, **knobs)
+    want, _ = _serve(jeng, prompts, 12)
+    jeng.shutdown()
+    assert got == want
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_off_and_on_layouts_stream_the_same_tokens(models, kv_quant):
+    _, tm = models
+    rng = np.random.RandomState(4)
+    V = tm.config.vocab_size
+    prompts = [rng.randint(0, V, n).tolist() for n in (19, 3, 30, 9, 12)]
+    outs = {}
+    for ragged in ("on", "off"):
+        eng = ServingEngine(tm, device="cpu", max_slots=3, block_size=8,
+                            num_blocks=32, prefill_chunk=8, ragged=ragged,
+                            kv_quant=kv_quant)
+        outs[ragged], _ = _serve(eng, prompts[:3], 7, then=prompts[3:])
+        assert (eng.ragged_steps > 0) == (ragged == "on")
+        eng.shutdown()
+    assert outs["off"] == outs["on"]
