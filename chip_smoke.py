@@ -36,6 +36,18 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    beside the plain version, ``scaled_dot_product_attention`` over K/V
    gathered per row (timed only), K4 / K5 on the same work as one ragged
    call, and the bound;
+4c. K8: hold the MoE grouped GEMM against its plain version on inputs
+   from a real ``sort_dispatch`` of seed-0 routing: ``bench.py``'s MoE
+   step (8192 tokens x 2048, 8 experts, SwiGLU dff 2816, top-2, bf16: P
+   17408, K 2048 x N 5632 and K 2816 x N 2048), Mixtral-8x7B's widths
+   (hidden 4096, dff 14336, 8 experts, top-2) at a decode batch of 8
+   tokens and a 2048-token prefill, the same in f32 at a reduced size,
+   and edges in bf16 and f32 (N 768, a ragged N, K past the last full K
+   tile, a non-monotone block map with ids out of range, all pairs on
+   one expert, empty experts); time the main shapes beside the plain
+   version, a library call computing the same function
+   (``torch._grouped_mm`` in bf16, per-expert ``torch.matmul`` in f32;
+   timed only) and the bound;
 5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (b 8,
    s 1024, 16 heads, d 128, bf16, causal) and at sq < sk, a ragged s,
@@ -80,8 +92,16 @@ Phases, in order; a failure in any of them raises and exits non-zero:
 8. profiles (torch.profiler) of training steps and of engine steps of
    both models in both layouts: device busy share and the kernels with
    the most device time;
-9. one JSON line with the serving numbers, then one listing every ported
-   kernel with its numbers;
+9a. the MoE path at ``bench.py``'s configuration (bf16, random weights
+   from seed 0): ``fused_moe`` on x [1, 8192, 2048] with a [2048, 8]
+   router weight launches K8 twice, and is held against the same op
+   through K8's plain version and, on 256 tokens, against a dense f32
+   reference that shares no code with ``sort_dispatch``; then
+   ``bench.py``'s timing (``moe_ffn_sorted`` chained 8 and 24 times,
+   step = (t24 - t8) / 16): step ms, TFLOP/s by its flops count against
+   989, peak memory;
+9. one JSON line with the MoE numbers, one with the serving numbers, then
+   one listing every ported kernel with its numbers;
 10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -730,6 +750,219 @@ def decode_kernel_phase(card):
         results[name] = res
         del fp, f32, q8, got32
         torch.cuda.empty_cache()
+    return results
+
+
+# ----------------------------------------------------------- phase 4c
+MOE_SRC = "paddle_tpu_torch/incubate/nn/csrc/moe_dispatch.cu"
+# K8 against its plain version. bf16 row by row (see row_err): the two sum
+# the same bf16 products in f32 and round once, so they differ where the
+# two f32 sums straddle a bf16 rounding boundary: one bf16 ulp, at most
+# 2^-7 of a row's largest value, which in a Gaussian row of a few thousand
+# values is up to ~5x the row's RMS: 0.04 of the RMS. Read on an H100 at
+# 0.0002-0.0289 (bench.py's ffn2 the largest). A column or a K tile left
+# out reads 0.3 or more. f32 (FFMA against an f32 matmul summed in another
+# order): rtol = atol = 2e-4, read at most 2.3e-6.
+GMM_ROW_TOL = 4e-2
+GMM_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+# bench.py's _bench_moe step: 8192 tokens x 2048, 8 experts, SwiGLU dff
+# 2816, top-2, bf16, weights 0.02 x N(0, 1)
+MOE_BENCH = dict(tokens=8192, hidden=2048, dff=2816, experts=8, topk=2)
+# Mixtral-8x7B-v0.1's layer widths (Mistral AI's config.json: hidden_size
+# 4096, intermediate_size 14336, num_local_experts 8,
+# num_experts_per_tok 2)
+MIXTRAL = dict(hidden=4096, dff=14336, experts=8, topk=2)
+
+
+def moe_problem(tokens, hidden, dff, experts, seed=0, dtype=torch.bfloat16,
+                **_):
+    """Seeded tokens, router weight and expert weights on the card, in
+    the JAX op's layouts: x [S, M], gate [M, E], w1 [E, M, 2 dff], w2
+    [E, dff, M]; 0.02 x N(0, 1) weights as bench.py draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape, scale=0.02):
+        return (scale * torch.randn(*shape, generator=g, device="cuda")) \
+            .to(dtype)
+
+    x = draw(tokens, hidden, scale=1.0)
+    return (x, draw(hidden, experts), draw(experts, hidden, 2 * dff),
+            draw(experts, dff, hidden))
+
+
+def moe_routing(x, gate, k):
+    """The op's router (``fused_moe``: softmax in f32 of ``x @ gate``)
+    and the sort_dispatch of its top-k."""
+    from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
+
+    probs = torch.softmax((x @ gate).float(), -1)
+    return probs, kmd.sort_dispatch(x, probs, k)
+
+
+def gmm_work(xp, w, gid, group_sizes=None):
+    """Bytes and flops the grouped product needs on these inputs: the real
+    rows of xp (every row when the map does not come from sort_dispatch),
+    the weights of the experts that have real rows, the output's real
+    rows; 2 K N flops a real row."""
+    p, k = xp.shape
+    e, _, n = w.shape
+    if group_sizes is None:
+        real = p
+        touched = len(set(gid.clamp(0, e - 1).tolist()))
+    else:
+        real = int(group_sizes.sum())
+        touched = int((group_sizes > 0).sum())
+    nbytes = (real * k + touched * k * n + real * n) * xp.element_size() \
+        + gid.numel() * 4
+    return nbytes, 2 * real * k * n, real, touched
+
+
+def gmm_library(xp, w, gid):
+    """One PyTorch call computing the same function, timed only and never
+    called by the port: ``torch._grouped_mm`` over the padded groups for
+    bf16, per-expert ``torch.matmul`` over them for f32 (``_grouped_mm``
+    takes bf16 only). The groups are sort_dispatch's: nondecreasing block
+    ids, so each expert's rows are contiguous."""
+    from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
+
+    e = w.shape[0]
+    sizes = torch.bincount(gid.long(), minlength=e) * kmd.BM
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    if xp.dtype == torch.bfloat16:
+        return lambda: torch._grouped_mm(xp, w, offs=offs)
+    ends = offs.tolist()
+    spans = list(zip([0] + ends[:-1], ends))
+    return lambda: torch.cat([xp[a:b] @ w[i] for i, (a, b) in
+                              enumerate(spans)])
+
+
+def gmm_case_check(name, xp, w, gid, card, group_sizes=None, timed=True):
+    """One K8 call against its plain version (and its time, the plain
+    version's, the library call's and the bound's when ``timed``).
+    Returns the K8 output and the readings."""
+    from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
+
+    before = kmd.grouped_matmul.launches
+    got = kmd.grouped_matmul(xp, w, gid)
+    want = kmd.grouped_matmul_ref(xp, w, gid)
+    torch.cuda.synchronize()
+    grew = kmd.grouped_matmul.launches - before
+    check(grew == 1, "K8 %s: launches grew by %d" % (name, grew))
+    check(bool(torch.isfinite(got).all()), "K8 %s: non-finite" % name)
+    err, rel = row_err(got, want)
+    if xp.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **GMM_F32_TOL)
+    else:
+        check(rel <= GMM_ROW_TOL, "K8 %s: max abs err %.4g, %.4g of its "
+              "row's RMS > %g" % (name, err, rel, GMM_ROW_TOL))
+    p, k = xp.shape
+    e, _, n = w.shape
+    res = dict(max_abs_err=err, row_err=rel, P=p, K=k, N=n, E=e,
+               dtype=str(xp.dtype)[6:])
+    if not timed:
+        print("K8 %-22s P=%d K=%d N=%d E=%d %s: max_abs_err=%.3g (%.3e of "
+              "its row's RMS) [%s]" % (name, p, k, n, e, res["dtype"], err,
+                                       rel, card), flush=True)
+        return got, res
+    del want
+    ms = cuda_ms(lambda: kmd.grouped_matmul(xp, w, gid), iters=20)
+    plain_ms = cuda_ms(lambda: kmd.grouped_matmul_ref(xp, w, gid), iters=3,
+                       warmup=1)
+    library_ms = cuda_ms(gmm_library(xp, w, gid), iters=20)
+    nbytes, flops, real, touched = gmm_work(xp, w, gid, group_sizes)
+    bound_ms, bound_by = bound_of(
+        nbytes, flops, BF16_FLOPS_PER_S if xp.dtype == torch.bfloat16
+        else F32_FLOPS_PER_S)
+    res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops, real_rows=real, experts_touched=touched,
+               tflops=flops / ms / 1e9)
+    print("K8 %-22s P=%d K=%d N=%d E=%d %s (%d real rows, %d experts): "
+          "max_abs_err=%.3g (%.3e of its row's RMS) kernel=%.4f ms (%.1f "
+          "TFLOP/s) plain=%.4f ms library=%.4f ms bound=%.4f ms (%s, %.1f "
+          "MB, %.1f GFLOP) [%s]"
+          % (name, p, k, n, e, res["dtype"], real, touched, err, rel, ms,
+             res["tflops"], plain_ms, library_ms, bound_ms, bound_by,
+             nbytes / 1e6, flops / 1e9, card), flush=True)
+    return got, res
+
+
+def swiglu(h):
+    g, u = h.chunk(2, dim=-1)
+    return torch.nn.functional.silu(g) * u
+
+
+def moe_kernel_phase(card):
+    """K8 against its plain version on the card, on inputs from a real
+    sort_dispatch of seed-0 routing: bench.py's MoE step (bf16; P 17408,
+    K 2048 x N 5632 then K 2816 x N 2048); Mixtral-8x7B's widths as the
+    op serves them, a decode batch of 8 tokens (P 1152, mostly padding
+    blocks) and a 2048-token prefill (P 5120), K 4096 x N 28672 then K
+    14336 x N 4096; the same routing in f32 at a reduced size; and edges
+    in bf16 and f32: N 768, a ragged N, K not a multiple of the K tile, a
+    non-monotone block map with ids out of range, all pairs on one
+    expert, empty experts. Each product's second input is the first's
+    output through SwiGLU. Times the main shapes (CUDA events, back to
+    back: a call takes a millisecond or more) beside the plain version,
+    the library call and the bound."""
+    from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
+
+    results = {}
+
+    def both(tag, x, gate, w1, w2, k):
+        _, d = moe_routing(x, gate, k)
+        gs = d["group_sizes"]
+        h, results[tag + " ffn1"] = gmm_case_check(
+            tag + " ffn1", d["xp"], w1, d["block_gid"], card, gs)
+        h = swiglu(h).contiguous()
+        _, results[tag + " ffn2"] = gmm_case_check(
+            tag + " ffn2", h, w2, d["block_gid"], card, gs)
+
+    x, gate, w1, w2 = moe_problem(**MOE_BENCH)
+    both("bench", x, gate, w1, w2, MOE_BENCH["topk"])
+    del x, gate, w1, w2
+    small = dict(MOE_BENCH, tokens=1024, hidden=512, dff=704)
+    both("f32 reduced", *moe_problem(**small, dtype=torch.float32),
+         small["topk"])
+    mx = dict(MIXTRAL, tokens=2048)
+    x, gate, w1, w2 = moe_problem(**mx)
+    both("mixtral prefill", x, gate, w1, w2, MIXTRAL["topk"])
+    both("mixtral decode", x[:8].contiguous(), gate, w1, w2,
+         MIXTRAL["topk"])
+    del x, gate, w1, w2
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    edges = {
+        # name: (K, N, block map, E, top-k, experts that get tokens)
+        "n768": (64, 768, [0, 1, 2, 3], 4, 0, None),
+        "ragged_n": (96, 200, [1, 0, 2], 4, 0, None),
+        "k_tail": (200, 136, [2, 2, 0, 1], 4, 0, None),
+        "non_monotone": (64, 256, [2, 0, 3, 3, 1, 0, 5, -2], 4, 0, None),
+        "all_on_one_expert": (128, 256, 300, 4, 1, [2]),
+        "empty_experts": (128, 256, 300, 8, 2, [1, 6]),
+    }
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (kd, n, spec, e, k, live) in edges.items():
+            w = (torch.randn(e, kd, n, generator=g, device="cuda")
+                 / kd ** 0.5).to(dtype)
+            if k == 0:
+                gid = torch.tensor(spec, dtype=torch.int32, device="cuda")
+                xp = torch.randn(len(spec) * kmd.BM, kd, generator=g,
+                                 device="cuda").to(dtype)
+            else:
+                mask = torch.full((e,), -30.0, device="cuda")
+                mask[live] = 0.0
+                logits = torch.randn(spec, e, generator=g, device="cuda")
+                xs = torch.randn(spec, kd, generator=g, device="cuda")
+                d = kmd.sort_dispatch(xs.to(dtype),
+                                      torch.softmax(logits + mask, -1), k)
+                check(int(d["group_sizes"][live].sum()) == spec * k,
+                      "K8 %s: the routing missed its experts" % name)
+                xp, gid = d["xp"], d["block_gid"]
+            tag = "%s %s" % (name, str(dtype)[6:])
+            _, results[tag] = gmm_case_check(tag, xp, w, gid, card,
+                                             timed=False)
     return results
 
 
@@ -1692,15 +1925,16 @@ def print_profile(prof, wall_us, what, card):
 
 def profile_phase(card, model, what, **knobs):
     """Where an engine step's device time goes: a fresh engine on
-    ``model`` serves 8 new requests under torch.profiler. Runs after the
-    main paths."""
+    ``model`` serves 8 new requests of 16 new tokens under
+    torch.profiler. Runs after the main paths."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving import ServingEngine
 
     eng = ServingEngine(model, **knobs)
     eng.warmup()
-    prompts, new_tokens = traffic(model.config.vocab_size, seed=1, n=8)
+    prompts, new_tokens = traffic(model.config.vocab_size, seed=1, n=8,
+                                  new_tokens=16)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1732,6 +1966,134 @@ def train_profile(step, batch, card, steps=2):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     print_profile(prof, wall_us, "train(%d steps)" % steps, card)
+
+
+# ----------------------------------------------------------- phase 9a
+# fused_moe at bench.py's configuration through K8 against the same op
+# through K8's plain version (relative L2 per token: the same routing and
+# roundings but for the two products' f32 summation order, whose bf16
+# roundings of h flip by an ulp), and on 256 of its tokens against a
+# dense per-token f32 reference that shares no code with sort_dispatch (the
+# op rounds h, the expert outputs and the combine to bf16: a few bf16
+# ulps). Read on an H100: 0.0032 against the plain path, 0.0058 against
+# the dense reference (the plain path 0.0058 too); limits ~3x above. A
+# token sent to a wrong expert reads ~1.
+MOE_PLAIN_RTOL = 1e-2
+MOE_DENSE_RTOL = 1.5e-2
+
+
+def dense_moe_ref(x, gate, w1, w2, k, rows):
+    """Each token of ``rows`` on its own, in f32, without sort_dispatch:
+    the sum over experts of its routing weight (its top-k probabilities,
+    ties to the lower expert, renormalised; 0 for other experts) times
+    the expert's SwiGLU FFN. The router logits come from the same
+    expression over all tokens as the op's, so both route alike."""
+    probs = torch.softmax((x @ gate).float(), -1)
+    order_p, order_e = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    top_p, top_e = order_p[rows, :k], order_e[rows, :k]
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    xs = x[rows].float()
+    out = torch.zeros_like(xs)
+    for e in range(w1.shape[0]):
+        weight = (top_p * (top_e == e)).sum(-1, keepdim=True)
+        out += weight * (swiglu(xs @ w1[e].float()) @ w2[e].float())
+    return out
+
+
+def moe_phase(card):
+    """The MoE path at bench.py's configuration (``_bench_moe``): bf16,
+    random weights from seed 0. ``fused_moe`` on x [1, 8192, 2048] with a
+    [2048, 8] router weight, its K8 count set to 0 just before and read
+    just after (2 launches); held against the same op through the plain
+    version and, on 256 tokens, against a dense f32 reference; then
+    bench.py's timing: ``moe_ffn_sorted`` chained 8 and 24 times,
+    step = (t24 - t8) / 16, TFLOP/s by bench.py's flops count against the
+    989 dense bf16 TFLOP/s, and peak memory."""
+    from paddle_tpu_torch.incubate.nn import functional as fn
+    from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
+    from paddle_tpu_torch.incubate.nn.functional import moe_dispatch as fmd
+
+    cfg = MOE_BENCH
+    s, m, dff, k = cfg["tokens"], cfg["hidden"], cfg["dff"], cfg["topk"]
+    x, gate, w1, w2 = moe_problem(**cfg)
+    kmd.grouped_matmul.launches = 0
+    out = fn.fused_moe(x[None], gate, w1, w2, moe_topk=k)
+    torch.cuda.synchronize()
+    launches = kmd.grouped_matmul.launches
+    check(launches == 2, "fused_moe launched K8 %d times, not twice"
+          % launches)
+    check(tuple(out.shape) == (1, s, m) and out.dtype == torch.bfloat16,
+          "fused_moe: shape %s %s" % (tuple(out.shape), out.dtype))
+    check(bool(torch.isfinite(out).all()), "fused_moe: non-finite")
+
+    kernel = fmd.grouped_matmul
+    fmd.grouped_matmul = kmd.grouped_matmul_ref
+    try:
+        plain = fn.fused_moe(x[None], gate, w1, w2, moe_topk=k)
+    finally:
+        fmd.grouped_matmul = kernel
+    torch.cuda.synchronize()
+    check(kmd.grouped_matmul.launches == launches,
+          "the plain path launched K8")
+    vs_plain = rel_l2(out[0], plain[0], dim=-1)
+    rows = torch.arange(0, s, s // 256, device="cuda")
+    dense = dense_moe_ref(x, gate, w1, w2, k, rows)
+    vs_dense = rel_l2(out[0, rows], dense, dim=-1)
+    plain_vs_dense = rel_l2(plain[0, rows], dense, dim=-1)
+    print("moe: fused_moe [1, %d, %d] bf16, %d experts, top-%d: K8 "
+          "launches %d; relative L2 per token vs the plain path %.4g "
+          "(limit %g), vs the dense f32 reference on %d tokens %.4g (limit "
+          "%g; the plain path %.4g) [%s]"
+          % (s, m, cfg["experts"], k, launches, vs_plain, MOE_PLAIN_RTOL,
+             len(rows), vs_dense, MOE_DENSE_RTOL, plain_vs_dense, card),
+          flush=True)
+    check(vs_plain <= MOE_PLAIN_RTOL, "fused_moe vs the plain path: %.4g"
+          % vs_plain)
+    check(vs_dense <= MOE_DENSE_RTOL, "fused_moe vs the dense reference: "
+          "%.4g" % vs_dense)
+    del out, plain, dense
+
+    probs, _ = moe_routing(x, gate, k)
+    dispatch_ms = cuda_ms(lambda: kmd.sort_dispatch(x, probs, k), iters=20)
+
+    def window(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = x
+        for _ in range(n):
+            c = fmd.moe_ffn_sorted(c, probs, w1, w2, k=k).to(c.dtype)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    before = kmd.grouped_matmul.launches
+    times = {}
+    for n in (8, 24):
+        window(n)                              # as bench.py: warm, then time
+        times[n] = window(n)
+    check(kmd.grouped_matmul.launches - before == 2 * 2 * (8 + 24),
+          "the timed MoE steps launched K8 %d times"
+          % (kmd.grouped_matmul.launches - before))
+    peak = torch.cuda.max_memory_allocated()
+    step = max(times[24] - times[8], 1e-9) / 16
+    flops = 2 * s * k * m * 2 * dff + 2 * s * k * dff * m
+    tflops = flops / step / 1e12
+    res = dict(tokens=s, hidden=m, dff=dff, experts=cfg["experts"], topk=k,
+               dtype="bfloat16", launches=launches, step_ms=step * 1e3,
+               dispatch_ms=dispatch_ms,
+               t8_s=times[8], t24_s=times[24], tflops=tflops,
+               share_of_peak=tflops * 1e12 / BF16_FLOPS_PER_S,
+               peak_gb=peak / 1e9, vs_plain_rel_l2=vs_plain,
+               vs_dense_rel_l2=vs_dense, plain_vs_dense_rel_l2=plain_vs_dense,
+               card=card)
+    print("moe: moe_ffn_sorted step %.4f ms (chained 8: %.4f s, 24: %.4f s), "
+          "%.2f TFLOP/s (%.3f of 989), peak %.2f GB; sort_dispatch alone "
+          "%.4f ms [%s]"
+          % (res["step_ms"], times[8], times[24], tflops,
+             res["share_of_peak"], res["peak_gb"], dispatch_ms, card),
+          flush=True)
+    return res
 
 
 def main():
@@ -1769,6 +2131,8 @@ def main():
     k5 = q8_kernel_phase(card)
     k7 = norm_phase(card)
     k6 = decode_kernel_phase(card)
+    k8 = moe_kernel_phase(card)
+    torch.cuda.empty_cache()
     flash = flash_kernel_phase(card)
     stamp("the build and the kernel phases")
     train_check(card)
@@ -1804,7 +2168,11 @@ def main():
         profile_phase(card, gpt_model, "gpt3_1p3B ragged=" + ragged,
                       ragged=ragged, **SERVE_ENGINE)
     del gpt_model
+    torch.cuda.empty_cache()
     stamp("the profiles")
+    moe = moe_phase(card)
+    torch.cuda.empty_cache()
+    stamp("the MoE path")
 
     rpa_src = "paddle_tpu_torch/incubate/nn/csrc/ragged_paged_attention.cu"
     kernels = []
@@ -1876,6 +2244,19 @@ def main():
             "at": "%s: a decode batch of 8 rows (contexts 64-1056, two "
                   "empty), page 16, %s" % (mix, shape),
             "mixes": {k: v[route] for k, v in k6.items()}})
+    r = k8["bench ffn1"]
+    kernels.append({
+        "name": "grouped_matmul", "route": "cuda", "source": MOE_SRC,
+        "replaces": "paddle_tpu/incubate/nn/pallas/moe_dispatch.py:97",
+        "status": "ported", "launches": moe["launches"],
+        "max_abs_err": max(x["max_abs_err"] for x in k8.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "at": "bench ffn1: fused_moe's first product at bench.py's MoE "
+              "step, P 17408 (16384 real rows) x K 2048 -> N 5632, 8 "
+              "experts, bf16 (its second, K 2816 -> N 2048, under "
+              "cases)", "cases": k8})
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"serving": {"gpt3_1p3B": gpt,
                                   "llama2_7B_int8": llama,
                                   "gpt3_1p3B_off": off_gpt,

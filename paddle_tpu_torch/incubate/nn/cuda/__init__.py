@@ -6,6 +6,7 @@ hide the module of the same name)."""
 from .flash_attn import (flash_attention, flash_attention_ref, flash_bwd,
                          flash_bwd_fused, flash_bwd_ref, flash_bwd_split,
                          flash_fwd, flash_fwd_ref)
+from .moe_dispatch import grouped_matmul, grouped_matmul_ref, sort_dispatch
 from .norms import layer_norm, layer_norm_ref, rms_norm, rms_norm_ref
 from .paged_attention import (paged_kv_write_chunk, quantize_kv_pages,
                               ragged_paged_attention,
@@ -15,4 +16,5 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
            "paged_kv_write_chunk", "quantize_kv_pages", "flash_attention", "flash_attention_ref",
            "flash_fwd", "flash_fwd_ref", "flash_bwd", "flash_bwd_fused",
            "flash_bwd_split", "flash_bwd_ref", "rms_norm", "rms_norm_ref",
-           "layer_norm", "layer_norm_ref"]
+           "layer_norm", "layer_norm_ref", "grouped_matmul",
+           "grouped_matmul_ref", "sort_dispatch"]

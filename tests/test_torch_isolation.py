@@ -64,6 +64,7 @@ WRAPPERS = {
     "flash_attn.py": ("flash_fwd", "flash_bwd_fused", "flash_bwd_split",
                       "flash_bwd", "_launch_bwd", "_bind", "_raise_on",
                       "_FlashAttention"),
+    "moe_dispatch.py": ("grouped_matmul", "_bind", "check_kernel_inputs"),
 }
 
 

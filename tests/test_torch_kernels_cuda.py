@@ -1,8 +1,9 @@
 """The port's Hopper kernels against their plain versions.
 
 K4 and K5 (ragged paged attention over fp and int8 pools), K7 (row
-RMSNorm and LayerNorm) and K1/K2/K3 (flash attention forward, fused
-backward, split backward). These tests need an NVIDIA Hopper GPU
+RMSNorm and LayerNorm), K1/K2/K3 (flash attention forward, fused
+backward, split backward), K6 (paged decode) and K8 (the MoE grouped
+GEMM). These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -26,8 +27,10 @@ import pytest
 import torch
 
 from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as tmd
 from paddle_tpu_torch.incubate.nn.cuda import norms as tn
 from paddle_tpu_torch.incubate.nn.cuda import paged_attention as tpa
+from paddle_tpu_torch.incubate.nn.functional import moe_dispatch as fmd
 
 # name -> (query_lens, context_lens, n_heads, n_kv, n_pad)
 MIXES = {
@@ -154,9 +157,14 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
         tn.rms_norm(x, w, w)
     with pytest.raises(ValueError, match="CUDA"):
         tn.layer_norm(x, w, w)
+    gmm = tmd.grouped_matmul.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tmd.grouped_matmul(torch.randn(tmd.BM, 8), torch.randn(2, 8, 16),
+                           torch.zeros(1, dtype=torch.int32))
     assert (tpa.ragged_paged_attention.launches,
             tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
             tn.layer_norm.launches) == counts
+    assert tmd.grouped_matmul.launches == gmm
 
 
 # ------------------------------------------------------------------ K5
@@ -694,3 +702,169 @@ def test_decode_wrapper_raises_instead_of_falling_back():
         with pytest.raises(ValueError):
             tpa.paged_attention(*args)
     assert _decode_counts() == before
+
+
+# ------------------------------------------------------------------ K8
+# K8 against its plain version. f32: rtol = atol = 2e-4 (FFMA against an
+# f32 matmul summed in another order). bf16, row by row (``_row_err``):
+# both sum the same bf16 products in f32 and round once, so they differ
+# where the two f32 sums straddle a bf16 rounding boundary: one bf16 ulp,
+# at most 2^-7 of a row's largest value, which in a Gaussian row of a few
+# thousand values is up to ~5x the row's RMS: 0.04 of the RMS (read on an
+# H100 at 0.0002-0.0289, bench.py's ffn2 the largest). A column or K tile
+# left out reads 0.3 or more.
+GMM_ROW_TOL = 4e-2
+GMM_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+
+# name -> (K, N, block map): a list of expert ids, or (S, E, top-k, experts
+# that receive tokens) routed through sort_dispatch
+GMM_CASES = {
+    "n768": (64, 768, [0, 1, 2, 3]),
+    "ragged_n": (96, 200, [1, 0, 2]),
+    "k_tail": (200, 136, [2, 2, 0, 1]),
+    "non_monotone": (64, 256, [2, 0, 3, 3, 1, 0]),
+    "out_of_range_ids": (64, 128, [5, -2, 1, 4]),
+    "all_on_one_expert": (128, 256, (300, 4, 1, [2])),
+    "empty_experts": (128, 256, (300, 8, 2, [1, 6])),
+    "routed": (256, 512, (700, 8, 2, None)),
+}
+
+
+def _gmm_case(name, dtype, seed=0):
+    """xp, w, block_gid on the card; a routed map comes from a real
+    sort_dispatch whose pad rows are zero."""
+    kdim, n, spec = GMM_CASES[name]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if isinstance(spec, list):
+        e = 4
+        gid = torch.tensor(spec, dtype=torch.int32, device="cuda")
+        xp = torch.randn(len(spec) * tmd.BM, kdim, generator=g,
+                         device="cuda")
+    else:
+        s, e, k, live = spec
+        logits = torch.randn(s, e, generator=g, device="cuda")
+        if live is not None:
+            mask = torch.full((e,), -30.0, device="cuda")
+            mask[live] = 0.0
+            logits = logits + mask
+        x = torch.randn(s, kdim, generator=g, device="cuda")
+        d = tmd.sort_dispatch(x, torch.softmax(logits, -1), k)
+        xp, gid = d["xp"], d["block_gid"]
+    w = torch.randn(e, kdim, n, generator=g, device="cuda") / kdim ** 0.5
+    return xp.to(dtype).contiguous(), w.to(dtype), gid
+
+
+def _check_gmm(got, want, dtype, what):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **GMM_F32_TOL)
+    else:
+        _assert_close(got, want, GMM_ROW_TOL, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(GMM_CASES))
+def test_gmm_kernel_matches_ref(name, dtype):
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    xp, w, gid = _gmm_case(name, dt)
+    before = tmd.grouped_matmul.launches
+    got = tmd.grouped_matmul(xp, w, gid)
+    torch.cuda.synchronize()
+    assert tmd.grouped_matmul.launches == before + 1
+    assert got.shape == (xp.shape[0], w.shape[-1]) and got.dtype == dt
+    _check_gmm(got, tmd.grouped_matmul_ref(xp, w, gid), dt,
+               "K8 %s %s" % (name, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gemm", ["ffn1", "ffn2"])
+def test_gmm_kernel_bench_shape(gemm):
+    """bench.py's MoE step: 8192 tokens x 2048, 8 experts, SwiGLU dff
+    2816, top-2 (P = 17408), bf16: K 2048 x N 5632, then K 2816 x N
+    2048."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s, m, dff, e = 8192, 2048, 2816, 8
+    kdim, n = (m, 2 * dff) if gemm == "ffn1" else (dff, m)
+    x = torch.randn(s, kdim, generator=g, device="cuda").bfloat16()
+    probs = torch.softmax(torch.randn(s, e, generator=g, device="cuda"), -1)
+    d = tmd.sort_dispatch(x, probs, 2)
+    w = (0.02 * torch.randn(e, kdim, n, generator=g, device="cuda")) \
+        .bfloat16()
+    got = tmd.grouped_matmul(d["xp"], w, d["block_gid"])
+    assert got.shape == (17408, n)
+    _assert_close(got, tmd.grouped_matmul_ref(d["xp"], w, d["block_gid"]),
+                  GMM_ROW_TOL, "K8 bench %s" % gemm)
+
+
+@pytest.mark.cuda
+def test_gmm_wrapper_raises_instead_of_falling_back():
+    _need_hopper()
+    xp, w, gid = _gmm_case("non_monotone", torch.float32)
+    before = tmd.grouped_matmul.launches
+    bad = {
+        "fp16": (xp.half(), w.half(), gid),
+        "mixed_types": (xp.bfloat16(), w, gid),
+        "int64_ids": (xp, w, gid.long()),
+        "ids_shape": (xp, w, gid[:-1]),
+        "rows": (xp[:-8].contiguous(), w, gid),
+        "k_not_8": (xp[:, :60].contiguous(), w[:, :60].contiguous(), gid),
+        "n_not_8": (xp, w[..., :100].contiguous(), gid),
+        "strided_w": (xp, w.transpose(1, 2).contiguous().transpose(1, 2),
+                      gid),
+        "cpu_ids": (xp, w, gid.cpu()),
+    }
+    for name, args in bad.items():
+        with pytest.raises(ValueError):
+            tmd.grouped_matmul(*args)
+    assert tmd.grouped_matmul.launches == before
+
+
+@pytest.mark.cuda
+def test_gmm_wrapper_raises_under_grad():
+    """The kernel returns no gradient, so it refuses an input that asks
+    for one rather than hand back a detached result."""
+    _need_hopper()
+    xp, w, gid = _gmm_case("non_monotone", torch.float32)
+    with pytest.raises(ValueError, match="gradient"):
+        tmd.grouped_matmul(xp.requires_grad_(), w, gid)
+    with torch.no_grad():
+        tmd.grouped_matmul(xp, w, gid)
+
+
+@pytest.mark.cuda
+def test_moe_ffn_sorted_gradients_on_the_card():
+    """The functional layer's autograd Function (forward on K8, backward
+    the plain version's vjp) against autograd through the plain version
+    on the same CUDA tensors, f32, with biases."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    s, m, e, dff = 300, 64, 4, 96
+    leaves = [torch.randn(*shape, generator=g, device="cuda") * scale
+              for shape, scale in (((s, m), 1.0), ((s, e), 1.0),
+                                   ((e, m, 2 * dff), 0.2),
+                                   ((e, dff, m), 0.2))]
+    leaves[1] = torch.softmax(leaves[1], -1)
+    b1 = 0.1 * torch.randn(e, 2 * dff, generator=g, device="cuda")
+    b2 = 0.1 * torch.randn(e, m, generator=g, device="cuda")
+    cot = torch.randn(s, m, generator=g, device="cuda")
+
+    def run():
+        ts = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fmd.moe_ffn_sorted(*ts, k=2, b1=b1, b2=b2)
+        (out * cot).sum().backward()
+        return [out.detach()] + [t.grad for t in ts]
+
+    before = tmd.grouped_matmul.launches
+    got = run()
+    assert tmd.grouped_matmul.launches == before + 2
+    kernel = fmd.grouped_matmul
+    fmd.grouped_matmul = tmd.grouped_matmul_ref
+    try:
+        want = run()
+    finally:
+        fmd.grouped_matmul = kernel
+    assert tmd.grouped_matmul.launches == before + 2
+    for name, a, b in zip(("out", "x", "probs", "w1", "w2"), got, want):
+        torch.testing.assert_close(a, b, msg=name, **GMM_F32_TOL)
