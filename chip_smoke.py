@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch on one NVIDIA GPU and check it end to end.
+"""Drive paddle_tpu_torch on NVIDIA GPUs and check it end to end.
 
 Run from the repository root, on a machine with a CUDA GPU and the CUDA
 toolkit (``nvcc``)::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, on one card
+    python3 chip_smoke.py --phases ring   # phases 1, 2 (ring.cu), 4d, 9b, 9c
+
+The ring phases (4d, 9b, 9c) put rank r of a ring on card r % n (n
+cards) when every pair of ring neighbours has peer access, else every
+rank on card 0; with one card, both ranks of a ring share it.
 
 Phases, in order; a failure in any of them raises and exits non-zero:
 
@@ -48,6 +53,17 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    version, a library call computing the same function
    (``torch._grouped_mm`` in bf16, per-expert ``torch.matmul`` in f32;
    timed only) and the bound;
+4d. K9 and K10: hold the TP ring step (the copy of ``buf`` into the next
+   rank's memory, bit-exact; ``buf @ w``, f32 rtol = atol = 2e-4, bf16
+   rows within 4e-2 of their RMS) at ``bench.py``'s TP shape (T 16384,
+   K 4096, N 1024 over mp 2 and 4 ranks; f32 and bf16) and at edges (N
+   200, K 200, a 3-D buffer, 100 rows, two ranks on one card), and the
+   ring shift (bit-exact, by 1 and by size - 1) at the pipeline's
+   boundary tensor [1, 1024, 2048] in f32 and bf16 over 2 and 4 ranks
+   and at odd sizes, against their plain versions; time each main shape
+   beside its plain version, a library yardstick (``torch.matmul`` with
+   the copy as ``copy_`` on a side stream; ``copy_``; timed only) and the
+   bound (operations, HBM bytes, NVLink bytes);
 5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (b 8,
    s 1024, 16 heads, d 128, bf16, causal) and at sq < sk, a ragged s,
@@ -100,13 +116,34 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    ``bench.py``'s timing (``moe_ffn_sorted`` chained 8 and 24 times,
    step = (t24 - t8) / 16): step ms, TFLOP/s by its flops count against
    989, peak memory;
-9. one JSON line with the MoE numbers, one with the serving numbers, then
-   one listing every ported kernel with its numbers;
+9b. the TP path at ``bench.py``'s ``_tp_overlap_result`` configuration
+   (f32, x [16384, 4096], w [4096, 1024]), mp 2 then 4:
+   ``sharded_all_gather_matmul`` and autograd of ``sum(out)`` launch K9
+   size x (size - 1) times forward and never backward, out, dx and dw
+   within rtol = atol = 1e-4 of the serial composition (gather, then
+   ``torch.matmul``), ``sharded_matmul_reduce_scatter`` likewise; then
+   ``bench.py``'s timing: the serial step against the ring, and the
+   speedup;
+9c. the compiled pipeline at ``bench.py``'s ``_multichip_result`` device
+   leg (GPT-3 1.3B widths, bench.py's pure-function transformer, 8
+   micro-batches of 1 x 1024, SGD 0.01, f32, weights from
+   ``np.random.default_rng(0)``): S 2 (12 blocks a stage on two cards, 4
+   when the stages share one), and S 4 at 6 a stage on four cards; the
+   first loss and stage 0's gradients held against the same blocks run
+   one after another on one card (1e-4), then a warm-up and 4 timed
+   steps whose loss must fall, K10 launched S (M+S-1) + S (M+S-2) times a
+   step; tokens/s, ``bench.py``'s MFU formula against 67 TFLOP/s f32,
+   peak memory a card;
+9. one JSON line with the MoE numbers, one with the serving numbers, one
+   with the TP and pipeline numbers, then one listing every ported kernel
+   with its numbers (``--phases ring``: the last two only);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
+import argparse
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -2096,42 +2133,592 @@ def moe_phase(card):
     return res
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU",
-              file=sys.stderr)
-        return 1
-    from paddle_tpu_torch.incubate.nn.cuda import _build
+# ------------------------------------------------ phases 4d, 9b and 9c
+RING_SRC = "paddle_tpu_torch/incubate/nn/csrc/ring.cu"
+NVLINK_BYTES_PER_S = 450e9      # one H100's NVLink, each way (data sheet)
+# Bytes of other buffers that K10's timing runs through before it uses a
+# buffer again: four times the H100's 50 MB L2.
+ROTATE_BYTES = 4 * 50 * 2 ** 20
+# K9's product against its plain version (f32 sums, rounded once): f32 FFMA
+# against an f32 matmul summed in another order, rtol = atol = 2e-4 as K8;
+# bf16 row by row (see row_err), one bf16 ulp of a row's largest value at
+# most, as K8: 4e-2 of the row's RMS. K9's copy and K10 are held bit-exact.
+RING_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+RING_ROW_TOL = 4e-2
+# bench.py _tp_overlap_result: T 16384, K 4096, N 1024, f32, x ~ N(0, 1),
+# w ~ 0.05 N(0, 1); the ring against the serial gather-then-GEMM
+TP_BENCH = dict(T=16384, K=4096, N=1024)
+# the TP path against the serial composition on the same ring, f32: every
+# output, dx and dw element within rtol 1e-4 plus atol 1e-4 (elements near
+# zero are sums of terms ~1e3 times larger; f32 sums in two orders differ
+# there by ~1e-6 absolute)
+TP_TOL = dict(rtol=1e-4, atol=1e-4)
+# bench.py _multichip_result's device leg: GPT-3 1.3B widths, 8
+# micro-batches of 1 x 1024, SGD at lr 0.01, f32, 12 blocks a stage at S 2
+PP_BENCH = dict(hidden=2048, heads=16, vocab=50304, seq=1024, micro=1,
+                num_micro=8, lr=0.01, blocks=12)
+# the pipeline's first step against the same blocks run one after another
+# on one card: the loss within rtol 1e-4, each gradient leaf of a stage
+# within rtol 1e-4 plus 1e-4 of the leaf's largest value (per-micro-batch
+# accumulation there, one mean here: f32 sums in other orders)
+PP_TOL = 1e-4
 
-    t_main = time.perf_counter()
 
-    def stamp(what):
-        # where the run's time limit goes, phase by phase
-        print("chip_smoke: %.1f s in, after %s"
-              % (time.perf_counter() - t_main, what), flush=True)
+def ring_devices(size):
+    """Rank r on card r % n (n cards); distinct cards only when every pair
+    of ring neighbours has peer access both ways, else every rank on card
+    0. The ring layer never picks a placement: this script does."""
+    n = torch.cuda.device_count()
+    devs = ["cuda:%d" % (r % n) for r in range(size)]
+    for r in range(size):
+        a, b = r % n, (r + 1) % size % n
+        if a != b and not (torch.cuda.can_device_access_peer(a, b) and
+                           torch.cuda.can_device_access_peer(b, a)):
+            return ["cuda:0"] * size
+    return devs
 
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
-    torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
 
-    secs = _build.build_all()
-    print("build: %s in %.2f s" % (", ".join(_build.SOURCES), secs))
-    for name in _build.SOURCES:
-        for line in _build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line or \
-                    "Function properties" in line:
-                print("ptxas %s: %s" % (name, line.strip()))
-    sys.stdout.flush()
+def ring_cards(ring):
+    return sorted({d.index for d in ring.devices})
 
+
+def ring_where(ring):
+    cards = ring_cards(ring)
+    return "%d ranks on %s" % (ring.size, "card %s (shared: no overlap "
+                               "between ranks)" % cards[0] if len(cards) == 1
+                               else "cards " + ",".join(map(str, cards)))
+
+
+def ring_ms(fn, ring, iters, warmup=2):
+    """Milliseconds per call of ``fn`` over the ring: CUDA events on the
+    card when the ranks share one card, else the host clock around
+    ``iters`` calls that end in a synchronisation of every card."""
+    cards = ring_cards(ring)
+    if len(cards) == 1:
+        with torch.cuda.device(cards[0]):
+            return cuda_ms(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    for c in cards:
+        torch.cuda.synchronize(c)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def ring_bound(ring, ops, read_bytes, out_bytes, copy_bytes, flops_per_s):
+    """The least time the cards could take for one ring step of every rank:
+    rank r does ``ops`` on its card, reads ``read_bytes`` and writes
+    ``out_bytes`` there, and writes ``copy_bytes`` into rank r+1's
+    memory (its card's HBM, and the link when that is another card). The
+    largest over cards of operations over the peak and HBM bytes over its
+    rate, and over sending cards of link bytes over NVLink."""
+    flops, hbm, link = {}, {}, {}
+    for r in range(ring.size):
+        c, d = ring.device(r).index, ring.device(r + 1).index
+        flops[c] = flops.get(c, 0) + ops
+        hbm[c] = hbm.get(c, 0) + read_bytes + out_bytes
+        hbm[d] = hbm.get(d, 0) + copy_bytes
+        if c != d:
+            link[c] = link.get(c, 0) + copy_bytes
+    t_ops = max(flops.values()) / flops_per_s * 1e3
+    t_bytes = max(max(hbm.values()) / HBM_BYTES_PER_S,
+                  max(link.values(), default=0) / NVLINK_BYTES_PER_S) * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def mm_step_case(ring, t, k, n, dtype, seed, lead=()):
+    """Per-rank K9 inputs on their cards: buf [t, *lead, k] ~ N(0, 1), w
+    [k, n] ~ 0.05 N(0, 1), each rank its own."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bufs, ws = [], []
+    for d in ring.devices:
+        bufs.append(torch.randn(t, *lead, k, generator=g, device="cuda")
+                    .to(d, dtype))
+        ws.append((0.05 * torch.randn(k, n, generator=g, device="cuda"))
+                  .to(d, dtype))
+    return bufs, ws
+
+
+def mm_step_library(bufs, ws, ring):
+    """One PyTorch call a rank computing the same step, timed only and
+    never called by the port: ``torch.matmul`` on the rank's block, with
+    the copy as ``copy_`` to the neighbour on a side stream (the copy
+    engine)."""
+    nxt = [torch.empty_like(b, device=ring.device(r + 1))
+           for r, b in enumerate(bufs)]
+    sides = [torch.cuda.Stream(device=d) for d in ring.devices]
+
+    def run():
+        outs = []
+        for r in range(ring.size):
+            cur = torch.cuda.current_stream(ring.device(r))
+            sides[r].wait_stream(cur)
+            with torch.cuda.stream(sides[r]):
+                nxt[r].copy_(bufs[r], non_blocking=True)
+            outs.append(torch.matmul(bufs[r], ws[r]))
+            cur.wait_stream(sides[r])
+        return outs
+    return run
+
+
+def mm_step_check(name, ring, bufs, ws, card, timed):
+    """One K9 step of every rank against its plain version: next buffers
+    bit-exact, partials within RING_F32_TOL (f32) or RING_ROW_TOL of a
+    row's RMS (bf16); with ``timed``, K9's time per step of all ranks
+    beside the plain version's, the library's and the bound."""
+    from paddle_tpu_torch.incubate.nn.cuda import ring as kring
+
+    before = kring.mm_step.launches
+    parts, nexts = kring.mm_step(bufs, ws, ring)
+    want_p, want_n = kring.mm_step_ref(bufs, ws, ring)
+    for c in ring_cards(ring):
+        torch.cuda.synchronize(c)
+    grew = kring.mm_step.launches - before
+    check(grew == ring.size, "K9 %s: launches grew by %d" % (name, grew))
+    for r in range(ring.size):
+        check(nexts[r].device == ring.device(r) and
+              torch.equal(nexts[r], want_n[r]),
+              "K9 %s: rank %d's received buffer is not bit-exact"
+              % (name, r))
+        check(nexts[r].data_ptr() != bufs[r].data_ptr(),
+              "K9 %s: the receive buffer aliases the buffer read" % name)
+    err = rel = 0.0
+    for r in range(ring.size):
+        check(bool(torch.isfinite(parts[r]).all()),
+              "K9 %s: non-finite" % name)
+        e, q = row_err(parts[r], want_p[r])
+        err, rel = max(err, e), max(rel, q)
+        if parts[r].dtype == torch.float32:
+            torch.testing.assert_close(parts[r], want_p[r], **RING_F32_TOL)
+    if bufs[0].dtype == torch.bfloat16:
+        check(rel <= RING_ROW_TOL, "K9 %s: max abs err %.4g, %.4g of its "
+              "row's RMS > %g" % (name, err, rel, RING_ROW_TOL))
+    k, n = ws[0].shape
+    t = bufs[0].numel() // k
+    res = dict(max_abs_err=err, row_err=rel, size=ring.size, rows=t, K=k, N=n,
+               dtype=str(bufs[0].dtype)[6:], where=ring_where(ring))
+    del parts, nexts, want_p, want_n
+    line = "K9 %-22s %s rows=%d K=%d N=%d %s: next bit-exact, max_abs_err=%.3g " \
+           "(%.3e of its row's RMS)" % (name, ring_where(ring), t, k, n,
+                                        res["dtype"], err, rel)
+    if timed:
+        el = bufs[0].element_size()
+        ms = ring_ms(lambda: kring.mm_step(bufs, ws, ring), ring, iters=10)
+        plain_ms = ring_ms(lambda: kring.mm_step_ref(bufs, ws, ring), ring,
+                           iters=3, warmup=1)
+        library_ms = ring_ms(mm_step_library(bufs, ws, ring), ring,
+                             iters=10)
+        bound_ms, bound_by = ring_bound(
+            ring, 2 * t * k * n, (t * k + k * n) * el, t * n * el,
+            t * k * el, BF16_FLOPS_PER_S if el == 2 else F32_FLOPS_PER_S)
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=2 * t * k * n * ring.size / ms / 1e9)
+        line += " kernel=%.4f ms (%.1f TFLOP/s over the ring) plain=%.4f " \
+                "ms library=%.4f ms bound=%.4f ms (%s)" % (
+                    ms, res["tflops"], plain_ms, library_ms, bound_ms,
+                    bound_by)
+    print(line + " [%s]" % card, flush=True)
+    return res
+
+
+def shift_check(name, ring, shape, dtype, card, timed, seed=0):
+    """K10 by step 1 and by size - 1 against the plain shift, bit-exact;
+    with ``timed``, its time per shift of all ranks (in a CUDA graph when
+    the ranks share a card, else the host clock), over buffers that are
+    cold in L2, beside the plain version's, ``copy_``'s
+    (``cudaMemcpyPeerAsync``) and the bound."""
+    from paddle_tpu_torch.incubate.nn.cuda import ring as kring
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [torch.randn(*shape, generator=g, device="cuda").to(d, dtype)
+          for d in ring.devices]
+    before = kring.shift.launches
+    for step in (1, ring.size - 1):
+        got = kring.shift(xs, ring, step)
+        want = ring.shift_ref(xs, step)
+        for c in ring_cards(ring):
+            torch.cuda.synchronize(c)
+        for r in range(ring.size):
+            check(got[r].device == ring.device(r) and
+                  torch.equal(got[r], want[r]),
+                  "K10 %s step %d: rank %d not bit-exact" % (name, step, r))
+    grew = kring.shift.launches - before
+    check(grew == 2 * ring.size, "K10 %s: launches grew by %d"
+          % (name, grew))
+    nbytes = xs[0].numel() * xs[0].element_size()
+    res = dict(max_abs_err=0.0, size=ring.size, shape=list(shape),
+               dtype=str(dtype)[6:], bytes=nbytes, where=ring_where(ring))
+    line = "K10 %-21s %s %s %s: bit-exact at steps 1 and %d" % (
+        name, ring_where(ring), list(shape), res["dtype"], ring.size - 1)
+    if timed:
+        # A pipeline hop finds its boundary tensor cold in L2, and one
+        # shift of [1, 1024, 2048] f32 (8.4 MB a rank) would stay in the
+        # card's 50 MB L2 if it were repeated. So every timed call takes
+        # the next of ``sets`` source / destination sets, and a set comes
+        # round again only after ROTATE_BYTES of others went through.
+        sets = max(2, -(-ROTATE_BYTES // (2 * ring.size * nbytes)))
+        srcs = [xs] + [[x.clone() for x in xs] for _ in range(sets - 1)]
+        dsts = [[torch.empty_like(x, device=ring.device(r + 1))
+                 for r, x in enumerate(xs)] for _ in range(sets)]
+        held = [None] * sets
+        calls = itertools.count()
+
+        def kernel():
+            i = next(calls) % sets
+            held[i] = kring.shift(srcs[i], ring, 1)
+
+        def library():
+            i = next(calls) % sets
+            for r in range(ring.size):
+                dsts[i][r].copy_(srcs[i][r], non_blocking=True)
+
+        def plain():
+            i = next(calls) % sets
+            held[i] = ring.shift_ref(srcs[i], 1)
+
+        if len(ring_cards(ring)) == 1:
+            with torch.cuda.device(ring_cards(ring)[0]):
+                ms = graph_ms(kernel)
+                library_ms = graph_ms(library)
+            how = "per call in a CUDA graph"
+        else:
+            ms = ring_ms(kernel, ring, iters=50)
+            library_ms = ring_ms(library, ring, iters=50)
+            how = "host clock per call, launch overhead included"
+        plain_ms = ring_ms(plain, ring, iters=20)
+        how += ", %d buffer sets in rotation" % sets
+        del srcs, dsts, held
+        bound_ms, bound_by = ring_bound(ring, 0, nbytes, 0, nbytes,
+                                        F32_FLOPS_PER_S)
+        res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, timed_by=how)
+        line += " kernel=%.4f ms plain=%.4f ms library=%.4f ms bound=%.4f " \
+                "ms (%s; %s)" % (ms, plain_ms, library_ms, bound_ms,
+                                 bound_by, how)
+    print(line + " [%s]" % card, flush=True)
+    return res
+
+
+def ring_kernel_phase(card):
+    """K9 and K10 against their plain versions on the card(s). K9 at
+    bench.py's TP shape (T 16384, K 4096, N 1024: buf [T / mp, 4096], w
+    [4096, 1024 / mp] a rank) at mp 2 and 4, f32 and bf16, timed beside
+    the plain version, the library and the bound; edges: N 200, K 200
+    (not a multiple of the K tile), a 3-D buffer, t 100 (not a multiple of
+    the 128-row tile), and two ranks on one card. K10 at the pipeline
+    leg's boundary tensor [1, 1024, 2048] f32 and bf16 on the rings of 2
+    and 4 stages, and at an odd element count, by step 1 and size - 1."""
+    from paddle_tpu_torch.distributed import Ring
+
+    cards = torch.cuda.device_count()
+    peers = {"%d->%d" % (a, b): torch.cuda.can_device_access_peer(a, b)
+             for a in range(cards) for b in range(cards) if a != b}
+    print("ring: %d card(s); peer access %s" % (cards, peers or "n/a"),
+          flush=True)
+    out = {"K9": {}, "K10": {}, "peer_access": peers}
+    T, K, N = TP_BENCH["T"], TP_BENCH["K"], TP_BENCH["N"]
+    for mp in (2, 4):
+        ring = Ring(ring_devices(mp))
+        print("ring: mp %d placement %s" % (mp, [str(d) for d in
+                                                 ring.devices]), flush=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            bufs, ws = mm_step_case(ring, T // mp, K, N // mp, dtype, mp)
+            tag = "bench mp%d %s" % (mp, str(dtype)[6:])
+            out["K9"][tag] = mm_step_check(tag, ring, bufs, ws, card, True)
+            del bufs, ws
+    shared = Ring(["cuda:0"] * 2)
+    ring2 = Ring(ring_devices(2))
+    edges = {
+        # name: (ring, t, K, N, leading dims)
+        "n200": (ring2, 512, 256, 200, ()),
+        "k200": (ring2, 512, 200, 256, ()),
+        "3d": (ring2, 64, 256, 128, (6,)),
+        "t100": (ring2, 100, 64, 72, ()),
+        "shared_card": (shared, 1024, 512, 256, ()),
+    }
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (ring, t, k, n, lead) in edges.items():
+            tag = "%s %s" % (name, str(dtype)[6:])
+            bufs, ws = mm_step_case(ring, t, k, n, dtype, 7, lead)
+            out["K9"][tag] = mm_step_check(tag, ring, bufs, ws, card, False)
+    torch.cuda.empty_cache()
+    for size in (2, 4):
+        ring = Ring(ring_devices(size))
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "pp%d %s" % (size, str(dtype)[6:])
+            out["K10"][tag] = shift_check(tag, ring, (1, 1024, 2048), dtype,
+                                          card, True)
+    out["K10"]["odd f32"] = shift_check("odd f32", ring2, (1001,),
+                                        torch.float32, card, False)
+    out["K10"]["odd bf16"] = shift_check("odd bf16", shared, (3, 333),
+                                         torch.bfloat16, card, False)
+    return out
+
+
+def tp_phase(card):
+    """The TP path at bench.py's _tp_overlap_result configuration (f32,
+    T 16384, K 4096, N 1024), mp 2 then mp 4. With K9's count set to 0
+    just before and read just after: ``sharded_all_gather_matmul`` and
+    autograd of ``sum(out)`` launch K9 size x (size - 1) times in the
+    forward and none in the backward, and out, dx and dw are held against
+    the serial composition (gather, then ``torch.matmul``) on the same
+    ring; ``sharded_matmul_reduce_scatter`` likewise (no K9). Then
+    bench.py's timing, per-rank primitive under no_grad: off (serial)
+    against the ring, step ms and speedup (bench.py also sweeps the JAX
+    ring's row chunks, which the port does not have)."""
+    from paddle_tpu_torch.distributed import Ring
+    from paddle_tpu_torch.fusion import overlap_mm as tom
+    from paddle_tpu_torch.incubate.nn.cuda import ring as kring
+
+    T, K, N = TP_BENCH["T"], TP_BENCH["K"], TP_BENCH["N"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(T, K, generator=g, device="cuda")
+    w = 0.05 * torch.randn(K, N, generator=g, device="cuda")
+    res = {}
+    for mp in (2, 4):
+        ring = Ring(ring_devices(mp))
+        where = ring_where(ring)
+
+        def loss_grads(fn, off):
+            xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+            with tom.override(tp_overlap="off" if off else "on"):
+                out = fn(xg, wg, ring=ring)
+                fwd = kring.mm_step.launches
+                dx, dw = torch.autograd.grad(out.sum(), [xg, wg])
+            return out.detach(), dx, dw, fwd
+
+        kring.mm_step.launches = 0
+        out, dx, dw, fwd = loss_grads(tom.sharded_all_gather_matmul, False)
+        for c in ring_cards(ring):
+            torch.cuda.synchronize(c)
+        launches = kring.mm_step.launches
+        check(fwd == mp * (mp - 1) and launches == fwd,
+              "TP mp %d: K9 launched %d times in the forward and %d in the "
+              "backward, not %d and 0" % (mp, fwd, launches - fwd,
+                                          mp * (mp - 1)))
+        ref = loss_grads(tom.sharded_all_gather_matmul, True)
+        check(kring.mm_step.launches == launches,
+              "the serial composition launched K9")
+        errs = {}
+        for name, a, b in zip(("out", "dx", "dw"), (out, dx, dw), ref):
+            torch.testing.assert_close(a, b, msg="TP mp %d %s" % (mp, name),
+                                       **TP_TOL)
+            errs[name] = (a - b).abs().max().item()
+        check(tuple(out.shape) == (T, N), "TP out shape %s"
+              % (tuple(out.shape),))
+        del out, dx, dw, ref
+        rs = loss_grads(tom.sharded_matmul_reduce_scatter, False)
+        rs_ref = loss_grads(tom.sharded_matmul_reduce_scatter, True)
+        check(kring.mm_step.launches == launches,
+              "matmul_reduce_scatter launched K9")
+        for name, a, b in zip(("rs out", "rs dx", "rs dw"), rs[:3],
+                              rs_ref[:3]):
+            torch.testing.assert_close(a, b, msg="TP mp %d %s" % (mp, name),
+                                       **TP_TOL)
+            errs[name] = (a - b).abs().max().item()
+        del rs, rs_ref
+        print("tp: mp %d, %s: sharded_all_gather_matmul launched K9 %d "
+              "times forward, 0 backward; max |ring - serial| %s (limits "
+              "rtol %g, atol %g) [%s]"
+              % (mp, where, launches, {k: float("%.3g" % v) for k, v in
+                                       errs.items()}, TP_TOL["rtol"],
+                 TP_TOL["atol"], card), flush=True)
+
+        xs = [c.to(d).contiguous() for c, d in zip(x.chunk(mp), ring.devices)]
+        ws = [c.to(d).contiguous() for c, d in zip(w.chunk(mp, -1),
+                                                   ring.devices)]
+        with torch.no_grad():
+            with tom.override(tp_overlap="off"):
+                off_ms = ring_ms(lambda: tom.all_gather_matmul(xs, ws, ring),
+                                 ring, iters=16)
+            on_ms = ring_ms(lambda: tom.all_gather_matmul(xs, ws, ring),
+                            ring, iters=16)
+        res["mp%d" % mp] = dict(
+            where=where, placement=[str(d) for d in ring.devices],
+            forward_launches=launches, max_abs_vs_serial=errs,
+            off_step_ms=off_ms, on_step_ms=on_ms, speedup=off_ms / on_ms,
+            card=card)
+        print("tp: mp %d, %s: serial (gather, then matmul) %.4f ms, ring "
+              "%.4f ms: speedup %.3f%s [%s]"
+              % (mp, where, off_ms, on_ms, off_ms / on_ms,
+                 "" if len(ring_cards(ring)) > 1 else
+                 " (ranks share one card: no overlap between ranks)",
+                 card), flush=True)
+        del xs, ws
+        torch.cuda.empty_cache()
+    return res
+
+
+def pp_sequential(stacked, extra, ids, labels, num_micro, fns, dev):
+    """The same blocks run one after another on card ``dev``, no ring:
+    the mean over micro-batches of their loss, and the gradients of every
+    stacked leaf ([S, B, ...]), one micro-batch's graph at a time."""
+    stage_fn, pre_fn, loss_fn = fns
+    S, M = stacked[0].shape[0], num_micro
+    p = [torch.from_numpy(a).to(dev).requires_grad_() for a in stacked]
+    ex = {k: torch.from_numpy(v).to(dev) for k, v in extra.items()}
+    mb = ids.shape[0] // M
+    total = 0.0
+    grads = [torch.zeros_like(a) for a in p]
+    for m in range(M):
+        h = pre_fn(ex, ids[m * mb:(m + 1) * mb].to(dev))
+        for s in range(S):
+            h = stage_fn([a[s] for a in p], h)
+        loss = loss_fn(ex, h, labels[m * mb:(m + 1) * mb].to(dev)) / M
+        for acc, gr in zip(grads, torch.autograd.grad(loss, p)):
+            acc += gr
+        total += loss.item()
+    return total, grads
+
+
+def pipeline_run(card, stages, blocks_all, extra, batch, blocks_per_stage):
+    """CompiledPipeline over ``stages`` stages (placement by
+    ring_devices), held against the sequential run on stage 0's card on
+    its first step (loss_and_grads), then a warm-up and 4 timed SGD steps (the count
+    of K10 set to 0 just before them and read just after)."""
+    from paddle_tpu_torch.distributed import Ring
+    from paddle_tpu_torch.distributed.pipeline import CompiledPipeline
+    from paddle_tpu_torch.incubate.nn.cuda import ring as kring
+    from paddle_tpu_torch.models import pipeline_gpt
+    from paddle_tpu_torch.optimizer import SGD
+
+    cfg = PP_BENCH
+    M, seq, hidden = cfg["num_micro"], cfg["seq"], cfg["hidden"]
+    ring = Ring(ring_devices(stages))
+    cards = ring_cards(ring)
+    where = ring_where(ring)
+    stacked = pipeline_gpt.stack(blocks_all[:stages * blocks_per_stage],
+                                 stages)
+    fns = pipeline_gpt.functions(cfg["heads"])
+    stage_fn, pre_fn, loss_fn = fns
+    ids, labels = batch
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    pipe = CompiledPipeline(stage_fn, stacked, loss_fn, num_stages=stages,
+                            num_micro=M, optimizer=SGD(cfg["lr"]),
+                            extra_params=extra, pre_fn=pre_fn, devices=ring)
+    per_step = stages * (M + stages - 1) + stages * (M + stages - 2)
+    before = kring.shift.launches
+    loss0, stage_g, _ = pipe.loss_and_grads(ids, labels)
+    loss0 = loss0.item()
+    grew = kring.shift.launches - before
+    check(grew == per_step, "pipeline S %d: loss_and_grads launched K10 %d "
+          "times, not %d" % (stages, grew, per_step))
+    got_g = [g.to(ring.device(0)) for g in stage_g[0]]
+    del stage_g
+    ref_loss, ref_g = pp_sequential(stacked, extra, ids, labels, M, fns,
+                                    ring.device(0))
+    check(abs(loss0 - ref_loss) <= PP_TOL * abs(ref_loss),
+          "pipeline S %d: first loss %.6f, sequential %.6f"
+          % (stages, loss0, ref_loss))
+    g_err = 0.0
+    for i, (a, b) in enumerate(zip(got_g, ref_g)):
+        want = b[0]
+        scale = want.abs().max().item()
+        torch.testing.assert_close(a, want, rtol=PP_TOL, atol=PP_TOL * scale,
+                                   msg="pipeline stage 0 grad leaf %d" % i)
+        g_err = max(g_err, (a - want).abs().max().item() / max(scale, 1e-30))
+    del got_g, ref_g
+    torch.cuda.empty_cache()
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
+    losses = [pipe.step(ids, labels).item()]         # warm-up
+    iters = 4
+    kring.shift.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    last = []
+    for _ in range(iters):
+        last.append(pipe.step(ids, labels))
+    sync()
+    el = time.perf_counter() - t0
+    launches = kring.shift.launches
+    losses += [x.item() for x in last]
+    check(launches == iters * per_step,
+          "pipeline S %d: %d timed steps launched K10 %d times, not %d"
+          % (stages, iters, launches, iters * per_step))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "pipeline S %d: the loss did not fall: %s" % (stages, losses))
+    peaks = {c: torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+    L = stages * blocks_per_stage
+    n_params = sum(int(a.size) for a in stacked) + \
+        sum(int(v.size) for v in extra.values())
+    fpt = 6 * n_params + 6 * L * hidden * seq
+    gb = ids.shape[0]
+    tps = gb * seq * iters / el
+    mfu = tps * fpt / (F32_FLOPS_PER_S * stages)
+    res = dict(stages=stages, blocks_per_stage=blocks_per_stage,
+               placement=[str(d) for d in ring.devices], where=where,
+               micro=cfg["micro"], num_micro=M, seq=seq,
+               first_loss=loss0, sequential_loss=ref_loss,
+               grad_err_of_max=g_err, losses=losses,
+               launches=launches, launches_per_step=per_step,
+               step_s=el / iters, tokens_per_s=tps, mfu=mfu,
+               mfu_per_card=tps * fpt / (F32_FLOPS_PER_S * len(cards)),
+               peak_gb_per_card=peaks, card=card)
+    print("pp: S %d x %d blocks (%s): first loss %.6f vs sequential %.6f, "
+          "stage-0 grads within %.3g of each leaf's max; losses %s; K10 %d "
+          "launches in %d timed steps (%d a step = S (M+S-1) forward + S "
+          "(M+S-2) backward); step %.4f s, %.1f tokens/s, MFU %.4f by "
+          "bench.py's formula (67 TF f32 x S), %.4f per card used; peak GB "
+          "per card %s [%s]"
+          % (stages, blocks_per_stage, where, loss0, ref_loss, g_err,
+             ["%.5f" % v for v in losses], launches, iters, per_step,
+             el / iters, tps, mfu, res["mfu_per_card"],
+             {c: round(v, 2) for c, v in peaks.items()}, card), flush=True)
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipeline_phase(card):
+    """The compiled pipeline at bench.py's _multichip_result device leg:
+    GPT-3 1.3B widths (hidden 2048, 16 heads, vocab 50304, seq 1024), 8
+    micro-batches of 1 x 1024, SGD 0.01, f32, weights and batch from
+    ``np.random.default_rng(0)`` as bench.py draws them. S 2 at 12 blocks
+    a stage when the stages have cards of their own, 4 blocks a stage
+    when they share one (memory); on four cards S 4 as well, at 6 blocks
+    a stage (the same 24 layers)."""
+    from paddle_tpu_torch.models import pipeline_gpt
+
+    cfg = PP_BENCH
+    distinct = len(set(ring_devices(2))) == 2
+    bps = cfg["blocks"] if distinct else 4
+    layers = 2 * bps
+    blocks, extra, rng = pipeline_gpt.weights(layers, cfg["hidden"],
+                                              cfg["vocab"], cfg["seq"])
+    gb = cfg["num_micro"] * cfg["micro"]
+    ids = torch.from_numpy(rng.integers(0, cfg["vocab"], (gb, cfg["seq"])))
+    labels = torch.from_numpy(rng.integers(0, cfg["vocab"],
+                                           (gb, cfg["seq"])))
+    res = {"S2": pipeline_run(card, 2, blocks, extra, (ids, labels), bps)}
+    if torch.cuda.device_count() >= 4 and len(set(ring_devices(4))) == 4:
+        res["S4"] = pipeline_run(card, 4, blocks, extra, (ids, labels),
+                                 layers // 4)
+    return res
+
+
+def main_path_phases(card, stamp):
+    """Phases 3 to 9a, with 4d: every kernel phase, training, serving in
+    both layouts, the profiles and the MoE path. Returns the kernels
+    line's rows of K1-K8, its JSON lines of the MoE and serving numbers,
+    and phase 4d's K9 / K10 readings."""
     k4 = kernel_phase(card)
     k5 = q8_kernel_phase(card)
     k7 = norm_phase(card)
     k6 = decode_kernel_phase(card)
     k8 = moe_kernel_phase(card)
+    torch.cuda.empty_cache()
+    ring = ring_kernel_phase(card)
     torch.cuda.empty_cache()
     flash = flash_kernel_phase(card)
     stamp("the build and the kernel phases")
@@ -2256,11 +2843,96 @@ def main():
               "step, P 17408 (16384 real rows) x K 2048 -> N 5632, 8 "
               "experts, bf16 (its second, K 2816 -> N 2048, under "
               "cases)", "cases": k8})
-    print(json.dumps({"moe": moe}))
-    print(json.dumps({"serving": {"gpt3_1p3B": gpt,
-                                  "llama2_7B_int8": llama,
-                                  "gpt3_1p3B_off": off_gpt,
-                                  "llama2_7B_int8_off": off_llama}}))
+    lines = [json.dumps({"moe": moe}),
+             json.dumps({"serving": {"gpt3_1p3B": gpt,
+                                     "llama2_7B_int8": llama,
+                                     "gpt3_1p3B_off": off_gpt,
+                                     "llama2_7B_int8_off": off_llama}})]
+    return kernels, lines, ring
+
+
+def ring_rows(ring, tp, pp):
+    """The kernels line's K9 and K10 rows: times from phase 4d at the main
+    paths' shapes (mp 2 f32 for K9, the S 2 boundary tensor in f32 for
+    K10), launches from the TP path's (mp 2) and the pipeline's (S 2)
+    runs."""
+    k9 = ring["K9"]["bench mp2 float32"]
+    k10 = ring["K10"]["pp2 float32"]
+    rows = []
+    for name, src, r, launches, at, cases in (
+            ("ring_mm_step", "paddle_tpu/fusion/overlap_mm.py:208", k9,
+             tp["mp2"]["forward_launches"],
+             "bench.py's TP shape at mp 2, f32: buf [8192, 4096], w [4096, "
+             "512] a rank, " + k9["where"], ring["K9"]),
+            ("ring_shift",
+             "paddle_tpu/distributed/pipeline/transport.py:74", k10,
+             pp["S2"]["launches"],
+             "the pipeline leg's boundary tensor [1, 1024, 2048] f32, one "
+             "shift of every rank, " + k10["where"], ring["K10"])):
+        rows.append({
+            "name": name, "route": "cuda", "source": RING_SRC,
+            "replaces": src, "status": "ported", "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in cases.values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "at": at,
+            "peer_access": ring["peer_access"], "cases": cases})
+    return rows
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--phases", choices=("all", "ring"), default="all",
+        help="all: every phase (the default); ring: only the card, the "
+             "ring kernels' build and phases 4d, 9b and 9c")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.incubate.nn.cuda import _build
+
+    t_main = time.perf_counter()
+
+    def stamp(what):
+        # where the run's time limit goes, phase by phase
+        print("chip_smoke: %.1f s in, after %s"
+              % (time.perf_counter() - t_main, what), flush=True)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 plain versions
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    sources = _build.SOURCES if args.phases == "all" else ("ring",)
+    secs = _build.build_all(sources)
+    print("build: %s in %.2f s" % (", ".join(sources), secs))
+    for name in sources:
+        for line in _build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Function properties" in line:
+                print("ptxas %s: %s" % (name, line.strip()))
+    sys.stdout.flush()
+
+    if args.phases == "all":
+        kernels, lines, ring = main_path_phases(card, stamp)
+    else:
+        kernels, lines = [], []
+        ring = ring_kernel_phase(card)
+        torch.cuda.empty_cache()
+        stamp("the build and the ring kernel phase")
+    tp = tp_phase(card)
+    stamp("the TP path")
+    pp = pipeline_phase(card)
+    stamp("the pipeline")
+    kernels += ring_rows(ring, tp, pp)
+    for line in lines:
+        print(line)
+    print(json.dumps({"tp": tp, "pipeline": pp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

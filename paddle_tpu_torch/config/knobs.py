@@ -1,5 +1,6 @@
 """The environment knobs the port reads: the ``PADDLE_TPU_SERVE_*`` rows
-of the serving engine and the training health policy.
+of the serving engine, the training health policy and the TP overlap
+mode of ``fusion/overlap_mm.py``.
 
 The port keeps its own copy of the rows it needs, with the same names,
 types, defaults and parse rules as the JAX package's registry, so one
@@ -45,6 +46,8 @@ _ALL = (
     _k("HEALTH", "str", "off",
        "Training health policy: off|warn|skip|raise (only off is ported: "
        "TrainStep raises on the others)."),
+    _k("TP_OVERLAP", "str", "auto",
+       "TP comm/compute overlap: auto|on|off|pallas."),
 )
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

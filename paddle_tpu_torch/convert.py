@@ -3,7 +3,10 @@
 The port's GPT and Llama keep the JAX package's parameter names and
 Paddle's ``[in, out]`` linear layout, and its optimizer keeps the JAX
 state layout, so the conversion is a copy: this module is the one place
-that knows the two trees line up.
+that knows the two trees line up. The TP ring primitives and the
+compiled pipeline take plain arrays (``x`` and ``w``; the pipeline's
+numpy leaves): :func:`params_from_paddle_tpu` or ``torch.from_numpy``
+carries the JAX package's arrays over.
 """
 from __future__ import annotations
 

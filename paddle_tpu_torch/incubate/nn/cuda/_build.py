@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "build", "build_all", "load", "nvcc_path",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "_build"
 SOURCES = ("ragged_paged_attention", "flash_attn", "norms",
-           "paged_attention", "moe_dispatch")
+           "paged_attention", "moe_dispatch", "ring")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,5 +1,5 @@
 """Optimizers of the port (the functional AdamW that TrainStep
-drives)."""
-from .optimizers import AdamW
+drives, and the functional SGD of the compiled pipeline)."""
+from .optimizers import SGD, AdamW
 
-__all__ = ["AdamW"]
+__all__ = ["AdamW", "SGD"]

@@ -1,4 +1,4 @@
-"""AdamW, as a functional update over lists of tensors.
+"""AdamW and SGD, as functional updates over lists of tensors.
 
 Port of the functional path of ``paddle_tpu/optimizer/optimizers.py``
 (``Adam.init_state`` / ``_functional_update`` as ``AdamW.update`` runs
@@ -24,6 +24,10 @@ updates the parameters and the state IN PLACE (under ``no_grad``), so a
 step holds one parameter's f32 temporaries at a time and never a second
 copy of the model. 8-bit moments (``moment_quant="8bit"``) and learning
 rate schedulers are later slices (ROADMAP.md).
+
+:class:`SGD` is the JAX ``SGD.init_state`` / ``update`` that the compiled
+pipeline drives: no state, ``p - lr * (g + weight_decay * p)``, returning
+new tensors as the JAX version returns new arrays.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
-__all__ = ["AdamW"]
+__all__ = ["AdamW", "SGD"]
 
 State = Dict[str, Union[List[torch.Tensor], torch.Tensor]]
 
@@ -120,3 +124,32 @@ class AdamW:
             p32.addcdiv_(m / bc1, denom, value=-lr)
             p.copy_(p32)
             state["m"][i].copy_(m)
+
+
+class SGD:
+    """``SGD(learning_rate=0.001, weight_decay=None)``: plain gradient
+    descent with L2 weight decay folded into the gradient."""
+
+    def __init__(self, learning_rate: float = 0.001,
+                 weight_decay: Optional[float] = None):
+        if not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError(
+                "learning-rate schedulers are not ported yet: see "
+                "ROADMAP.md")
+        self._learning_rate = float(learning_rate)
+        self._weight_decay = float(weight_decay or 0.0)
+
+    def get_lr(self) -> float:
+        return self._learning_rate
+
+    def init_state(self, params: Sequence[torch.Tensor]) -> State:
+        return {}
+
+    @torch.no_grad()
+    def update(self, params: Sequence[torch.Tensor],
+               grads: Sequence[torch.Tensor], state: State,
+               lr: Optional[float] = None):
+        """``(new_params, state)``: each ``p - lr * (g + wd * p)``."""
+        lr = self._learning_rate if lr is None else lr
+        wd = self._weight_decay
+        return [p - lr * (g + wd * p) for p, g in zip(params, grads)], state

@@ -65,6 +65,8 @@ WRAPPERS = {
                       "flash_bwd", "_launch_bwd", "_bind", "_raise_on",
                       "_FlashAttention"),
     "moe_dispatch.py": ("grouped_matmul", "_bind", "check_kernel_inputs"),
+    "ring.py": ("mm_step", "shift", "enable_peer", "_bind", "_raise_on",
+                "check_kernel_inputs", "_check_tensor"),
 }
 
 

@@ -2,8 +2,9 @@
 
 K4 and K5 (ragged paged attention over fp and int8 pools), K7 (row
 RMSNorm and LayerNorm), K1/K2/K3 (flash attention forward, fused
-backward, split backward), K6 (paged decode) and K8 (the MoE grouped
-GEMM). These tests need an NVIDIA Hopper GPU
+backward, split backward), K6 (paged decode), K8 (the MoE grouped
+GEMM), K9 (the TP ring step) and K10 (the ring shift), with the layers
+over them on the card. These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -26,11 +27,17 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.distributed import Ring
+from paddle_tpu_torch.distributed.pipeline import (CompiledPipeline,
+                                                   ring_shift)
+from paddle_tpu_torch.fusion import overlap_mm as tom
 from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
 from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as tmd
 from paddle_tpu_torch.incubate.nn.cuda import norms as tn
 from paddle_tpu_torch.incubate.nn.cuda import paged_attention as tpa
+from paddle_tpu_torch.incubate.nn.cuda import ring as kring
 from paddle_tpu_torch.incubate.nn.functional import moe_dispatch as fmd
+from paddle_tpu_torch.optimizer import SGD
 
 # name -> (query_lens, context_lens, n_heads, n_kv, n_pad)
 MIXES = {
@@ -165,6 +172,14 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
             tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
             tn.layer_norm.launches) == counts
     assert tmd.grouped_matmul.launches == gmm
+    ring = Ring(["cpu"] * 2)
+    rings = (kring.mm_step.launches, kring.shift.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kring.mm_step([torch.randn(4, 8)] * 2, [torch.randn(8, 8)] * 2,
+                      ring)
+    with pytest.raises(ValueError, match="CUDA"):
+        kring.shift([torch.randn(4, 8)] * 2, ring)
+    assert (kring.mm_step.launches, kring.shift.launches) == rings
 
 
 # ------------------------------------------------------------------ K5
@@ -868,3 +883,209 @@ def test_moe_ffn_sorted_gradients_on_the_card():
     assert tmd.grouped_matmul.launches == before + 2
     for name, a, b in zip(("out", "x", "probs", "w1", "w2"), got, want):
         torch.testing.assert_close(a, b, msg=name, **GMM_F32_TOL)
+
+
+# ------------------------------------------------------------ K9, K10
+# K9's product against its plain version (f32 sums of the same products,
+# rounded once): f32 within rtol = atol = 2e-4 and bf16 within 4e-2 of a
+# row's RMS, K8's limits (the same tile code). K9's copy and K10 are pure
+# data movement: bit-exact.
+RING_F32_TOL = dict(rtol=2e-4, atol=2e-4)
+RING_ROW_TOL = 4e-2
+
+# name -> (t, k, n, leading dims of buf after t)
+RING_CASES = {
+    "tiles": (256, 256, 128, ()),
+    "n200": (128, 64, 200, ()),
+    "k200": (130, 200, 64, ()),
+    "3d": (16, 64, 64, (6,)),
+    "one_row": (1, 8, 8, ()),
+}
+
+
+def _rings(size=2):
+    """Rings of ``size`` ranks decided here, never at import: all on card
+    0, and one rank a card when as many cards with peer access are
+    present."""
+    rings = [Ring(["cuda:0"] * size)]
+    n = torch.cuda.device_count()
+    if n >= size and all(torch.cuda.can_device_access_peer(a, b)
+                         for a in range(size) for b in range(size)
+                         if a != b):
+        rings.append(Ring(["cuda:%d" % r for r in range(size)]))
+    return rings
+
+
+def _per_rank(ring, shape, dtype, g, scale=1.0):
+    return [(scale * torch.randn(*shape, generator=g, device="cuda"))
+            .to(d, dtype) for d in ring.devices]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(RING_CASES))
+def test_ring_mm_step_matches_ref(name, dtype):
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    t, k, n, lead = RING_CASES[name]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for ring in _rings():
+        bufs = _per_rank(ring, (t,) + lead + (k,), dt, g)
+        ws = _per_rank(ring, (k, n), dt, g, 0.05)
+        before = kring.mm_step.launches
+        parts, nexts = kring.mm_step(bufs, ws, ring)
+        want_p, want_n = kring.mm_step_ref(bufs, ws, ring)
+        torch.cuda.synchronize()
+        assert kring.mm_step.launches == before + ring.size
+        for r in range(ring.size):
+            assert nexts[r].device == ring.device(r)
+            assert torch.equal(nexts[r], want_n[r]), (name, r)
+            assert parts[r].shape == (t,) + lead + (n,)
+            if dt == torch.float32:
+                torch.testing.assert_close(parts[r], want_p[r],
+                                           **RING_F32_TOL)
+            else:
+                _assert_close(parts[r], want_p[r], RING_ROW_TOL,
+                              "K9 %s rank %d %s" % (name, r, ring))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 1024, 2048), (1001,), (3, 333)])
+@pytest.mark.parametrize("size", [2, 3])
+def test_ring_shift_matches_ref(size, shape, dtype):
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for ring in _rings(size):
+        xs = _per_rank(ring, shape, getattr(torch, dtype), g)
+        for step in range(1, size):
+            before = kring.shift.launches
+            got = kring.shift(xs, ring, step)
+            want = ring.shift_ref(xs, step)
+            torch.cuda.synchronize()
+            assert kring.shift.launches == before + size
+            for r in range(size):
+                assert got[r].device == ring.device(r)
+                assert torch.equal(got[r], want[r]), (shape, step, r)
+
+
+@pytest.mark.cuda
+def test_ring_wrappers_raise_instead_of_falling_back():
+    _need_hopper()
+    ring = Ring(["cuda:0"] * 2)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    bufs = _per_rank(ring, (64, 32), torch.float32, g)
+    ws = _per_rank(ring, (32, 16), torch.float32, g)
+    counts = (kring.mm_step.launches, kring.shift.launches)
+    bad = {
+        "fp16": ([b.half() for b in bufs], [w.half() for w in ws]),
+        "mixed_types": ([b.bfloat16() for b in bufs], ws),
+        "one_rank": (bufs[:1], ws[:1]),
+        "ranks_differ": ([bufs[0], bufs[1][:32]], ws),
+        "strided_buf": ([b.t().contiguous().t() for b in bufs], ws),
+        "k_not_8": ([b[:, :30].contiguous() for b in bufs],
+                    [w[:30].contiguous() for w in ws]),
+        "n_not_8": (bufs, [w[:, :12].contiguous() for w in ws]),
+        "w_3d": (bufs, [w[None] for w in ws]),
+        "cpu_w": (bufs, [w.cpu() for w in ws]),
+    }
+    for name, (b, w) in bad.items():
+        with pytest.raises(ValueError):
+            kring.mm_step(b, w, ring)
+    with pytest.raises(ValueError):
+        kring.shift([b.t() for b in bufs], ring)
+    with pytest.raises(ValueError):
+        kring.shift([bufs[0], bufs[1][:32]], ring)
+    with pytest.raises(ValueError, match="gradient"):
+        kring.mm_step([b.requires_grad_() for b in bufs], ws, ring)
+    with pytest.raises(ValueError, match="gradient"):
+        kring.shift(bufs, ring)
+    assert (kring.mm_step.launches, kring.shift.launches) == counts
+    rings = _rings()
+    if len(rings) > 1:
+        with pytest.raises(ValueError, match="rank's device"):
+            kring.shift([b.detach() for b in bufs], rings[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [2, 4])
+def test_all_gather_matmul_on_the_card(size):
+    """The TP primitives on a CUDA ring against their serial compositions:
+    K9 launches size x (size - 1) times in the all-gather-matmul forward
+    and never in a backward or in matmul_reduce_scatter."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(8 * size, 6, 64, generator=g, device="cuda")
+    w = 0.05 * torch.randn(64, 16 * size, generator=g, device="cuda")
+    for ring in _rings(size):
+        for fn in (tom.sharded_all_gather_matmul,
+                   tom.sharded_matmul_reduce_scatter):
+            res = []
+            for off in (False, True):
+                xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+                before = kring.mm_step.launches
+                with tom.override(tp_overlap="off" if off else "pallas"):
+                    out = fn(xg, wg, ring=ring)
+                    fwd = kring.mm_step.launches - before
+                    dx, dw = torch.autograd.grad((out * out).sum(), [xg, wg])
+                want = size * (size - 1) if fn is \
+                    tom.sharded_all_gather_matmul and not off else 0
+                assert fwd == want and \
+                    kring.mm_step.launches - before == want, (fn, off)
+                res.append((out, dx, dw))
+            for a, b in zip(*res):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ring_shift_autograd_on_the_card():
+    _need_hopper()
+    for ring in _rings(2):
+        xs = [torch.full((4, 8), float(r), device=d).requires_grad_()
+              for r, d in enumerate(ring.devices)]
+        before = kring.shift.launches
+        out = ring_shift(xs, ring)
+        assert kring.shift.launches == before + 2
+        gs = [torch.full((4, 8), 10.0 + r, device=d)
+              for r, d in enumerate(ring.devices)]
+        grads = torch.autograd.grad(out, xs, gs)
+        torch.cuda.synchronize()
+        assert kring.shift.launches == before + 4
+        for r, d in enumerate(ring.devices):
+            assert out[r].device == d and grads[r].device == d
+            # forward: rank r holds rank r - 1's tensor; backward: rank r
+            # gets rank r + 1's gradient (the shift by size - 1)
+            assert torch.equal(out[r], xs[(r - 1) % 2].detach().to(d))
+            assert torch.equal(grads[r], gs[(r + 1) % 2].to(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 4])
+def test_pipeline_on_the_card_matches_the_cpu_ring(S):
+    """A tiny CompiledPipeline on a CUDA ring against the same on a CPU
+    ring: losses and parameters after 2 SGD steps; K10 launches
+    S (M + S - 1) forward and S (M + S - 2) backward a step."""
+    _need_hopper()
+    from paddle_tpu_torch.models import pipeline_gpt
+
+    M, lr = 4, 0.01
+    blocks, extra, rng = pipeline_gpt.weights(2 * S, 32, 64, 8)
+    stacked = pipeline_gpt.stack(blocks, S)
+    ids = torch.from_numpy(rng.integers(0, 64, (M, 8)))
+    labels = torch.from_numpy(rng.integers(0, 64, (M, 8)))
+    stage_fn, pre_fn, loss_fn = pipeline_gpt.functions(4)
+    for ring in _rings(S):
+        pipes = [CompiledPipeline(stage_fn, stacked, loss_fn, S, M,
+                                  optimizer=SGD(lr), extra_params=extra,
+                                  pre_fn=pre_fn, devices=devs)
+                 for devs in (ring, ["cpu"] * S)]
+        for _ in range(2):
+            before = kring.shift.launches
+            got = pipes[0].step(ids, labels).item()
+            torch.cuda.synchronize()
+            assert kring.shift.launches - before == \
+                S * (M + S - 1) + S * (M + S - 2)
+            want = pipes[1].step(ids, labels).item()
+            assert abs(got - want) <= 1e-5 * abs(want)
+        for a, b in zip(pipes[0].params, pipes[1].params):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
