@@ -20,13 +20,14 @@ Phases, in order; a failure in any of them raises and exits non-zero:
 3. K4: hold the ragged paged-attention kernel against its plain PyTorch
    version on the card at GPT-3 1.3B's serving shapes (bf16, page 16,
    head_dim 128, 16 heads, 8 rows, a 136-token axis), in several prefill
-   / decode mixes, and time the kernel, the plain version, a library call
-   computing the same function (``scaled_dot_product_attention`` over
-   pre-gathered K/V, timed only) and the least time the card could take
-   (``bound``);
+   / decode mixes (8 decode rows at 2048 keys among them), and time the
+   kernel, the plain version, a library call computing the same function
+   (``scaled_dot_product_attention`` over pre-gathered K/V, timed only)
+   and the least time the card could take (``bound``);
 4. K5 and K7: the same for K5 over int8 pools at Llama-2 7B's serving
-   shapes (32 heads, d 128, bf16 q; GQA groups 4 and 8 and d 64 too; K4's
-   time on the bf16 pool of each mix beside it), and for K7's RMSNorm
+   shapes (32 heads, d 128, bf16 q; GQA groups 4 and 8, d 64, and 8 decode
+   rows at 4096 keys over a 4096-key window too; K4's time on the bf16
+   pool of each mix beside it), and for K7's RMSNorm
    (with and without a bias) and LayerNorm, bf16 and f32, d 4096 and
    2048, on 136, 8192 and 1001 rows (library: ``F.rms_norm`` /
    ``F.layer_norm``, timed only);
@@ -369,6 +370,8 @@ def kernel_phase(card):
                     [60, 17, 999, 2048, 0, 0, 0, 0], 16, 16),
         "gqa4": ([100] + [1] * 7,
                  [612] + rng.randint(1, 2049, 7).tolist(), 16, 4),
+        # every row at GPT-3's 2048-token context: four splits a row
+        "long": ([1] * 8, [2048] * 8, 16, 16),
     }
     results = {}
     for name, (ql, cl, nh, nkv) in mixes.items():
@@ -382,27 +385,30 @@ def kernel_phase(card):
         check(bool((got[n_live:] == 0).all()),
               "%s: padding tokens are not exactly zero" % name)
         check(bool(torch.isfinite(got).all()), "%s: non-finite" % name)
-        ms = cuda_ms(lambda: ragged_paged_attention(*case), iters=20)
+        # device time a call in a CUDA graph: a wrapper call costs more
+        # host time than the kernels' device time (host_ms: back to back)
+        ms = graph_ms(lambda: ragged_paged_attention(*case))
+        host_ms = cuda_ms(lambda: ragged_paged_attention(*case), iters=20)
         plain_ms = cuda_ms(lambda: ragged_paged_attention_ref(*case),
                            iters=3, warmup=1)
         qp, kg, vg, mask = sdpa_inputs(case)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_ms(lambda: sdpa(qp, kg, vg, attn_mask=mask),
-                             iters=10)
+        library_ms = graph_ms(lambda: sdpa(qp, kg, vg, attn_mask=mask))
         del qp, kg, vg, mask
         nbytes, flops = work_of(case)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         results[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms,
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, flops=flops)
         print("K4 %-9s T=%d rows=%d heads=%d/%d: max_abs_err=%.3g "
-              "kernel=%.4f ms plain=%.4f ms sdpa=%.4f ms bound=%.4f ms "
-              "(%s, %.1f MB, %.2f GFLOP) [%s]"
-              % (name, case[0].shape[0], len(ql), nh, nkv, err, ms,
+              "kernel=%.4f ms (graph; %.4f ms back to back) plain=%.4f ms "
+              "sdpa=%.4f ms (graph) bound=%.4f ms (%s, %.1f MB, %.2f GFLOP) "
+              "[%s]"
+              % (name, case[0].shape[0], len(ql), nh, nkv, err, ms, host_ms,
                  plain_ms, library_ms, bound_ms,
                  results[name]["bound_by"], nbytes / 1e6, flops / 1e9,
                  card), flush=True)
@@ -424,10 +430,11 @@ def q8_case(case):
 def q8_kernel_phase(card):
     """K5 against its plain version at the Llama-2 7B serving shapes (32
     heads, d 128, page 16, bf16 q, int8 pools, a 136-token axis of 8
-    rows), in K4's prefill / decode mixes plus GQA groups 4 and 8 and
-    d 64; times K5, the plain version, SDPA over pre-gathered and
-    pre-dequantized K/V (timed only), K4 over the bf16 pool of the same
-    mix, and the bound."""
+    rows), in K4's prefill / decode mixes plus GQA groups 4 and 8, d 64
+    and 8 decode rows at 4096 keys; times K5 and K4 over the bf16 pool of
+    the same mix (a call in a CUDA graph), the plain version, SDPA over
+    pre-gathered and pre-dequantized K/V (timed only, in a CUDA graph),
+    and the bound."""
     from paddle_tpu_torch.incubate.nn.cuda.paged_attention import (
         _dequant, ragged_paged_attention, ragged_paged_attention_ref)
 
@@ -449,10 +456,13 @@ def q8_kernel_phase(card):
                  [612] + rng.randint(1, 2049, 7).tolist(), 32, 4, 128),
         "d64": ([128] + [1] * 7,
                 [640] + rng.randint(1, 2049, 7).tolist(), 32, 32, 64),
+        # every row at Llama-2's 4096-token context, a 4096-key window
+        "long": ([1] * 8, [4096] * 8, 32, 32, 128, 4096),
     }
     results = {}
-    for name, (ql, cl, nh, nkv, d) in mixes.items():
-        fp = make_case(rng, gen, ql, cl, nh, nkv, d=d)
+    for name, (ql, cl, nh, nkv, d, *window) in mixes.items():
+        fp = make_case(rng, gen, ql, cl, nh, nkv, d=d,
+                       max_len=window[0] if window else 2048)
         case = q8_case(fp)
         n_live = int(sum(ql))
         before = (ragged_paged_attention.launches,
@@ -470,29 +480,31 @@ def q8_kernel_phase(card):
         err, rel = row_err(got[:n_live], want[:n_live])
         check(rel <= PAGED_ROW_TOL, "K5 %s: max abs err %.4g, %.4g of its "
               "row's RMS > %g" % (name, err, rel, PAGED_ROW_TOL))
-        ms = cuda_ms(lambda: ragged_paged_attention(*case), iters=20)
+        # device time a call in a CUDA graph, as in phase 3
+        ms = graph_ms(lambda: ragged_paged_attention(*case))
+        host_ms = cuda_ms(lambda: ragged_paged_attention(*case), iters=20)
         plain_ms = cuda_ms(lambda: ragged_paged_attention_ref(*case),
                            iters=3, warmup=1)
-        k4_ms = cuda_ms(lambda: ragged_paged_attention(*fp), iters=20)
+        k4_ms = graph_ms(lambda: ragged_paged_attention(*fp))
         deq = [_dequant(p["q8"], p["s"]).bfloat16() for p in case[1:3]]
         qp, kg, vg, mask = sdpa_inputs((case[0], *deq, *case[3:]))
         del deq
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_ms(lambda: sdpa(qp, kg, vg, attn_mask=mask),
-                             iters=10)
+        library_ms = graph_ms(lambda: sdpa(qp, kg, vg, attn_mask=mask))
         del qp, kg, vg, mask
         nbytes, flops = work_of(case)
         bound_ms, bound_by = bound_of(nbytes, flops)
         results[name] = dict(
-            max_abs_err=err, row_err=rel, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, k4_bf16_ms=k4_ms, bound_ms=bound_ms,
-            bound_by=bound_by, bytes=nbytes, flops=flops)
+            max_abs_err=err, row_err=rel, ms=ms, host_ms=host_ms,
+            plain_ms=plain_ms, library_ms=library_ms, k4_bf16_ms=k4_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
         print("K5 %-9s T=%d rows=%d heads=%d/%d d=%d: max_abs_err=%.3g "
-              "(%.3e of its row's RMS) kernel=%.4f ms plain=%.4f ms "
-              "sdpa=%.4f ms K4 on the bf16 pool=%.4f ms bound=%.4f ms (%s, "
-              "%.1f MB, %.2f GFLOP) [%s]"
+              "(%.3e of its row's RMS) kernel=%.4f ms (graph; %.4f ms back "
+              "to back) plain=%.4f ms sdpa=%.4f ms (graph) K4 on the bf16 "
+              "pool=%.4f ms (graph) bound=%.4f ms (%s, %.1f MB, %.2f GFLOP) "
+              "[%s]"
               % (name, case[0].shape[0], len(ql), nh, nkv, d, err, rel, ms,
-                 plain_ms, library_ms, k4_ms, bound_ms, bound_by,
+                 host_ms, plain_ms, library_ms, k4_ms, bound_ms, bound_by,
                  nbytes / 1e6, flops / 1e9, card), flush=True)
         del fp, case, got, want
         torch.cuda.empty_cache()
@@ -1913,10 +1925,14 @@ def off_engine_phase(card, model, what, ragged_outs, per_pass, logits_tol,
 
 # kernel-name fragments -> group, first match wins
 PROFILE_GROUPS = (
-    ("flash K1-K3", ("flash_fwd_kernel", "flash_bwd_")),
-    ("K5", ("ragged_paged_attention_kernel<__nv_bfloat16, true>",
-            "ragged_paged_attention_kernel<float, true>")),
-    ("K4", ("ragged_paged_attention_kernel",)),
+    ("flash K1-K3", ("flash_fwd_", "flash_bwd_")),
+    # K4 / K5 and the merge of their split partials, by the pool's flag
+    ("K5", ("ragged_paged_attention_kernel<__nv_bfloat16, true",
+            "ragged_paged_attention_kernel<float, true",
+            "ragged_paged_attention_merge_kernel<__nv_bfloat16, true",
+            "ragged_paged_attention_merge_kernel<float, true")),
+    ("K4", ("ragged_paged_attention_kernel",
+            "ragged_paged_attention_merge_kernel")),
     ("K6-q8", ("paged_decode_kernel<__nv_bfloat16, true",
                "paged_decode_kernel<float, true")),
     ("K6", ("paged_decode_kernel",)),
@@ -2780,7 +2796,8 @@ def main_path_phases(card, stamp):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "at": "mixed: one 128-token prefill chunk + 7 decode rows, "
-                  + shape, "mixes": runs})
+                  + shape + "; ms and library_ms a call in a CUDA graph",
+            "mixes": runs})
     for name, line, case, kinds, launches, shape in (
             ("rms_norm", 32, "rms bfloat16 d 4096 n 136", ("rms", "rms_bias"),
              llama["launches"]["K7 rms_norm"], "Llama-2 7B serving"),

@@ -1,5 +1,6 @@
 // Ragged paged attention for Hopper (sm_90a): mixed prefill + decode rows
-// over one paged KV pool, in one launch.
+// over one paged KV pool, in one call (an attention kernel, then a small
+// kernel that merges the partials of long rows).
 //
 // Replaces two TPU kernels of paddle_tpu/incubate/nn/pallas/
 // paged_attention.py, both reached there through `ragged_paged_attention`:
@@ -15,7 +16,8 @@
 //   block_tables [n_rows, pages_per_seq] int32    page id per slot
 //   context_lens [n_rows] int32   KV length INCLUDING this step's tokens
 //   query_lens   [n_rows] int32   tokens the row owns (0 = idle row)
-//   q_starts     [n_rows] int32   first token of the row on the flat axis
+//   q_starts     [n_rows] int32   first token of the row: the exclusive
+//                                 prefix sum of query_lens
 //   out          [n_tokens, n_heads, d]           zeroed by the caller
 //
 // Token j of row r attends to KV positions < cl[r] - ql[r] + j + 1, cut at
@@ -30,294 +32,1016 @@
 // flops per (query head, key) pair. A decode row does 2-4 flops per byte,
 // far below the ~295 flops/byte at which an H100's bf16 tensor cores, not
 // its 3.35 TB/s memory, would be the limit, so the kernel is bound by the
-// bytes of K/V it must read; the int8 pool halves them.
+// bytes of K/V it must read, and its design is about keeping enough of
+// them in flight on every SM.
 //
-// What the design does about that, kept simple on purpose:
-// * The TPU grid ran in order and kept one scratch that spanned the whole
-//   token axis; that has no meaning on a GPU. Here one block owns one
-//   (query tile, kv head, row): a tile is up to `tile_tokens` tokens of
-//   the row times the `group` heads, at most 16 query vectors. The block
-//   reads its own qs/ql/cl/bt; blocks past the row's tokens (and whole
-//   idle rows) exit at once, so no K/V byte is read for them.
-// * A block walks only the keys below the causal limit of its last token,
-//   32 keys (one per lane) at a time: the 32 K rows and 32 V rows are
-//   staged in shared memory as f32 through 16-byte loads, with a padded
-//   row stride so that each lane reading its own key row hits its own
-//   bank. Each page is read once per tile. The int8 pool differs only
-//   here (template flag kQ8): a 16-byte load brings 16 int8 values of a
-//   row (8 loads a row at d = 128, 4 at d = 64), which are decoded with
-//   the row's scale as they are staged, so the rest of the kernel is one.
-// * Each warp owns 4 query vectors and keeps their online softmax
-//   (m, l, acc) in f32 registers, with the guarded -inf arithmetic of
-//   `_ragged_accumulate`: a fully masked step keeps m at -inf and adds
-//   nothing, and a query that saw no key writes acc / 1 = 0.
-// Not done yet (later work): wgmma on the tensor cores, TMA and a
-// multi-stage ring of pages, and splitting a long context across blocks.
+// What the design does about that:
+// * Work items. One item is (query tile, kv head, row, key split): a tile
+//   is up to `tile_tokens` tokens of the row times the `group` heads, at
+//   most 16 query vectors; a split is kSplit = 512 keys of the tile's
+//   causal range. The grid is persistent (as many blocks as fit on the
+//   card): each block numbers the rows' tiles by a prefix sum of the
+//   query lengths and walks the items from a bound that the host knows
+//   (n_tokens / tile_tokens + n_rows tiles times the window's splits
+//   times n_kv), skipping those past the live tiles, past the causal
+//   limit, or of idle rows before reading any K/V byte. A tile whose keys
+//   fit one split writes `out`; otherwise each split writes its partial
+//   (m, l, acc) in f32 to a workspace sized from the shapes alone, and
+//   ragged_paged_attention_merge_kernel combines them in split order with
+//   `_ragged_accumulate`'s guarded -inf arithmetic (an empty split adds
+//   nothing, a query that saw no key writes 0). Nothing is sized from
+//   device values and nothing waits on the host, so a call can be
+//   captured in a CUDA graph; the sums run in a fixed order, so two
+//   launches on the same inputs give the same bits.
+// * Inside a block the 4 warps split the item's keys, 16 at a time (8 for
+//   f32 queries), chunk c going to warp c % 4 (for an FFMA tile of more
+//   than 4 query vectors the warps split the queries too); each warp keeps
+//   its own online softmax, and the block merges the warps once, in warp
+//   order, each query vector's weights computed once. So a one-vector
+//   decode tile keeps all 4 warps busy.
+// * Each warp owns a ring of kStages = 2 chunks in shared memory, filled
+//   by cp.async: the block's page ids are read into shared memory first,
+//   lane r finds key r's pool row, and each row is copied 16 bytes a lane,
+//   keys past the range zero-filled. So the next chunk is in flight while
+//   the warp computes on this one. K/V stay in the pool's type there, in
+//   rows padded by 16 bytes against bank conflicts; an int8 row is decoded
+//   q8 * s as it is read from shared memory (template flag kQ8), so K5
+//   shares the whole kernel but that read.
+// * A bf16 tile of more than one query vector (a prefill tile, or a GQA
+//   decode tile) runs Q.K^T and P.V on the tensor cores: mma.sync m16n8k16
+//   bf16 with f32 accumulators in registers, the query tile's fragments
+//   loaded once, P rounded to bf16 in registers for P.V. A one-vector
+//   decode tile, and every tile of an f32 query, runs on FFMA (exact f32),
+//   each lane holding 8 dims of 1 (a decode tile) or 4 query vectors.
+// * Register arrays and lane layouts are sized by a head_dim bucket (64,
+//   128 or 256) at compile time, so no loop of the key walk has a bound
+//   known only at run time.
+// * Scores are scaled by scale * log2(e) in one multiply and exponentiated
+//   with exp2; m is kept in those units, also in the workspace.
+// Constants (PERF.md says how they were chosen): kSplit 512 keys,
+// kStages 2 (deeper rings cost blocks per SM and read no faster),
+// kMinBlocks 3 (a register cap that fits 12 warps an SM: the key walk is
+// bound by latency, not by registers), and cp.async rather than a 1-D
+// TMA bulk copy per key row (slower at these 128-512 byte rows, most of
+// all over int8 pools).
+// Not done yet (later work): a chunk larger than one m16n8k16 k-step per
+// warp, int8 tensor-core products for K5, a split size chosen per call,
+// and the zeroing of `out` inside the kernel (the caller's memset is a
+// kernel of its own).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kQPerWarp = 4;                   // query vectors per warp
-constexpr int kMaxQ = kWarps * kQPerWarp;      // query vectors per block
-constexpr int kChunk = 32;                     // keys per step, one a lane
-constexpr int kMaxR = 8;                       // dims per lane: d <= 256
+constexpr int kMaxQ = 16;                  // query vectors per tile
+constexpr int kQPerWarp = 4;               // FFMA: query vectors of a warp
+constexpr int kStages = 2;                 // depth of each warp's ring
+constexpr int kMinBlocks = 3;              // blocks an SM, head_dim <= 128
+constexpr int kSplit = 512;                // keys of one work item
+constexpr int kMaxIds = kSplit / 8 + 2;    // page ids of one split (page >= 8)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+// The shapes a kernel instance is built for. kD is a head_dim bucket (64,
+// 128 or 256): register arrays and lane layouts are sized by it, and d is
+// any multiple of 8 (16 over int8 pools) up to kD.
+// * C: keys a ring stage holds: one m16n8k16 k-step of P.V (16) for bf16
+//   queries, 8 for f32 queries (rows twice as wide); set by the query's
+//   type alone, so K5 under an f32 query chunks its keys as K4 over an f32
+//   pool does.
+// * FFMA: kLpr lanes hold a key row, 8 dims each; kKg key groups a warp;
+//   kKeys keys a lane scores in a chunk.
+// * copies: kSegs 16-byte pieces a full row, kLpc lanes copy a row.
+template <typename T, bool kQ8, int kD>
+struct Cfg {
+  using E = typename std::conditional<kQ8, int8_t, T>::type;
+  static constexpr int C = sizeof(T) == 4 ? 8 : 16;
+  static constexpr bool kMma = std::is_same<T, bf16>::value && kD <= 128;
+  static constexpr int kLpr = kD / 8 > 32 / C ? kD / 8 : 32 / C;
+  static constexpr int kKg = 32 / kLpr;
+  static constexpr int kKeys = C / kKg;
+  static constexpr int kSegs = kD * (int)sizeof(E) / 16;
+  static constexpr int kLpc = kSegs < 32 ? kSegs : 32;
+  static constexpr int kD_ = kD;
+};
+
+// a staged row: the pool row plus 16 bytes, so that 8 lanes reading 16
+// bytes of 8 different rows (or ldmatrix's 8 row addresses) hit 8
+// different bank groups
+__host__ __device__ inline int pitch_of(int d, int elt) {
+  return d * elt + 16;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// one warp's ring: kStages x {K rows, V rows} of C rows, then (int8 pools)
+// kStages x {K scales, V scales} of C floats
+__host__ __device__ inline int ring_bytes(int d, int elt, int C, bool q8) {
+  return kStages * 2 * C * (pitch_of(d, elt) + (q8 ? 4 : 0));
+}
+
+// After the key loop, over the rings: each warp's partial of each query
+// vector, acc [kWarps][kMaxQ][d + 4] (rows padded against bank conflicts),
+// then m and l [kWarps][kMaxQ], f32.
+__host__ __device__ inline int merge_bytes(int d) {
+  return kWarps * kMaxQ * (d + 6) * 4;
+}
+
+struct Args {
+  const void* q;
+  const void* k_pages;
+  const void* v_pages;
+  const float* k_scales;
+  const float* v_scales;
+  const int* block_tables;
+  const int* context_lens;
+  const int* query_lens;
+  const int* q_starts;
+  void* out;
+  float* ws;   // acc [n_tokens * n_heads * n_splits][d], then m, then l
+  int n_tokens, n_heads, d, total_pages, page, pages_per_seq, n_rows, group;
+  int tile_tokens, n_slots, n_splits, n_kv;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously; src_bytes 0
+// reads nothing and fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 as a bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 8 consecutive values of a row as f32: of T, or int8 codes times the
+// row's scale s (`_dequant`, in f32)
+template <typename E>
+__device__ __forceinline__ void load8(const void* p, float s, float (&v)[8]) {
+  if constexpr (std::is_same<E, int8_t>::value) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+    for (int u = 0; u < 8; ++u) v[u] = (float)x[u] * s;
+  } else if constexpr (std::is_same<E, float>::value) {
+    const float4 a = reinterpret_cast<const float4*>(p)[0];
+    const float4 b = reinterpret_cast<const float4*>(p)[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const bf16* x = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = __bfloat162float(x[u]);
+  }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// prefix[r] = query tiles of rows 0 .. r-1 (prefix[n_rows]: all of them):
+// the block's numbering of the batch's tiles, from query_lens alone
+__device__ void tile_prefix(const Args& a, int* prefix) {
+  __shared__ int warp_sums[kWarps];
+  __shared__ int carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) {
+    carry = 0;
+    prefix[0] = 0;
+  }
+  for (int base = 0; base < a.n_rows; base += kThreads) {
+    __syncthreads();
+    const int r = base + threadIdx.x;
+    const int ql = r < a.n_rows ? a.query_lens[r] : 0;
+    int v = ql > 0 ? cdiv(ql, a.tile_tokens) : 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane == 31) warp_sums[warp] = v;
+    __syncthreads();
+    int add = carry;
+    for (int w = 0; w < warp; ++w) add += warp_sums[w];
+    if (r < a.n_rows) prefix[r + 1] = v + add;
+    __syncthreads();
+    if (threadIdx.x == kThreads - 1) carry = v + add;
+  }
+  __syncthreads();
+}
+
+// One query tile of one row.
+struct Tile {
+  int row, tok0, n_tok, nq, cl, ql, qs, kv_end;
+};
+
+// The tile numbered `slot`; false when there is none or it holds no
+// token on the axis.
+__device__ __forceinline__ bool tile_of(const Args& a, const int* prefix,
+                                        int slot, Tile& t) {
+  if (slot >= prefix[a.n_rows]) return false;
+  int lo = 0, hi = a.n_rows - 1;             // last row with prefix <= slot
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (prefix[mid] <= slot) lo = mid; else hi = mid - 1;
+  }
+  t.row = lo;
+  t.ql = a.query_lens[lo];
+  t.cl = a.context_lens[lo];
+  t.qs = a.q_starts[lo];
+  t.tok0 = (slot - prefix[lo]) * a.tile_tokens;
+  // a span running off the token axis is cut there, never written past it
+  t.n_tok = min(min(a.tile_tokens, t.ql - t.tok0),
+                a.n_tokens - t.qs - t.tok0);
+  if (t.qs < 0 || t.n_tok <= 0) return false;
+  t.nq = t.n_tok * a.group;
+  // keys below the causal limit of the tile's last token, in the window
+  t.kv_end = min(t.cl - t.ql + t.tok0 + t.n_tok, a.page * a.pages_per_seq);
+  return true;
+}
+
+// Where a warp's chunks live and how they are filled.
+template <class Cf>
+struct Ring {
+  using E = typename Cf::E;
+  static constexpr int C = Cf::C;
+  static constexpr bool kQ8 = std::is_same<E, int8_t>::value;
+  uint8_t* base;           // [kStages][2][C][pitch]
+  float* scl;              // [kStages][2][C]
+  int pitch;
+  const uint8_t* kp;
+  const uint8_t* vp;
+  const float* ks;
+  const float* vs;
+  const int* ids;          // clamped page ids of the split, from page p0
+  int p0, page, d, k_hi;
+  int head_base;           // kvh * total_pages
+
+  __device__ __forceinline__ const uint8_t* krow(int s, int key) const {
+    return base + (s * 2 * C + key) * pitch;
+  }
+  __device__ __forceinline__ const uint8_t* vrow(int s, int key) const {
+    return base + (s * 2 * C + C + key) * pitch;
+  }
+  __device__ __forceinline__ const float* kscale(int s) const {
+    return scl + s * 2 * C;
+  }
+  __device__ __forceinline__ const float* vscale(int s) const {
+    return scl + s * 2 * C + C;
+  }
+
+  // keys k0 .. k0 + C - 1 into stage s (those at or past k_hi as zeros):
+  // lane r < C finds key k0 + r's pool row, then kLpc lanes copy each row
+  __device__ __forceinline__ void fill(int s, int k0, int lane) const {
+    const int t = k0 + lane;
+    const bool ok = lane < C && t < k_hi;
+    const int tt = ok ? t : k0;              // a row in the pool
+    const int slot = (head_base + ids[tt / page - p0]) * page + tt % page;
+    const int segs = d * (int)sizeof(E) / 16;
+    uint8_t* kd = base + s * 2 * C * pitch;
+    uint8_t* vd = kd + C * pitch;
+#pragma unroll
+    for (int r0 = 0; r0 < C; r0 += 32 / Cf::kLpc) {
+      const int r = r0 + lane / Cf::kLpc;
+      const int rs = __shfl_sync(kFull, slot, r);
+      const int n = k0 + r < k_hi ? 16 : 0;
+      const size_t src = (size_t)rs * d * sizeof(E);
+#pragma unroll
+      for (int sg0 = 0; sg0 < Cf::kSegs; sg0 += Cf::kLpc) {
+        const int sg = sg0 + lane % Cf::kLpc;
+        if (sg < segs) {
+          cp_async16(kd + r * pitch + sg * 16, kp + src + sg * 16, n);
+          cp_async16(vd + r * pitch + sg * 16, vp + src + sg * 16, n);
+        }
+      }
+    }
+    if constexpr (kQ8) {
+      if (lane < C) {
+        float* sd = scl + s * 2 * C;
+        cp_async4(sd + lane, ks + slot, ok ? 4 : 0);
+        cp_async4(sd + C + lane, vs + slot, ok ? 4 : 0);
+      }
+    }
+  }
+};
+
+// Walk the warp's n_mine chunks (the j-th starts at key first(j)) through
+// its ring: chunk j + kStages - 1 is copied while chunk j is consumed.
+template <class RingT, class First, class Consume>
+__device__ __forceinline__ void walk(const RingT& ring, int n_mine,
+                                     First first, Consume consume) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_mine) ring.fill(s, first(s), lane);
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_mine; ++j) {
+    const int nxt = j + kStages - 1;
+    if (nxt < n_mine) ring.fill(nxt % kStages, first(nxt), lane);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();            // chunk j has landed
+    __syncwarp();
+    consume(j % kStages, first(j));
+    __syncwarp();                            // before its stage is refilled
+  }
+  cp_async_wait<0>();
+}
+
+// The merge area of a block (see merge_bytes).
+struct Part {
+  float* acc;              // [kWarps][kMaxQ][dp]
+  float* m;                // [kWarps][kMaxQ]
+  float* l;                // [kWarps][kMaxQ]
+  int dp;
+  __device__ explicit Part(uint8_t* smem, int d)
+      : acc(reinterpret_cast<float*>(smem)),
+        m(acc + kWarps * kMaxQ * (d + 4)),
+        l(m + kWarps * kMaxQ),
+        dp(d + 4) {}
+};
+
+// The tensor-core route of one warp (bf16 queries, 2 to 16 query vectors,
+// d a multiple of 16 up to kD <= 128): the warp's chunks through
+// m16n8k16; leaves its partial (m, l, acc) of query vectors 0..15 in the
+// merge area under index kw.
+template <class Cf>
+__device__ __forceinline__ void warp_mma(const Ring<Cf>& ring,
+                                         const uint8_t* qtile, int pitch_q,
+                                         const Tile& t, int group, int k_lo,
+                                         int k_hi, int n_mine, int kw,
+                                         int nkw, float c, const Part& part) {
+  constexpr int C = 16, kD = Cf::kD_;
+  constexpr bool kQ8 = std::is_same<typename Cf::E, int8_t>::value;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tg = lane & 3;
+  const int d = ring.d;
+
+  uint32_t qa[kD / 16][4];                   // the query tile, once
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk)
+    if (kk * 16 < d)
+      ldsm_x4(smem_u32(qtile + (lane & 15) * pitch_q +
+                       (kk * 16 + (lane >> 4) * 8) * 2),
+              qa[kk]);
+  float o[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // rows g and g + 8 of the tile: their key limits (exclusive) and state
+  const int lim0 = g < t.nq
+      ? min(t.cl - t.ql + t.tok0 + g / group + 1, k_hi) : 0;
+  const int lim1 = g + 8 < t.nq
+      ? min(t.cl - t.ql + t.tok0 + (g + 8) / group + 1, k_hi) : 0;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  auto first = [&](int j) { return k_lo + (kw + j * nkw) * C; };
+  walk(ring, n_mine, first, [&](int s, int k0) {
+    // S = Q . K^T: n-tile 0 holds keys 0-7 of the chunk, n-tile 1 keys
+    // 8-15; even and odd k-steps in two accumulators (shorter chains)
+    float sc[2][2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      if (kk * 16 >= d) break;
+      uint32_t b[4];
+      if constexpr (!kQ8) {
+        const int key = (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4(smem_u32(ring.krow(s, key) + col * 2), b);
+      } else {                               // K = q8 * s, read as bf16
+        const float* ksc = ring.kscale(s);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int key = 8 * nt + g;
+          const int8_t* kr =
+              reinterpret_cast<const int8_t*>(ring.krow(s, key));
+          const float sk = ksc[key];
+          const char2 lo = *reinterpret_cast<const char2*>(kr + 16 * kk +
+                                                           2 * tg);
+          const char2 hi = *reinterpret_cast<const char2*>(kr + 16 * kk + 8 +
+                                                           2 * tg);
+          b[2 * nt] = pack_bf16((float)lo.x * sk, (float)lo.y * sk);
+          b[2 * nt + 1] = pack_bf16((float)hi.x * sk, (float)hi.y * sk);
+        }
+      }
+      mma_bf16(sc[kk & 1][0], qa[kk], b[0], b[1]);
+      mma_bf16(sc[kk & 1][1], qa[kk], b[2], b[3]);
+    }
+    // mask, then the online softmax of rows g (.[0..1]) and g + 8 (.[2..3])
+    float p[2][4];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int key = k0 + 8 * nt + 2 * tg + u;
+        const float x0 = sc[0][nt][u] + sc[1][nt][u];
+        const float x1 = sc[0][nt][2 + u] + sc[1][nt][2 + u];
+        p[nt][u] = key < lim0 ? x0 * c : -INFINITY;
+        p[nt][2 + u] = key < lim1 ? x1 * c : -INFINITY;
+        mx0 = fmaxf(mx0, p[nt][u]);
+        mx1 = fmaxf(mx1, p[nt][2 + u]);
+      }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a fully masked step keeps m at -inf and adds nothing
+    const float u0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float u1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float a0 = exp2f(m0 - u0), a1 = exp2f(m1 - u1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        p[nt][u] = exp2f(p[nt][u] - u0);
+        p[nt][2 + u] = exp2f(p[nt][2 + u] - u1);
+        ps0 += p[nt][u];
+        ps1 += p[nt][2 + u];
+      }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      o[n][0] *= a0; o[n][1] *= a0;
+      o[n][2] *= a1; o[n][3] *= a1;
+    }
+    // P (bf16) as the A operand: keys 2tg, 2tg+1 | 8+2tg, 9+2tg
+    const uint32_t pa[4] = {pack_bf16(p[0][0], p[0][1]),
+                            pack_bf16(p[0][2], p[0][3]),
+                            pack_bf16(p[1][0], p[1][1]),
+                            pack_bf16(p[1][2], p[1][3])};
+    // O += P . V, 16 dims (two n-tiles) at a time
+#pragma unroll
+    for (int dt = 0; dt < kD / 16; ++dt) {
+      if (dt * 16 >= d) break;
+      uint32_t b[4];
+      if constexpr (!kQ8) {
+        const int key = (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = dt * 16 + (lane >> 4) * 8;
+        ldsm_x4_t(smem_u32(ring.vrow(s, key) + col * 2), b);
+      } else {                               // V = q8 * s, read as bf16
+        const float* vsc = ring.vscale(s);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int dim = dt * 16 + 8 * h + g;
+          float v[4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const int key = 2 * tg + (w & 1) + (w >> 1) * 8;
+            v[w] = (float)reinterpret_cast<const int8_t*>(
+                       ring.vrow(s, key))[dim] * vsc[key];
+          }
+          b[2 * h] = pack_bf16(v[0], v[1]);
+          b[2 * h + 1] = pack_bf16(v[2], v[3]);
+        }
+      }
+      mma_bf16(o[2 * dt], pa, b[0], b[1]);
+      mma_bf16(o[2 * dt + 1], pa, b[2], b[3]);
+    }
+  });
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {          // the rows' sums over the quad
+    l0 += __shfl_xor_sync(kFull, l0, x);
+    l1 += __shfl_xor_sync(kFull, l1, x);
+  }
+  __syncthreads();                           // every ring is consumed
+  float* pacc = part.acc + kw * kMaxQ * part.dp;
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) {
+    if (n * 8 >= d) break;
+    const int dim = 8 * n + 2 * tg;
+    *reinterpret_cast<float2*>(pacc + g * part.dp + dim) =
+        make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(pacc + (g + 8) * part.dp + dim) =
+        make_float2(o[n][2], o[n][3]);
+  }
+  if (tg == 0) {
+    part.m[kw * kMaxQ + g] = m0;
+    part.m[kw * kMaxQ + g + 8] = m1;
+    part.l[kw * kMaxQ + g] = l0;
+    part.l[kw * kMaxQ + g + 8] = l1;
+  }
+}
+
+// The FFMA route of one warp: query vectors kNQ qg .. kNQ qg + kNQ - 1 of
+// the tile over the warp's chunks. Lane (kg, sl) holds dims 8 sl .. 8 sl
+// + 7 of each and scores keys kg, kg + kKg, ... of a chunk; leaves its
+// partial in the merge area under index kw. Query slots past the tile
+// have no key below their limit, so they stay at m = -inf and add nothing.
+template <class Cf, int kNQ, typename T>
+__device__ __forceinline__ void warp_ffma(const Ring<Cf>& ring, const T* q,
+                                          const Tile& t, int n_heads,
+                                          int kvh, int group, int k_lo,
+                                          int k_hi, int n_mine, int qg,
+                                          int kw, int nkw, float c,
+                                          const Part& part) {
+  using E = typename Cf::E;
+  constexpr bool kQ8 = std::is_same<E, int8_t>::value;
+  constexpr int C = Cf::C, kLpr = Cf::kLpr, kKg = Cf::kKg;
+  constexpr int kKeys = Cf::kKeys;
+  const int lane = threadIdx.x & 31;
+  const int d = ring.d;
+  const int sl = lane % kLpr, kg = lane / kLpr, e0 = 8 * sl;
+  const bool act = e0 < d;
+  const int n_q = max(0, min(kNQ, t.nq - qg * kNQ));
+
+  float qv[kNQ][8], acc[kNQ][8], m[kNQ], l[kNQ];
+  int lim[kNQ];
+#pragma unroll
+  for (int i = 0; i < kNQ; ++i) {
+    const int qi = qg * kNQ + i;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    lim[i] = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) qv[i][u] = acc[i][u] = 0.f;
+    if (i < n_q) {
+      const int tk = qi / group, hh = qi - tk * group;
+      lim[i] = min(t.cl - t.ql + t.tok0 + tk + 1, k_hi);
+      if (act)
+        load8<T>(q + ((size_t)(t.qs + t.tok0 + tk) * n_heads +
+                      (size_t)kvh * group + hh) * d + e0, 1.f, qv[i]);
+    }
+  }
+
+  auto first = [&](int j) { return k_lo + (kw + j * nkw) * C; };
+  walk(ring, n_q > 0 ? n_mine : 0, first, [&](int s, int k0) {
+    float sc[kKeys][kNQ];
+#pragma unroll
+    for (int jj = 0; jj < kKeys; ++jj) {
+      const int key = kg + kKg * jj;
+      float kv[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) kv[u] = 0.f;
+      if (act)
+        load8<E>(ring.krow(s, key) + e0 * sizeof(E),
+                 kQ8 ? ring.kscale(s)[key] : 1.f, kv);
+#pragma unroll
+      for (int i = 0; i < kNQ; ++i) {
+        float x = 0.f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) x = fmaf(qv[i][u], kv[u], x);
+        sc[jj][i] = x;
+      }
+    }
+    // full dot products: the sum over the kLpr lanes of a row
+#pragma unroll
+    for (int x = 1; x < kLpr; x <<= 1)
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj)
+#pragma unroll
+        for (int i = 0; i < kNQ; ++i)
+          sc[jj][i] += __shfl_xor_sync(kFull, sc[jj][i], x);
+    float mx[kNQ];
+#pragma unroll
+    for (int i = 0; i < kNQ; ++i) {
+      mx[i] = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const bool ok = k0 + kg + kKg * jj < lim[i];
+        sc[jj][i] = ok ? sc[jj][i] * c : -INFINITY;
+        mx[i] = fmaxf(mx[i], sc[jj][i]);
+      }
+    }
+#pragma unroll
+    for (int x = kLpr; x < 32; x <<= 1)
+#pragma unroll
+      for (int i = 0; i < kNQ; ++i)
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], x));
+#pragma unroll
+    for (int i = 0; i < kNQ; ++i) {
+      const float mn = fmaxf(m[i], mx[i]);
+      const float um = mn == -INFINITY ? 0.f : mn;
+      const float alpha = exp2f(m[i] - um);
+      float ps = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        sc[jj][i] = exp2f(sc[jj][i] - um);
+        ps += sc[jj][i];
+      }
+      l[i] = l[i] * alpha + ps;              // this key group's share
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[i][u] *= alpha;
+      m[i] = mn;
+    }
+    if (act)
+#pragma unroll
+      for (int jj = 0; jj < kKeys; ++jj) {
+        const int key = kg + kKg * jj;
+        float vv[8];
+        load8<E>(ring.vrow(s, key) + e0 * sizeof(E),
+                 kQ8 ? ring.vscale(s)[key] : 1.f, vv);
+#pragma unroll
+        for (int i = 0; i < kNQ; ++i)
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            acc[i][u] = fmaf(sc[jj][i], vv[u], acc[i][u]);
+      }
+  });
+  // the key groups' shares: same m (warp-wide), so they add
+#pragma unroll
+  for (int x = kLpr; x < 32; x <<= 1)
+#pragma unroll
+    for (int i = 0; i < kNQ; ++i) {
+      l[i] += __shfl_xor_sync(kFull, l[i], x);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        acc[i][u] += __shfl_xor_sync(kFull, acc[i][u], x);
+    }
+  __syncthreads();                           // every ring is consumed
+#pragma unroll
+  for (int i = 0; i < kNQ; ++i) {
+    if (i >= n_q) break;
+    const int qi = qg * kNQ + i;
+    float* dst = part.acc + (kw * kMaxQ + qi) * part.dp + e0;
+    if (kg == 0 && act) {
+      reinterpret_cast<float4*>(dst)[0] =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      reinterpret_cast<float4*>(dst)[1] =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    if (lane == 0) {
+      part.m[kw * kMaxQ + qi] = m[i];
+      part.l[kw * kMaxQ + qi] = l[i];
+    }
+  }
+}
+
+// 4 values of out (T), or of the f32 workspace
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // kQ8: the pools are int8 with one f32 scale per (kv head, page, slot);
-// otherwise they hold T, and the scales are not read.
-template <typename T, bool kQ8>
-__global__ void __launch_bounds__(kThreads)
-ragged_paged_attention_kernel(
-    const T* __restrict__ q, const void* __restrict__ k_pages,
-    const void* __restrict__ v_pages, const float* __restrict__ k_scales,
-    const float* __restrict__ v_scales, const int* __restrict__ block_tables,
-    const int* __restrict__ context_lens, const int* __restrict__ query_lens,
-    const int* __restrict__ q_starts, T* __restrict__ out, int n_tokens,
-    int n_heads, int d, int total_pages, int page, int pages_per_seq,
-    int group, int tile_tokens, float scale) {
-  const int tile = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int row = blockIdx.z;
-  const int ql = query_lens[row];
-  const int tok0 = tile * tile_tokens;
-  if (tok0 >= ql) return;                      // idle row or tile past it
-  const int cl = context_lens[row];
-  const int qs = q_starts[row];
-  // a span running off the token axis is cut there, never written past it
-  const int n_tok = min(min(tile_tokens, ql - tok0), n_tokens - qs - tok0);
-  if (qs < 0 || n_tok <= 0) return;
-  const int nq = n_tok * group;                // live query vectors
-  const int window = page * pages_per_seq;
-  // keys below the causal limit of the tile's last token, inside the window
-  const int kv_end = min(cl - ql + tok0 + n_tok, window);
-  const int* bt = block_tables + (size_t)row * pages_per_seq;
+// otherwise they hold T, and the scales are not read. kD: the head_dim
+// bucket (see Cfg).
+template <typename T, bool kQ8, int kD>
+__global__ void __launch_bounds__(kThreads, kD <= 128 ? kMinBlocks : 1)
+ragged_paged_attention_kernel(const Args a) {
+  using Cf = Cfg<T, kQ8, kD>;
+  using E = typename Cf::E;
+  constexpr int C = Cf::C;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int ids[kMaxIds];
+  __shared__ float wts[kWarps][kMaxQ];       // the warps' merge weights
+  __shared__ float qm[kMaxQ], qlsum[kMaxQ];  // the block's m and l
 
-  extern __shared__ float smem[];
-  const int ld = d + 1;                        // padded row: lane l -> bank l
-  float* ks = smem;                            // [kChunk][ld]
-  float* vs = ks + kChunk * ld;                // [kChunk][ld]
-  float* qsm = vs + kChunk * ld;               // [kMaxQ][d]
+  const int d = a.d;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int pitch = pitch_of(d, sizeof(E));
+  const int rbytes = ring_bytes(d, sizeof(E), C, kQ8);
+  const int pitch_q = pitch_of(d, 2);
+  uint8_t* qtile = smem + kWarps * rbytes;   // [kMaxQ][pitch_q] bf16
+  int* prefix = reinterpret_cast<int*>(
+      smem + max(kWarps * rbytes + (Cf::kMma ? kMaxQ * pitch_q : 0),
+                 merge_bytes(d)));
+  const Part part(smem, d);
+  const float c = a.scale * kLog2e;
+  const T* q = static_cast<const T*>(a.q);
+  T* out = static_cast<T*>(a.out);
+  const size_t n_ws = (size_t)a.n_tokens * a.n_heads * a.n_splits;
+  float* ws_m = a.ws + n_ws * d;             // after acc [n_ws][d]
+  float* ws_l = ws_m + n_ws;
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  tile_prefix(a, prefix);
+  const int n_items = a.n_slots * a.n_splits * a.n_kv;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int kvh = item % a.n_kv;
+    const int split = (item / a.n_kv) % a.n_splits;
+    const int slot = item / (a.n_kv * a.n_splits);
+    Tile t;
+    if (!tile_of(a, prefix, slot, t)) continue;     // past the live tiles
+    const int k_lo = split * kSplit;
+    if (k_lo >= t.kv_end) continue;          // no key of this split is seen
+    const int k_hi = min(k_lo + kSplit, t.kv_end);
+    const bool single = t.kv_end <= kSplit;  // out directly, no partials
+    const bool mma = Cf::kMma && t.nq > 1 && d % 16 == 0;
 
-  // query vector i of the tile is token i / group, head kvh*group + i%group
-  for (int i = tid; i < nq * d; i += kThreads) {
-    const int qi = i / d, e = i - qi * d;
-    const int t = qi / group, g = qi - t * group;
-    const size_t src =
-        ((size_t)(qs + tok0 + t) * n_heads + (size_t)kvh * group + g) * d + e;
-    qsm[i] = to_f32(q[src]);
-  }
-
-  const int q_first = warp * kQPerWarp;        // this warp's query vectors
-  const int n_mine = max(0, min(kQPerWarp, nq - q_first));
-  int limit[kQPerWarp];
-  float m[kQPerWarp], l[kQPerWarp], acc[kQPerWarp][kMaxR];
-#pragma unroll
-  for (int i = 0; i < kQPerWarp; ++i) {
-    limit[i] = cl - ql + tok0 + (q_first + i) / group + 1;
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxR; ++r) acc[i][r] = 0.f;
-  }
-
-  // pool elements per 16-byte load
-  constexpr int kVec = kQ8 ? 16 : 16 / (int)sizeof(T);
-  const int vec_per_row = d / kVec;
-  const size_t head_base = (size_t)kvh * total_pages;
-
-  for (int c0 = 0; c0 < kv_end; c0 += kChunk) {
-    __syncthreads();                           // previous chunk consumed
-    for (int i = tid; i < kChunk * vec_per_row; i += kThreads) {
-      const int key = i / vec_per_row, seg = i - key * vec_per_row;
-      const int t = c0 + key;
-      float* kd = ks + key * ld + seg * kVec;
-      float* vd = vs + key * ld + seg * kVec;
-      if (t < kv_end) {
-        int pg = bt[t / page];
-        pg = min(max(pg, 0), total_pages - 1);
-        const size_t slot = (head_base + pg) * page + (t % page);
-        const size_t off = slot * (size_t)d + seg * kVec;
-        if constexpr (kQ8) {
-          const uint4 kraw = *reinterpret_cast<const uint4*>(
-              static_cast<const int8_t*>(k_pages) + off);
-          const uint4 vraw = *reinterpret_cast<const uint4*>(
-              static_cast<const int8_t*>(v_pages) + off);
-          const int8_t* kx = reinterpret_cast<const int8_t*>(&kraw);
-          const int8_t* vx = reinterpret_cast<const int8_t*>(&vraw);
-          const float k_s = k_scales[slot], v_s = v_scales[slot];
-#pragma unroll
-          for (int w = 0; w < kVec; ++w) {     // _dequant: q8 * s, in f32
-            kd[w] = (float)kx[w] * k_s;
-            vd[w] = (float)vx[w] * v_s;
-          }
-        } else {
-          const uint4 kraw = *reinterpret_cast<const uint4*>(
-              static_cast<const T*>(k_pages) + off);
-          const uint4 vraw = *reinterpret_cast<const uint4*>(
-              static_cast<const T*>(v_pages) + off);
-          const T* kx = reinterpret_cast<const T*>(&kraw);
-          const T* vx = reinterpret_cast<const T*>(&vraw);
-#pragma unroll
-          for (int w = 0; w < kVec; ++w) {
-            kd[w] = to_f32(kx[w]);
-            vd[w] = to_f32(vx[w]);
-          }
+    __syncthreads();                         // the last item's merge is read
+    const int p0 = k_lo / a.page;
+    const int n_ids = (k_hi - 1) / a.page - p0 + 1;
+    const int* bt = a.block_tables + (size_t)t.row * a.pages_per_seq;
+    for (int i = tid; i < n_ids; i += kThreads)
+      ids[i] = min(max(bt[p0 + i], 0), a.total_pages - 1);
+    if (Cf::kMma && mma) {                   // the query tile, rows >= nq 0
+      const int segs = d / 8;
+      for (int i = tid; i < kMaxQ * segs; i += kThreads) {
+        const int r = i / segs, sg = i - r * segs;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (r < t.nq) {
+          const int tk = r / a.group, hh = r - tk * a.group;
+          val = *reinterpret_cast<const uint4*>(
+              q + ((size_t)(t.qs + t.tok0 + tk) * a.n_heads +
+                   (size_t)kvh * a.group + hh) * d + sg * 8);
         }
-      } else {                                 // no garbage reaches acc
-#pragma unroll
-        for (int w = 0; w < kVec; ++w) {
-          kd[w] = 0.f;
-          vd[w] = 0.f;
-        }
+        *reinterpret_cast<uint4*>(qtile + r * pitch_q + sg * 16) = val;
       }
     }
     __syncthreads();
-    if (n_mine == 0) continue;                 // warp-uniform
 
-    // scores: lane owns key c0 + lane
-    float s[kQPerWarp];
-#pragma unroll
-    for (int i = 0; i < kQPerWarp; ++i) s[i] = 0.f;
-    const float* krow = ks + lane * ld;
-    for (int e = 0; e < d; ++e) {
-      const float kv = krow[e];
-#pragma unroll
-      for (int i = 0; i < kQPerWarp; ++i)
-        s[i] += qsm[(q_first + i) * d + e] * kv;   // broadcast read
-    }
-
-    const int t = c0 + lane;
-    float p[kQPerWarp];
-#pragma unroll
-    for (int i = 0; i < kQPerWarp; ++i) {
-      const bool live = i < n_mine;            // warp-uniform
-      const bool valid = live && t < kv_end && t < limit[i];
-      const float si = valid ? s[i] * scale : -INFINITY;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float safe_m = isfinite(m_new) ? m_new : 0.f;
-      const float alpha = isfinite(m[i]) ? expf(m[i] - safe_m) : 0.f;
-      p[i] = valid ? expf(si - safe_m) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p[i]);
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) acc[i][r] *= alpha;
-      m[i] = m_new;
-    }
-
-    // acc[i][dim] += sum_j p_j V[j][dim]; lane owns dims lane + 32 r
-    for (int j = 0; j < kChunk; ++j) {
-      const float* vrow = vs + j * ld;
-      float vv[kMaxR];
-#pragma unroll
-      for (int r = 0; r < kMaxR; ++r) {
-        const int e = lane + 32 * r;
-        vv[r] = e < d ? vrow[e] : 0.f;
+    // warps split the keys (chunk c to warp c % nkw) and, on FFMA tiles of
+    // more than 4 query vectors, the queries (nqg groups of 4)
+    const int nqg = (mma || t.nq <= 4) ? 1 : t.nq <= 8 ? 2 : 4;
+    const int nkw = kWarps / nqg;
+    const int qg = warp % nqg, kw = warp / nqg;
+    const int n_chunks = cdiv(k_hi - k_lo, C);
+    const int n_mine = n_chunks > kw ? cdiv(n_chunks - kw, nkw) : 0;
+    const Ring<Cf> ring{smem + warp * rbytes,
+                        reinterpret_cast<float*>(smem + warp * rbytes +
+                                                 kStages * 2 * C * pitch),
+                        pitch,
+                        static_cast<const uint8_t*>(a.k_pages),
+                        static_cast<const uint8_t*>(a.v_pages),
+                        a.k_scales, a.v_scales, ids, p0, a.page, d, k_hi,
+                        kvh * a.total_pages};
+    if constexpr (Cf::kMma) {
+      if (mma) {
+        warp_mma<Cf>(ring, qtile, pitch_q, t, a.group, k_lo, k_hi, n_mine,
+                     kw, nkw, c, part);
+      } else if (t.nq == 1) {
+        warp_ffma<Cf, 1>(ring, q, t, a.n_heads, kvh, a.group, k_lo, k_hi,
+                         n_mine, 0, kw, nkw, c, part);
+      } else {
+        warp_ffma<Cf, kQPerWarp>(ring, q, t, a.n_heads, kvh, a.group, k_lo,
+                                 k_hi, n_mine, qg, kw, nkw, c, part);
       }
-#pragma unroll
-      for (int i = 0; i < kQPerWarp; ++i) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], j);
-#pragma unroll
-        for (int r = 0; r < kMaxR; ++r) acc[i][r] += pj * vv[r];
-      }
+    } else if (t.nq == 1) {
+      warp_ffma<Cf, 1>(ring, q, t, a.n_heads, kvh, a.group, k_lo, k_hi,
+                       n_mine, 0, kw, nkw, c, part);
+    } else {
+      warp_ffma<Cf, kQPerWarp>(ring, q, t, a.n_heads, kvh, a.group, k_lo,
+                               k_hi, n_mine, qg, kw, nkw, c, part);
     }
-  }
+    __syncthreads();
 
+    // the warps' partials, in warp order: each query vector's weights
+    // once, then out (single) or this split's partial, 4 dims a thread
+    if (tid < t.nq) {
+      float mx = -INFINITY;
+      for (int w = 0; w < nkw; ++w) mx = fmaxf(mx, part.m[w * kMaxQ + tid]);
+      float f[kWarps], ls = 0.f;
 #pragma unroll
-  for (int i = 0; i < kQPerWarp; ++i) {          // constant trip count keeps
-    if (i >= n_mine) break;                      // acc[][] in registers
-    const int qi = q_first + i;
-    const int t = qi / group, g = qi - t * group;
-    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-    T* dst = out + ((size_t)(qs + tok0 + t) * n_heads +
-                    (size_t)kvh * group + g) * d;
+      for (int w = 0; w < kWarps; ++w) {
+        const float mw = w < nkw ? part.m[w * kMaxQ + tid] : -INFINITY;
+        f[w] = mw == -INFINITY ? 0.f : exp2f(mw - mx);   // saw no key: 0
+        if (w < nkw) ls += f[w] * part.l[w * kMaxQ + tid];
+      }
+      const float inv = single ? 1.f / (ls == 0.f ? 1.f : ls) : 1.f;
 #pragma unroll
-    for (int r = 0; r < kMaxR; ++r) {
-      const int e = lane + 32 * r;
-      if (e < d) store_as(dst + e, acc[i][r] * inv);
+      for (int w = 0; w < kWarps; ++w) wts[w][tid] = f[w] * inv;
+      qm[tid] = mx;
+      qlsum[tid] = ls;
+    }
+    __syncthreads();
+    const int d4 = d / 4;
+    for (int i = tid; i < t.nq * d4; i += kThreads) {
+      const int qi = i / d4, e = (i - qi * d4) * 4;
+      float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < nkw; ++w) {
+        const float wt = wts[w][qi];
+        const float4 x = *reinterpret_cast<const float4*>(
+            part.acc + (w * kMaxQ + qi) * part.dp + e);
+        r.x += wt * x.x; r.y += wt * x.y; r.z += wt * x.z; r.w += wt * x.w;
+      }
+      const int tk = qi / a.group, hh = qi - tk * a.group;
+      const size_t th = (size_t)(t.qs + t.tok0 + tk) * a.n_heads +
+                        (size_t)kvh * a.group + hh;
+      if (single) {
+        store4(out + th * d + e, r);
+      } else {
+        const size_t idx = th * a.n_splits + split;
+        store4(a.ws + idx * d + e, r);
+        if (e == 0) {
+          ws_m[idx] = qm[qi];
+          ws_l[idx] = qlsum[qi];
+        }
+      }
     }
   }
 }
 
+// Combines the split partials of every tile whose keys span more than one
+// split, in split order: out = sum_j 2^(m_j - M) acc_j / sum_j 2^(m_j - M)
+// l_j over the splits that saw a key (M their largest m); 0 where none
+// did. Templated as the attention kernel so that a profile groups it with
+// K4 or K5.
 template <typename T, bool kQ8>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const float* k_scales, const float* v_scales,
-                   const int* block_tables, const int* context_lens,
-                   const int* query_lens, const int* q_starts, void* out,
-                   int n_tokens, int n_heads, int n_kv, int d,
-                   int total_pages, int page, int n_rows, int pages_per_seq,
-                   int tile_tokens, float scale, cudaStream_t stream) {
-  const int group = n_heads / n_kv;
-  const size_t smem = (size_t)(2 * kChunk * (d + 1) + kMaxQ * d) *
-                      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ragged_paged_attention_kernel<T, kQ8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(kThreads)
+ragged_paged_attention_merge_kernel(const Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* prefix = reinterpret_cast<int*>(smem);
+  tile_prefix(a, prefix);
+  Tile t;
+  if (!tile_of(a, prefix, blockIdx.x, t) || t.kv_end <= kSplit) return;
+  const int kvh = blockIdx.y, d = a.d, d4 = d / 4;
+  const int n_used = cdiv(t.kv_end, kSplit);
+  const size_t n_ws = (size_t)a.n_tokens * a.n_heads * a.n_splits;
+  const float* ws_m = a.ws + n_ws * d;
+  const float* ws_l = ws_m + n_ws;
+  T* out = static_cast<T*>(a.out);
+  for (int i = threadIdx.x; i < t.nq * d4; i += kThreads) {
+    const int qi = i / d4, e = (i - qi * d4) * 4;
+    const int tk = qi / a.group, hh = qi - tk * a.group;
+    const size_t th = (size_t)(t.qs + t.tok0 + tk) * a.n_heads +
+                      (size_t)kvh * a.group + hh;
+    const size_t idx = th * a.n_splits;
+    float mx = -INFINITY;
+    for (int j = 0; j < n_used; ++j) mx = fmaxf(mx, ws_m[idx + j]);
+    float ls = 0.f;
+    float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (mx != -INFINITY)
+      for (int j = 0; j < n_used; ++j) {
+        const float mj = ws_m[idx + j];
+        if (mj == -INFINITY) continue;       // this split saw no key
+        const float f = exp2f(mj - mx);
+        ls += f * ws_l[idx + j];
+        const float4 x =
+            *reinterpret_cast<const float4*>(a.ws + (idx + j) * d + e);
+        r.x += f * x.x; r.y += f * x.y; r.z += f * x.z; r.w += f * x.w;
+      }
+    const float inv = 1.f / (ls == 0.f ? 1.f : ls);
+    store4(out + th * d + e,
+           make_float4(r.x * inv, r.y * inv, r.z * inv, r.w * inv));
   }
-  const dim3 grid((n_tokens + tile_tokens - 1) / tile_tokens, n_kv, n_rows);
-  ragged_paged_attention_kernel<T, kQ8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), k_pages, v_pages, k_scales, v_scales,
-      block_tables, context_lens, query_lens,
-      q_starts, static_cast<T*>(out), n_tokens, n_heads, d, total_pages,
-      page, pages_per_seq, group, tile_tokens, scale);
-  return cudaGetLastError();
+}
+
+inline int host_cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <typename T, bool kQ8, int kD>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  using Cf = Cfg<T, kQ8, kD>;
+  const int d = a.d;
+  const size_t body = std::max<size_t>(
+      (size_t)kWarps * ring_bytes(d, sizeof(typename Cf::E), Cf::C, kQ8) +
+          (Cf::kMma ? kMaxQ * pitch_of(d, 2) : 0),
+      (size_t)merge_bytes(d));
+  const size_t smem = body + (size_t)(a.n_rows + 1) * sizeof(int);
+  auto kernel = ragged_paged_attention_kernel<T, kQ8, kD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long n_items = (long long)a.n_slots * a.n_splits * a.n_kv;
+  const int grid = (int)std::min<long long>(n_items, (long long)n_sm * per_sm);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (a.n_splits > 1) {
+    const size_t msmem = (size_t)(a.n_rows + 1) * sizeof(int);
+    auto merge = ragged_paged_attention_merge_kernel<T, kQ8>;
+    if (msmem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             (int)msmem)) != cudaSuccess)
+      return err;
+    merge<<<dim3(a.n_slots, a.n_kv), kThreads, msmem, stream>>>(a);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
+// the head_dim bucket of the call
+template <typename T, bool kQ8>
+cudaError_t launch_bucket(const Args& a, cudaStream_t stream) {
+  if (a.d <= 64) return launch<T, kQ8, 64>(a, stream);
+  if (a.d <= 128) return launch<T, kQ8, 128>(a, stream);
+  return launch<T, kQ8, 256>(a, stream);
+}
+
+Args make_args(const void* q, const void* k_pages, const void* v_pages,
+               const float* k_scales, const float* v_scales,
+               const int* block_tables, const int* context_lens,
+               const int* query_lens, const int* q_starts, void* out,
+               float* ws, int n_tokens, int n_heads, int n_kv, int d,
+               int total_pages, int page, int n_rows, int pages_per_seq,
+               int tile_tokens, float scale) {
+  Args a;
+  a.q = q; a.k_pages = k_pages; a.v_pages = v_pages;
+  a.k_scales = k_scales; a.v_scales = v_scales;
+  a.block_tables = block_tables; a.context_lens = context_lens;
+  a.query_lens = query_lens; a.q_starts = q_starts;
+  a.out = out; a.ws = ws;
+  a.n_tokens = n_tokens; a.n_heads = n_heads; a.n_kv = n_kv; a.d = d;
+  a.total_pages = total_pages; a.page = page; a.n_rows = n_rows;
+  a.pages_per_seq = pages_per_seq; a.group = n_heads / n_kv;
+  a.tile_tokens = tile_tokens;
+  // every tile of a packed batch: sum_r ceil(ql_r / tt) <= n_tokens / tt
+  // + n_rows
+  a.n_slots = host_cdiv(n_tokens, tile_tokens) + n_rows;
+  a.n_splits = host_cdiv(page * pages_per_seq, kSplit);
+  a.scale = scale;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`, does not synchronise, allocates nothing. The
+// f32 words of the workspace that a call with these shapes needs (0 when
+// every tile fits one split): m, l and acc of every (token, head, split).
+long long rpa_workspace_floats(int n_tokens, int n_heads, int d,
+                               int window) {
+  const long long n_splits = host_cdiv(window, kSplit);
+  if (n_splits <= 1) return 0;
+  return (long long)n_tokens * n_heads * n_splits * (d + 2);
+}
+
+// Launches on `stream`, does not synchronise, allocates nothing: `ws` is
+// the caller's workspace of rpa_workspace_floats(...) f32 words. The
 // caller has checked shapes, dtypes, contiguity and alignment, and that
 // tile_tokens * (n_heads / n_kv) <= 16 query vectors. Returns the CUDA
-// error of the launch (0 on success).
+// error of the launches (0 on success).
 int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
                const int* block_tables, const int* context_lens,
                const int* query_lens, const int* q_starts, void* out,
-               int n_tokens, int n_heads, int n_kv, int d, int total_pages,
-               int page, int n_rows, int pages_per_seq, int tile_tokens,
-               float scale, int is_bf16, void* stream) {
+               float* ws, int n_tokens, int n_heads, int n_kv, int d,
+               int total_pages, int page, int n_rows, int pages_per_seq,
+               int tile_tokens, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch<__nv_bfloat16, false>(
-        q, k_pages, v_pages, nullptr, nullptr, block_tables, context_lens,
-        query_lens, q_starts, out, n_tokens, n_heads, n_kv, d, total_pages,
-        page, n_rows, pages_per_seq, tile_tokens, scale, s);
-  return (int)launch<float, false>(
-      q, k_pages, v_pages, nullptr, nullptr, block_tables, context_lens,
-      query_lens, q_starts, out, n_tokens, n_heads, n_kv, d, total_pages,
-      page, n_rows, pages_per_seq, tile_tokens, scale, s);
+  const Args a = make_args(q, k_pages, v_pages, nullptr, nullptr,
+                           block_tables, context_lens, query_lens, q_starts,
+                           out, ws, n_tokens, n_heads, n_kv, d, total_pages,
+                           page, n_rows, pages_per_seq, tile_tokens, scale);
+  return (int)(is_bf16 ? launch_bucket<bf16, false>(a, s)
+                       : launch_bucket<float, false>(a, s));
 }
 
 // The same over an int8 pool: k8/v8 int8 [n_kv, total_pages, page, d] and
@@ -326,20 +1050,17 @@ int rpa_launch(const void* q, const void* k_pages, const void* v_pages,
 int rpa_q8_launch(const void* q, const void* k8, const float* ks,
                   const void* v8, const float* vs, const int* block_tables,
                   const int* context_lens, const int* query_lens,
-                  const int* q_starts, void* out, int n_tokens, int n_heads,
-                  int n_kv, int d, int total_pages, int page, int n_rows,
-                  int pages_per_seq, int tile_tokens, float scale,
-                  int is_bf16, void* stream) {
+                  const int* q_starts, void* out, float* ws, int n_tokens,
+                  int n_heads, int n_kv, int d, int total_pages, int page,
+                  int n_rows, int pages_per_seq, int tile_tokens,
+                  float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return (int)launch<__nv_bfloat16, true>(
-        q, k8, v8, ks, vs, block_tables, context_lens, query_lens, q_starts,
-        out, n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
-        pages_per_seq, tile_tokens, scale, s);
-  return (int)launch<float, true>(
-      q, k8, v8, ks, vs, block_tables, context_lens, query_lens, q_starts,
-      out, n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
-      pages_per_seq, tile_tokens, scale, s);
+  const Args a = make_args(q, k8, v8, ks, vs, block_tables, context_lens,
+                           query_lens, q_starts, out, ws, n_tokens, n_heads,
+                           n_kv, d, total_pages, page, n_rows, pages_per_seq,
+                           tile_tokens, scale);
+  return (int)(is_bf16 ? launch_bucket<bf16, true>(a, s)
+                       : launch_bucket<float, true>(a, s));
 }
 
 const char* rpa_error_string(int err) {

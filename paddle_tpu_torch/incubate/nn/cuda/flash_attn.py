@@ -12,6 +12,10 @@ of its fused qkv projection without a copy:
 Causal masking is bottom-right aligned (query i sees keys <= i + sk - sq);
 a row that sees no key gets out 0 and lse -1e30.
 
+K1 takes a ``wgmma`` + TMA kernel for bf16 at head_dim 64 and 128 (the
+training path) and the WMMA / FFMA kernel of K2 and K3's design for f32
+and head_dim 256; both write the same out and lse.
+
 :func:`flash_fwd`, :func:`flash_bwd_fused`, :func:`flash_bwd_split` and
 :func:`flash_bwd` launch the kernels; they take CUDA tensors only and
 raise ``ValueError`` on anything else. :func:`flash_attention` is the

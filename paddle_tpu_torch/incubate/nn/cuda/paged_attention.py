@@ -41,8 +41,9 @@ import torch
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
-           "paged_attention", "paged_attention_ref", "paged_kv_write_chunk",
-           "kv_write_slots", "kv_scatter", "quantize_kv_pages", "pool_shape"]
+           "merge_partials_ref", "paged_attention", "paged_attention_ref",
+           "paged_kv_write_chunk", "kv_write_slots", "kv_scatter",
+           "quantize_kv_pages", "pool_shape"]
 
 _KERNEL = "ragged_paged_attention"
 _DECODE_KERNEL = "paged_attention"
@@ -153,6 +154,25 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables,
     lens = torch.where(row_of >= 0, lens.clamp_min(0), 0)
     return paged_attention_ref(q, k_pages, v_pages, block_tables[r], lens,
                                scale)
+
+
+def merge_partials_ref(m, l, acc):
+    """The split merge of K4 / K5 (``ragged_paged_attention_merge_kernel``)
+    in plain PyTorch. A query's keys fall into disjoint splits; split j
+    leaves ``m [..., S]``, its largest score (-inf where it saw no key),
+    ``l [..., S]``, its sum of exp(s - m), and ``acc [..., S, d]``, its sum
+    of exp(s - m) * v. Returns ``sum_j e^(m_j - M) acc_j / sum_j e^(m_j -
+    M) l_j`` over the splits that saw a key (M their largest m), and 0 for
+    a query whose splits saw none: ``_ragged_accumulate``'s guarded -inf
+    arithmetic. The kernel keeps m in log2 units (2^ for e^) and sums in
+    split order."""
+    mx = m.amax(-1, keepdim=True)
+    seen = torch.isfinite(m)
+    f = torch.where(seen, torch.exp(m - torch.where(torch.isfinite(mx), mx,
+                                                    0.0)), 0.0)
+    ls = (f * l).sum(-1, keepdim=True)
+    out = (f[..., None] * acc).sum(-2)
+    return out / torch.where(ls == 0, 1.0, ls)
 
 
 def _tile_tokens(group: int) -> int:
@@ -267,11 +287,13 @@ def _bind() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(_KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rpa_launch.argtypes = [p] * 8 + [i] * 9 + [ctypes.c_float, i, p]
+        lib.rpa_launch.argtypes = [p] * 9 + [i] * 9 + [ctypes.c_float, i, p]
         lib.rpa_launch.restype = i
-        lib.rpa_q8_launch.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float,
+        lib.rpa_q8_launch.argtypes = [p] * 11 + [i] * 9 + [ctypes.c_float,
                                                            i, p]
         lib.rpa_q8_launch.restype = i
+        lib.rpa_workspace_floats.argtypes = [i] * 4
+        lib.rpa_workspace_floats.restype = ctypes.c_longlong
         lib.rpa_error_string.argtypes = [i]
         lib.rpa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -299,6 +321,10 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, query_lens,
     if n_tokens == 0 or n_rows == 0:
         return out, False
     lib = _bind()
+    # the split partials (m, l, acc) of long rows, sized from shapes alone
+    ws = torch.empty(lib.rpa_workspace_floats(n_tokens, n_heads, d,
+                                              pages_per_seq * page),
+                     dtype=torch.float32, device=q.device)
     if isinstance(k_pages, dict):
         fn = lib.rpa_q8_launch
         pools = (k_pages["q8"], k_pages["s"], v_pages["q8"], v_pages["s"])
@@ -310,8 +336,9 @@ def _launch(q, k_pages, v_pages, block_tables, context_lens, query_lens,
         rc = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
                 block_tables.data_ptr(), context_lens.data_ptr(),
                 query_lens.data_ptr(), q_starts.data_ptr(), out.data_ptr(),
-                n_tokens, n_heads, n_kv, d, total_pages, page, n_rows,
-                pages_per_seq, _tile_tokens(n_heads // n_kv), float(scale),
+                ws.data_ptr(), n_tokens, n_heads, n_kv, d, total_pages, page,
+                n_rows, pages_per_seq, _tile_tokens(n_heads // n_kv),
+                float(scale),
                 int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("ragged_paged_attention launch failed: %s"
@@ -341,7 +368,13 @@ def ragged_paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     ``ragged_paged_attention.launches_q8``. Anything the kernels do not
     take, CPU tensors included, raises ``ValueError``. ``row_of`` is not
     needed: the kernels read each row's span from
-    ``q_starts``/``query_lens``."""
+    ``q_starts``/``query_lens``, which must be the packed layout (q_starts
+    the exclusive prefix sum of query_lens). A call is sized from shapes
+    alone and never waits on the device, so it can be captured in a CUDA
+    graph and replayed with new lengths; rows past one 512-key split
+    leave partials in an f32 workspace that a second kernel merges
+    (:func:`merge_partials_ref` is its plain version), in a fixed order:
+    two calls on the same inputs give the same bits."""
     out, launched = _launch(q, k_pages, v_pages, block_tables,
                             context_lens, query_lens, q_starts, scale)
     if isinstance(k_pages, dict):

@@ -265,6 +265,122 @@ def test_q8_kernel_matches_k4_on_the_same_values(dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# -------------------------------------------- K4 / K5: splits and graphs
+# name -> (query_lens, context_lens, n_heads, n_kv, d, page, pages_per_seq).
+# A block walks at most 512 keys of a tile's causal range (the kernel's
+# split); longer tiles leave partials that a second kernel merges.
+LONG_MIXES = {
+    # GPT-3 1.3B's context: decode rows at 2048 keys and a prefill chunk
+    "gpt_2048": ([1, 1, 1, 1, 16], [2048, 2047, 1500, 513, 2048], 4, 4,
+                 128, 16, 128),
+    # Llama-2 7B's context
+    "llama_4096": ([1, 1, 1, 1], [4096, 4000, 3333, 1025], 4, 4, 128, 16,
+                   256),
+    # page 24: the 512-key split boundaries fall inside pages
+    "split_in_page": ([1, 40, 1], [530, 1040, 1537], 4, 4, 64, 24, 72),
+    # 64 tokens over 540 keys: the last tile's split 1 (keys 512-539) is
+    # wholly past the causal limit of its first tokens, whose m stays -inf
+    "past_causal": ([64, 1], [540, 600], 4, 4, 64, 16, 40),
+    # a 512-token prefill row beside decode rows
+    "prefill_512": ([512, 1, 1], [512, 2048, 700], 4, 4, 64, 16, 128),
+    "gqa4": ([1, 50, 1], [1999, 700, 33], 8, 2, 128, 16, 128),
+    "gqa8": ([1, 30, 1], [1024, 530, 1], 8, 1, 128, 16, 128),
+    "page128": ([1, 33, 1], [1500, 600, 129], 4, 4, 128, 128, 16),
+}
+LONG_ROW_TOL = {"float32": 1e-3, "bfloat16": 6e-2}
+
+
+def _long_case(name, dtype, quant, seed=41):
+    ql, cl, nh, nkv, d, page, pps = LONG_MIXES[name]
+    n_rows = len(ql)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    total = n_rows * pps + 1
+    q = torch.randn(int(sum(ql)) + 3, nh, d, generator=g, device="cuda")
+    kp, vp = (torch.randn(nkv, total, page, d, generator=g, device="cuda")
+              for _ in range(2))
+    rng = np.random.RandomState(seed)
+    bt = (1 + rng.permutation(n_rows * pps)).reshape(n_rows, pps)
+    for r, c in enumerate(cl):
+        bt[r, -(-c // page):] = [-1, total + 5][r % 2]
+    meta = [torch.tensor(np.asarray(a), dtype=torch.int32, device="cuda")
+            for a in (bt, cl, ql)]
+    if quant:
+        kp, vp = tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return (q.to(dtype), kp, vp, *meta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("name", sorted(LONG_MIXES))
+def test_ragged_kernel_long_rows_and_splits(name, pool, dtype):
+    """K4 and K5 against the plain version on rows past one split: GPT-3's
+    2048 and Llama-2's 4096 keys, split boundaries inside a page, a split
+    past the causal limit of part of a tile, a 512-token prefill row,
+    groups 4 and 8, d 64, page 128."""
+    _need_hopper()
+    case = _long_case(name, getattr(torch, dtype), pool == "int8")
+    counts = (tpa.ragged_paged_attention.launches,
+              tpa.ragged_paged_attention.launches_q8)
+    got = tpa.ragged_paged_attention(*case)
+    torch.cuda.synchronize()
+    grew = (tpa.ragged_paged_attention.launches - counts[0],
+            tpa.ragged_paged_attention.launches_q8 - counts[1])
+    assert grew == ((0, 1) if pool == "int8" else (1, 0))
+    want = tpa.ragged_paged_attention_ref(*case)
+    n_live = int(case[5].sum())
+    _assert_close(got[:n_live], want[:n_live], LONG_ROW_TOL[dtype],
+                  "%s %s %s" % (name, pool, dtype))
+    if dtype == "float32" and pool == "fp":
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert (got[n_live:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_ragged_kernel_is_deterministic(pool):
+    """Two launches on the same inputs give the same bits: the warps and
+    the splits are merged in a fixed order."""
+    _need_hopper()
+    case = _long_case("gpt_2048", torch.bfloat16, pool == "int8")
+    a = tpa.ragged_paged_attention(*case)
+    b = tpa.ragged_paged_attention(*case)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_ragged_kernel_in_a_cuda_graph(pool):
+    """One call captured in a CUDA graph, replayed after new context and
+    query lengths are written into the captured tensors, matches the plain
+    version on the new lengths: nothing is sized from device values and
+    nothing waits on the host."""
+    _need_hopper()
+    q, kp, vp, bt, cl, ql = _long_case("gpt_2048", torch.bfloat16,
+                                       pool == "int8")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: build, bind, allocate
+        tpa.ragged_paged_attention(q, kp, vp, bt, cl, ql)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.ragged_paged_attention(q, kp, vp, bt, cl, ql)
+    for new_cl, new_ql in (([700, 2048, 1, 1300, 40], [1, 1, 1, 1, 16]),
+                           ([300, 0, 2000, 1024, 1900], [8, 0, 1, 1, 9])):
+        cl.copy_(torch.tensor(new_cl, dtype=torch.int32))
+        ql.copy_(torch.tensor(new_ql, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpa.ragged_paged_attention_ref(q, kp, vp, bt, cl, ql)
+        n_live = int(sum(new_ql))
+        _assert_close(out[:n_live], want[:n_live], LONG_ROW_TOL["bfloat16"],
+                      "graph %s %s" % (pool, new_cl))
+        assert (out[n_live:] == 0).all()
+
+
 # ------------------------------------------------------------------ K7
 # each element of the kernel's output against the plain version's:
 # |got - want| <= rel * |want| + 1e-6 * RMS of want's row. bf16: rel
@@ -501,6 +617,68 @@ def test_flash_attention_autograd_gqa_strided(dtype):
     _assert_close(out, want_out, tol, "out")
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         _assert_close(a, w, tol, name)
+
+
+# K1's wgmma + TMA route (bf16, head_dim 64 and 128) on q/k/v sliced out
+# of one fused [b, s, 3, h, d] projection, as the training path passes
+# them: name -> (b, sq, sk, h), s ragged against the 128-row tiles, and
+# sq < sk (q from its own projection).
+WGMMA_SHAPES = {"ragged": (2, 1000, 1000, 3), "short": (1, 77, 77, 2),
+                "sq_lt_sk": (2, 300, 1024, 2), "one_tile": (1, 128, 128, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(WGMMA_SHAPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_wgmma_on_fused_qkv_views(d, causal, shape):
+    _need_hopper()
+    b, sq, sk, h = WGMMA_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(d + sq)
+    qkv = torch.randn(b, sk, 3, h, d, generator=g,
+                      device="cuda").bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if sq != sk:
+        q = torch.randn(b, sq, 3, h, d, generator=g,
+                        device="cuda").bfloat16()[:, :, 0]
+    scale = d ** -0.5
+    before = fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    want_out, want_lse = _ref_fwd(q, k, v, causal, scale)
+    _assert_close(out, want_out, FLASH_TOL["bfloat16"],
+                  "out d %d causal %d %s" % (d, causal, shape))
+    _assert_lse_close(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_autograd_fused_qkv(d):
+    """K1's new route under the differentiable entry: the forward on the
+    fused projection's views, K2's gradients from its saved out and lse,
+    against the plain versions."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, s, h = 2, 300, 2
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device="cuda").bfloat16()
+    qkv.requires_grad_()
+    do = torch.randn(b, s, h, d, generator=g, device="cuda").bfloat16()
+    fwd0, bwd0 = fa.flash_fwd.launches, fa.flash_bwd_fused.launches
+    out = fa.flash_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                             causal=True)
+    (dqkv,) = torch.autograd.grad(out, (qkv,), do)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_fused.launches) == \
+        (fwd0 + 1, bwd0 + 1)
+    q, k, v = (qkv.detach()[:, :, i] for i in range(3))
+    scale = d ** -0.5
+    want_out, want_lse = _ref_fwd(q, k, v, True, scale)
+    _assert_close(out, want_out, FLASH_TOL["bfloat16"], "out")
+    saved_out, saved_lse = fa.flash_fwd(q, k, v, True, scale)
+    want = _ref_bwd(q, k, v, saved_out, saved_lse, do, True, scale)
+    for i, (name, w) in enumerate(zip(("dq", "dk", "dv"), want)):
+        _assert_close(dqkv[:, :, i], w, FLASH_TOL["bfloat16"], name)
 
 
 @pytest.mark.cuda

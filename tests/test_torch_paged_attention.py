@@ -153,6 +153,65 @@ def test_explicit_row_of_and_q_starts_match_derived():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _split_partials(q, kp, vp, bt, cl, ql, cuts):
+    """Every token's visible keys of the plain version cut into the
+    splits [cuts[j], cuts[j + 1]) (empty ones included): per split its
+    largest score m (-inf where it saw no key), l = sum exp(s - m) and
+    acc = sum exp(s - m) v, f32, as the kernel's blocks leave them."""
+    n_tokens, n_heads, d = q.shape
+    n_kv, _, page, _ = kp.shape
+    qs = np.concatenate([[0], np.cumsum(ql)[:-1]])
+    rows = np.full(n_tokens, -1)
+    for r in range(len(ql)):
+        rows[qs[r]:qs[r] + ql[r]] = r
+    r = np.clip(rows, 0, len(ql) - 1)
+    lens = np.where(rows >= 0, cl[r] - ql[r] + np.arange(n_tokens) - qs[r]
+                    + 1, 0)
+    window = bt.shape[1] * page
+    pages = np.clip(bt[r], 0, kp.shape[1] - 1)     # [T, P]
+    k = kp[:, pages].reshape(n_kv, n_tokens, window, d)
+    v = vp[:, pages].reshape(n_kv, n_tokens, window, d)
+    group = n_heads // n_kv
+    k, v = (torch.from_numpy(x).repeat_interleave(group, 0).transpose(0, 1)
+            for x in (k, v))                       # [T, heads, L, d]
+    s = torch.einsum("thd,thld->thl", torch.from_numpy(q), k) * d ** -0.5
+    key = torch.arange(window)
+    seen = key[None, :] < torch.from_numpy(lens)[:, None]
+    m, l, acc = [], [], []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        mask = (seen & (key >= a) & (key < b))[:, None, :]
+        sj = s.masked_fill(~mask, float("-inf"))
+        mj = sj.amax(-1)
+        p = torch.where(mask, torch.exp(sj - torch.where(
+            torch.isfinite(mj), mj, 0.0)[..., None]), 0.0)
+        m.append(mj)
+        l.append(p.sum(-1))
+        acc.append(torch.einsum("thl,thld->thd", p, v))
+    return torch.stack(m, -1), torch.stack(l, -1), torch.stack(acc, -2)
+
+
+@pytest.mark.parametrize("mix", ["mixed", "gqa2"])
+def test_merged_split_partials_match_ref_and_jax(mix):
+    """The split merge that K4 / K5's second kernel implements
+    (``merge_partials_ref``): the plain version's keys cut at arbitrary
+    points, empty splits among them, merge back to
+    ``ragged_paged_attention_ref`` within 1e-6 in f32, and so match the
+    JAX kernel, interpreted."""
+    ql, cl, nh, nkv, pad = MIXES[mix]
+    q, kp, vp, bt, cl, ql = _setup(ql, cl, nh, nkv, pad, seed=15)
+    want = tpa.ragged_paged_attention_ref(*_torch(q, kp, vp, bt, cl, ql))
+    for cuts in ([0, 64], [0, 0, 7, 7, 20, 33, 64], [0, 16, 17, 40, 64, 64]):
+        got = tpa.merge_partials_ref(
+            *_split_partials(q, kp, vp, bt, cl, ql, cuts))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    jax_out = np.asarray(jpa.ragged_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(cl), jnp.asarray(ql), interpret=True, use_kernel=True))
+    np.testing.assert_allclose(got.numpy(), jax_out, **TOL)
+    np.testing.assert_array_equal(got.numpy()[int(ql.sum()):], 0.0)
+
+
 def test_token_rows_matches_jax():
     ql = np.asarray([3, 0, 2, 1], np.int32)
     qs = np.asarray([0, 3, 3, 5], np.int32)
