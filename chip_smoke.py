@@ -72,7 +72,8 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    backward's cap (the split route); time each at the training shapes
    beside its plain version, the library's flash attention (forward:
    ``scaled_dot_product_attention``; backward: its aten backward op; both
-   timed only) and its bound;
+   timed only) and its bound, and K3 again at the split route's shape
+   (where the backward takes it) beside aten's backward and the bound;
 6. train GPT-3 1.3B (bf16, random weights from seed 0, full width and
    depth) as ``bench.py`` configures it: batch 8 x 1024 tokens, AdamW
    (lr 1e-4, weight decay 0.01, bf16 first moment, factored second
@@ -108,7 +109,10 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    printed, not checked;
 8. profiles (torch.profiler) of training steps and of engine steps of
    both models in both layouts: device busy share and the kernels with
-   the most device time;
+   the most device time; for training also the time of every kernel but
+   the GEMMs and K1-K3 split by the operation that launched them
+   (AdamW's update, LayerNorm, gelu, the chunked lm-head CE, other), from
+   the profiler's tree of CPU operations;
 9a. the MoE path at ``bench.py``'s configuration (bf16, random weights
    from seed 0): ``fused_moe`` on x [1, 8192, 2048] with a [2048, 8]
    router weight launches K8 twice, and is held against the same op
@@ -1140,9 +1144,46 @@ def flash_kernel_phase(card):
         if name == "train":
             results = time_flash(fa, q, k, v, do, hm, ref_out, ref_lse,
                                  causal, scale, errs, card)
+        elif name == "split_route":
+            split = time_split_route(fa, q, k, v, do, hm, ref_out, ref_lse,
+                                     causal, scale, errs["K3"][0], card)
         del q, k, v, do, hm, out, lse, ref_out, ref_lse, ref_grads, grads
         torch.cuda.empty_cache()
+    results["K3"]["split_route"] = split
     return results
+
+
+def aten_flash_bwd(hm, causal, scale):
+    """A call of aten's flash-attention backward on head-major q, k, v, do
+    (after its own forward): the library yardstick of K2 and K3."""
+    aten = torch.ops.aten
+    lib_out, lib_lse, cq, ck, mq, mk_, seed, offs, _ = \
+        aten._scaled_dot_product_flash_attention(
+            *hm[:3], 0.0, causal, False, scale=scale)
+    return lambda: aten._scaled_dot_product_flash_attention_backward(
+        hm[3], *hm[:3], lib_out, lib_lse, cq, ck, mq, mk_, 0.0, causal, seed,
+        offs, scale=scale)
+
+
+def time_split_route(fa, q, k, v, do, hm, out, lse, causal, scale, err,
+                     card):
+    """K3 where the backward takes it (FLASH_CASES["split_route"]): kernel
+    and library ms (CUDA events) and the bound (the plain version is not
+    timed at this shape)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    ms = cuda_ms(lambda: fa.flash_bwd_split(q, k, v, out, lse, do, causal,
+                                            scale), 10)
+    library_ms = cuda_ms(aten_flash_bwd(hm, causal, scale), 10)
+    nbytes, flops = flash_work(b, sq, sk, h, d, causal, backward=True)
+    bound_ms, bound_by = bound_of(nbytes, flops)
+    print("K3 split-route shape (b %d, s %d, %d heads, d %d): kernel=%.4f "
+          "ms library=%.4f ms bound=%.4f ms (%s, %.1f MB, %.2f GFLOP) [%s]"
+          % (b, sq, h, d, ms, library_ms, bound_ms, bound_by, nbytes / 1e6,
+             flops / 1e9, card), flush=True)
+    return dict(max_abs_err=err, ms=ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops, shape=[b, sq, sk, h, d])
 
 
 def time_flash(fa, q, k, v, do, hm, out, lse, causal, scale, errs, card):
@@ -1152,10 +1193,7 @@ def time_flash(fa, q, k, v, do, hm, out, lse, causal, scale, errs, card):
     sk = k.shape[1]
     lse4 = lse[..., None]                          # [b, h, sq, 1]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    aten = torch.ops.aten
-    lib_out, lib_lse, cq, ck, mq, mk_, seed, offs, _ = \
-        aten._scaled_dot_product_flash_attention(
-            *hm[:3], 0.0, causal, False, scale=scale)
+    aten_bwd = aten_flash_bwd(hm, causal, scale)
     times = {
         "K1": (cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale), 20),
                cuda_ms(lambda: fa.flash_fwd_ref(*hm[:3], causal, scale),
@@ -1166,9 +1204,7 @@ def time_flash(fa, q, k, v, do, hm, out, lse, causal, scale, errs, card):
                cuda_ms(lambda: fa.flash_bwd_ref(
                    *hm[:3], out.transpose(1, 2), lse4, hm[3], causal,
                    scale), 3, warmup=1),
-               cuda_ms(lambda: aten._scaled_dot_product_flash_attention_backward(
-                   hm[3], *hm[:3], lib_out, lib_lse, cq, ck, mq, mk_, 0.0,
-                   causal, seed, offs, scale=scale), 10)),
+               cuda_ms(aten_bwd, 10)),
     }
     times["K3"] = (cuda_ms(lambda: fa.flash_bwd_split(
         q, k, v, out, lse, do, causal, scale), 10),) + times["K2"][1:]
@@ -1947,9 +1983,12 @@ PROFILE_GROUPS = (
 def print_profile(prof, wall_us, what, card):
     """Device busy share over ``wall_us`` and the kernels with the most
     device time, from a torch.profiler run."""
+    # (the record_function scopes of train_profile also show on the
+    # device's timeline: they are ranges, not kernels)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and e.key not in TRAIN_SCOPES]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print("profile %s: the profiler recorded no device time: not "
@@ -1961,8 +2000,7 @@ def print_profile(prof, wall_us, what, card):
                            100 * (1 - busy_us / wall_us), card))
     groups = {}
     for e in kernels:
-        g = next((name for name, pat in PROFILE_GROUPS
-                  if any(x in e.key for x in pat)), "other")
+        g = group_of(e.key)
         groups[g] = groups.get(g, 0) + e.self_device_time_total
     print("profile %s: by group: %s" % (what, ", ".join(
         "%s %.2f ms (%.1f%%)" % (g, us / 1e3, 100 * us / busy_us)
@@ -2005,20 +2043,93 @@ def profile_phase(card, model, what, **knobs):
                   card)
 
 
+# training's kernels other than the GEMMs and K1-K3, by the operation
+# that launched them: a name fragment of the launching CPU operation or of
+# one of its ancestors (lower case), first match wins. AdamW's update and
+# the chunked CE's forward run inside the record_function scopes
+# TRAIN_SCOPES that train_profile opens; the CE's backward is its
+# autograd node.
+TRAIN_SCOPES = ("AdamW.update", "ChunkedLMHeadCE.forward")
+TRAIN_SOURCES = (
+    ("AdamW", ("adamw.update",)),
+    ("chunked CE", ("chunkedlmheadce",)),
+    ("LayerNorm", ("layer_norm",)),
+    ("gelu", ("gelu",)),
+)
+NOT_SPLIT = ("GEMM (cuBLAS)", "flash K1-K3")
+
+
+def group_of(kernel_name):
+    return next((name for name, pat in PROFILE_GROUPS
+                 if any(x in kernel_name for x in pat)), "other")
+
+
+def print_elementwise_split(prof, steps, card):
+    """The device time of every kernel but the GEMMs and K1-K3 (the
+    elementwise, reduction, copy and other groups) split by
+    TRAIN_SOURCES, from the profiler's tree of CPU operations (each CPU
+    operation lists the kernels it launched)."""
+    split, total = {}, 0.0
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        names, e = [], evt
+        while e is not None:
+            names.append(e.name.lower())
+            e = e.cpu_parent
+        chain = " ".join(names)
+        src = next((name for name, pat in TRAIN_SOURCES
+                    if any(x in chain for x in pat)), "other")
+        for kern in evt.kernels:
+            if group_of(kern.name) not in NOT_SPLIT and \
+                    kern.name not in TRAIN_SCOPES:
+                split[src] = split.get(src, 0.0) + kern.duration
+                total += kern.duration
+    if total == 0:
+        print("profile train: elementwise split: no kernel linked to a CPU "
+              "operation: not measured")
+        return
+    print("profile train: kernels other than %s, %.2f ms a step, by "
+          "launching operation: %s [%s]" % (" and ".join(NOT_SPLIT),
+                                            total / 1e3 / steps, ", ".join(
+              "%s %.2f ms (%.1f%%)" % (k, us / 1e3 / steps, 100 * us / total)
+              for k, us in sorted(split.items(), key=lambda kv: -kv[1])),
+                                  card), flush=True)
+
+
 def train_profile(step, batch, card, steps=2):
     """Where a training step's device time goes: ``steps`` more steps of
-    the training phase's TrainStep under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    the training phase's TrainStep under torch.profiler, with AdamW's
+    update and the chunked CE's forward in record_function scopes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch.fusion import chunked
+
+    ce = chunked._ChunkedLMHeadCE
+    ce_forward, update = ce.forward, step.optimizer.update
+
+    def scoped(label, fn):
+        def run(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return run
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(*batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    ce.forward = staticmethod(scoped(TRAIN_SCOPES[1], ce_forward))
+    step.optimizer.update = scoped(TRAIN_SCOPES[0], update)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(*batch)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        ce.forward = staticmethod(ce_forward)
+        del step.optimizer.update
     print_profile(prof, wall_us, "train(%d steps)" % steps, card)
+    print_elementwise_split(prof, steps, card)
 
 
 # ----------------------------------------------------------- phase 9a
@@ -2826,7 +2937,8 @@ def main_path_phases(card, stamp):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "training shapes: b 8, s 1024, 16 heads, d 128, bf16, "
-                  "causal"})
+                  "causal",
+            **({"split_route": r["split_route"]} if kname == "K3" else {})})
     for name, route, mix, line, status, launches, shape in (
             ("paged_attention", "K6", "gpt_decode", 53, "ported",
              off_gpt["launches"]["K6"], "bf16 pools, 16 heads, d 128 "
@@ -2931,7 +3043,8 @@ def main(argv=None):
     for name in sources:
         for line in _build.ptxas_report(name).splitlines():
             if "registers" in line or "spill" in line or \
-                    "Function properties" in line:
+                    "Function properties" in line or \
+                    "Performance Loss" in line:
                 print("ptxas %s: %s" % (name, line.strip()))
     sys.stdout.flush()
 

@@ -12,9 +12,13 @@ of its fused qkv projection without a copy:
 Causal masking is bottom-right aligned (query i sees keys <= i + sk - sq);
 a row that sees no key gets out 0 and lse -1e30.
 
-K1 takes a ``wgmma`` + TMA kernel for bf16 at head_dim 64 and 128 (the
-training path) and the WMMA / FFMA kernel of K2 and K3's design for f32
-and head_dim 256; both write the same out and lse.
+K1, K2 and K3 take ``wgmma`` + TMA kernels for bf16 at head_dim 64 and
+128 (the training path) and the first port's WMMA / FFMA kernels for f32
+and head_dim 256; both routes compute the same function. The backward
+starts with a pre-pass kernel (delta = rowsum(do * out), lse in log2
+units, K2's dq workspace zeroed; :func:`bwd_preprocess` launches it
+alone, :func:`delta_ref` is its plain version) and K2 ends with a
+post-pass that writes dq in the input type.
 
 :func:`flash_fwd`, :func:`flash_bwd_fused`, :func:`flash_bwd_split` and
 :func:`flash_bwd` launch the kernels; they take CUDA tensors only and
@@ -38,7 +42,8 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_fwd",
            "flash_fwd_ref", "flash_bwd", "flash_bwd_fused",
-           "flash_bwd_split", "flash_bwd_ref", "uses_fused_bwd"]
+           "flash_bwd_split", "flash_bwd_ref", "bwd_preprocess",
+           "delta_ref", "uses_fused_bwd"]
 
 _KERNEL = "flash_attn"
 HEAD_DIMS = (64, 128, 256)
@@ -46,6 +51,7 @@ NEG_INF = -1e30
 # the JAX package's route rule for the fused backward (its dq scratch
 # cap, ``_FUSED_BWD_MAX_SEQ_D``): both packages pick K2 or K3 alike
 FUSED_BWD_MAX_SEQ_D = 8192 * 128
+LOG2E = 1.4426950408889634
 
 
 def uses_fused_bwd(sq: int, sk: int, d: int) -> bool:
@@ -78,6 +84,13 @@ def flash_fwd_ref(q, k, v, causal: bool, scale: float
     out = acc / torch.where(l == 0, 1.0, l)
     lse = torch.where(seen, m + torch.log(l), NEG_INF)
     return out.to(q.dtype), lse
+
+
+def delta_ref(out, do) -> torch.Tensor:
+    """The backward pre-pass's plain version: rowsum(do * out) in f32,
+    ``[b, h, sq]`` from ``[b, sq, h, d]`` tensors (the JAX package also
+    takes it outside its kernels)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_bwd_ref(q, k, v, out, lse, do, causal: bool, scale: float
@@ -196,8 +209,10 @@ def _bind() -> ctypes.CDLL:
         st = ctypes.POINTER(ctypes.c_longlong)
         lib.fa_fwd.argtypes = [p] * 5 + [st] + [i] * 6 + [f, i, p]
         lib.fa_fwd.restype = i
-        lib.fa_bwd.argtypes = [p] * 9 + [st] + [i] * 6 + [f, i, i, p]
+        lib.fa_bwd.argtypes = [p] * 11 + [st] + [i] * 6 + [f, i, i, p]
         lib.fa_bwd.restype = i
+        lib.fa_bwd_preprocess.argtypes = [p] * 4 + [st] + [i] * 5 + [p]
+        lib.fa_bwd_preprocess.restype = i
         lib.fa_error_string.argtypes = [i]
         lib.fa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -234,10 +249,36 @@ def flash_fwd(q, k, v, causal: bool, scale: float
 flash_fwd.launches = 0
 
 
-def _delta(out, do) -> torch.Tensor:
-    """rowsum(do * out) in f32, [b, h, sq]: the JAX package also takes
-    it outside its kernels."""
-    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+def _padded_rows(q) -> torch.Tensor:
+    """The pre-pass's f32 scratch: delta and lse2 as [2, b*h, sq_pad],
+    sq rounded up to the 128-row tiles."""
+    b, sq, h, _ = q.shape
+    return torch.empty(2, b * h, -(-sq // 128) * 128, dtype=torch.float32,
+                       device=q.device)
+
+
+def bwd_preprocess(out, do, lse) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's pre-pass kernel alone: ``(delta, lse2)``, f32
+    ``[b, h, sq]``, delta = rowsum(do * out) (:func:`delta_ref`) and lse2
+    = lse * log2(e), as K2 and K3 read them. CUDA tensors only; each launch
+    adds one to ``bwd_preprocess.launches``."""
+    _check((("out", out), ("do", do), ("lse", lse)), out, out)
+    b, sq, h, d = out.shape
+    rows = _padded_rows(out)
+    lib = _bind()
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = lib.fa_bwd_preprocess(out.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), rows.data_ptr(),
+                                   _strides(out, do), b, h, sq, d,
+                                   int(out.dtype == torch.bfloat16), stream)
+    _raise_on(lib, rc, "bwd_preprocess")
+    bwd_preprocess.launches += 1
+    delta, lse2 = rows[:, :, :sq].reshape(2, b, h, sq)
+    return delta, lse2
+
+
+bwd_preprocess.launches = 0
 
 
 def _launch_bwd(q, k, v, out, lse, do, causal, scale, fused):
@@ -245,30 +286,35 @@ def _launch_bwd(q, k, v, out, lse, do, causal, scale, fused):
             ("lse", lse)), q, k)
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    delta = _delta(out, do)
+    rows = _padded_rows(q)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    # K2 adds every k tile's share of dq into an f32 workspace
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device) \
-        if fused else torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    # K2 adds every k tile's share of dq into an f32 workspace, which its
+    # pre-pass zeroes and its post-pass writes into dq
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device) \
+        if fused else None
     lib = _bind()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.fa_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                        _strides(q, k, v, do, dq, dk, dv), b, h, sq, sk, d,
-                        int(causal), float(scale),
+                        out.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        rows.data_ptr(), None if acc is None
+                        else acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), _strides(q, k, v, out, do, dq, dk, dv),
+                        b, h, sq, sk, d, int(causal), float(scale),
                         int(q.dtype == torch.bfloat16), int(fused), stream)
     _raise_on(lib, rc, "flash_bwd_fused" if fused else "flash_bwd_split")
-    return dq.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 def flash_bwd_fused(q, k, v, out, lse, do, causal: bool, scale: float):
-    """K2: ``(dq, dk, dv)`` in one kernel from the saved ``out`` and
-    ``lse [b, h, sq]``. Launches the Hopper kernel (each launch adds one
-    to ``flash_bwd_fused.launches``) or raises ``ValueError``. dq is
-    summed with atomics, so its last bits change from run to run."""
+    """K2: ``(dq, dk, dv)`` in one kernel (between the pre-pass and a
+    post-pass that writes dq) from the saved ``out`` and ``lse [b, h,
+    sq]``. Launches the Hopper kernels (each call adds one to
+    ``flash_bwd_fused.launches``) or raises ``ValueError``. dq is summed
+    with atomic adds, so its last bits change from run to run; dk and dv
+    do not."""
     grads = _launch_bwd(q, k, v, out, lse, do, causal, scale, fused=True)
     flash_bwd_fused.launches += 1
     return grads
@@ -278,9 +324,10 @@ flash_bwd_fused.launches = 0
 
 
 def flash_bwd_split(q, k, v, out, lse, do, causal: bool, scale: float):
-    """K3: the same gradients from two kernels (dk/dv over k tiles, then
-    dq over q tiles), no atomics. One call adds one to
-    ``flash_bwd_split.launches``; raises ``ValueError`` as K2 does."""
+    """K3: the same gradients from the pre-pass and two kernels (dk/dv
+    over k tiles, then dq over q tiles), no atomics, so two calls give the
+    same bits. One call adds one to ``flash_bwd_split.launches``; raises
+    ``ValueError`` as K2 does."""
     grads = _launch_bwd(q, k, v, out, lse, do, causal, scale, fused=False)
     flash_bwd_split.launches += 1
     return grads

@@ -73,6 +73,45 @@ def test_bwd_ref_matches_pallas_k2_k3(shape, causal):
             _close(w, g, "%s %s" % (kernel.__name__, name))
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_head_dim_128_two_key_tiles_match_pallas_k2_k3(causal):
+    """head_dim 128 at s 256, two of the Hopper backward's 128-key tiles:
+    the plain backward, its pre-pass's plain version (``delta_ref``) and
+    the autograd entry's CPU path against the interpreted K2 and K3 and
+    the JAX package's delta."""
+    rng = np.random.RandomState(4)
+    b, s, h, d = 1, 256, 2, 128
+    q, k, v, do = (rng.randn(b, s, h, d).astype(np.float32)
+                   for _ in range(4))
+
+    def bh(x):                                   # [b, s, h, d] -> [bh, s, d]
+        return x.transpose(0, 2, 1, 3).reshape(b * h, s, d)
+
+    def bshd(x):                                 # and back
+        return np.asarray(x).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(bh(x)) for x in (q, k, v, do))
+    out, lse = jfa._flash_fwd(jq, jk, jv, causal, scale, BLOCK, BLOCK, True)
+    n = s // BLOCK
+    wants = [kernel(jq, jk, jv, out, lse, jdo, causal, scale, BLOCK, BLOCK,
+                    n, n, True)
+             for kernel in (jfa._flash_bwd_fused, jfa._flash_bwd_split)]
+    got = fa.flash_bwd_ref(*_t(bh(q), bh(k), bh(v), out, lse, bh(do)),
+                           causal, scale)
+    for kname, want in zip(("K2", "K3"), wants):
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            _close(g, w, "%s %s" % (kname, name))
+    want_delta = jnp.sum(jdo * out, axis=-1).reshape(b, h, s)
+    _close(fa.delta_ref(*_t(bshd(out), do)), want_delta, "delta")
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    o, _ = flash_attention(tq, tk, tv, causal=causal)
+    grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    _close(o.detach(), bshd(out), "out")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, wants[0]):
+        _close(g, bshd(w), "autograd " + name)
+
+
 def test_route_rule_matches_jax():
     """The port picks K2 exactly where the JAX package picks its fused
     backward."""
@@ -144,13 +183,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 8, 2, 64)
     lse = torch.zeros(1, 2, 8)
     counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
-              fa.flash_bwd_split.launches)
+              fa.flash_bwd_split.launches, fa.bwd_preprocess.launches)
     calls = [lambda: fa.flash_fwd(q, q, q, True, 0.125),
              lambda: fa.flash_bwd(q, q, q, q, lse, q, True, 0.125),
+             lambda: fa.bwd_preprocess(q, q, lse),
              lambda: fa.flash_bwd_split(q, q, q, q, lse, q, True, 0.125),
              lambda: fa.flash_attention(q, q, q, causal=True)]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
-            fa.flash_bwd_split.launches) == counts
+            fa.flash_bwd_split.launches, fa.bwd_preprocess.launches) == counts

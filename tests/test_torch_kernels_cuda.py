@@ -703,6 +703,95 @@ def test_flash_bwd_route_rule():
             _assert_close(g, w, FLASH_TOL["bfloat16"], name)
 
 
+# K2's and K3's wgmma + TMA route (bf16, head_dim 64 and 128) on q/k/v
+# sliced out of one fused [b, s, 3, h, d] projection, as the training path
+# passes them, and on the plain forward's out (a strided view) and lse:
+# every WGMMA_SHAPES case for K3, the square ones for K2.
+WGMMA_BWD_CASES = [(shape, kernel) for shape in sorted(WGMMA_SHAPES)
+                   for kernel in ("fused", "split")
+                   if kernel == "split" or
+                   WGMMA_SHAPES[shape][1] == WGMMA_SHAPES[shape][2]]
+
+
+def _fused_qkv_bwd_inputs(b, sq, sk, h, d, causal, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, sk, 3, h, d, generator=g, device="cuda").bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if sq != sk:
+        q = torch.randn(b, sq, 3, h, d, generator=g,
+                        device="cuda").bfloat16()[:, :, 0]
+    do = torch.randn(b, sq, h, d, generator=g, device="cuda").bfloat16()
+    scale = d ** -0.5
+    out, lse = _ref_fwd(q, k, v, causal, scale)
+    return q, k, v, out, lse, do, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernel", WGMMA_BWD_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wgmma_on_fused_qkv_views(d, causal, shape, kernel):
+    _need_hopper()
+    b, sq, sk, h = WGMMA_SHAPES[shape]
+    q, k, v, out, lse, do, scale = _fused_qkv_bwd_inputs(
+        b, sq, sk, h, d, causal, seed=d + sq + causal)
+    fn = fa.flash_bwd_fused if kernel == "fused" else fa.flash_bwd_split
+    before = fn.launches
+    got = fn(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = _ref_bwd(q, k, v, out, lse, do, causal, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        _assert_close(g, w, FLASH_TOL["bfloat16"], "%s %s d %d causal %d %s"
+                      % (kernel, name, d, causal, shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_wgmma_is_deterministic_where_it_should_be(d):
+    """K3 has no atomics: two launches give the same bits. K2 adds dq
+    with atomics (its last bits may change), but its dk and dv are each
+    summed by one warpgroup in a fixed order."""
+    _need_hopper()
+    q, k, v, out, lse, do, scale = _fused_qkv_bwd_inputs(
+        2, 1000, 1000, 3, d, True, seed=5)
+    split = [fa.flash_bwd_split(q, k, v, out, lse, do, True, scale)
+             for _ in range(2)]
+    fused = [fa.flash_bwd_fused(q, k, v, out, lse, do, True, scale)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*split):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(fused[0][1:], fused[1][1:]):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_preprocess_matches_delta_ref(dtype, d):
+    """The backward's pre-pass: delta against its plain formula (f32 sums
+    of exact products, another order: 1e-5), lse2 = lse * log2(e) the
+    same f32 multiply; on a strided out, with masked rows' lse."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    b, s, h = 2, 200, 3
+    g = torch.Generator(device="cuda").manual_seed(6)
+    outs = torch.randn(b, s, 2, h, d, generator=g, device="cuda").to(dt)
+    out = outs[:, :, 1]
+    do = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+    lse = torch.randn(b, h, s, generator=g, device="cuda") * 4
+    lse[:, :, :3] = fa.NEG_INF
+    before = fa.bwd_preprocess.launches
+    delta, lse2 = fa.bwd_preprocess(out, do, lse)
+    torch.cuda.synchronize()
+    assert fa.bwd_preprocess.launches == before + 1
+    torch.testing.assert_close(delta, fa.delta_ref(out, do), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(lse2, lse * fa.LOG2E, rtol=1e-6, atol=0)
+
+
 @pytest.mark.cuda
 def test_flash_wrapper_raises_instead_of_falling_back():
     _need_hopper()
@@ -719,6 +808,24 @@ def test_flash_wrapper_raises_instead_of_falling_back():
         fa.flash_fwd(q, k, v, True, 96 ** -0.5)
     with pytest.raises(ValueError):
         fa.flash_bwd(q, k, v, q, lse, do, True, 96 ** -0.5)
+    # the bf16 head_dim 64 / 128 route (K2 and K3 on TMA + wgmma) and its
+    # pre-pass: a d stride other than 1, a misaligned view, an lse of
+    # another shape or type, an fp16 out: raised, never another kernel
+    q, k, v, do = _flash_inputs(1, 64, 64, 2, 128, torch.bfloat16)
+    pre = fa.bwd_preprocess.launches
+    wide = torch.zeros(1, 64, 2, 256, device="cuda").bfloat16()
+    for fn in (fa.flash_bwd_fused, fa.flash_bwd_split):
+        with pytest.raises(ValueError):
+            fn(q, k, v, q, lse, wide[..., ::2], True, 128 ** -0.5)
+        with pytest.raises(ValueError):
+            fn(q, k, v, q, lse, wide[..., 4:132], True, 128 ** -0.5)
+        with pytest.raises(ValueError):
+            fn(q, k, v, q, lse[:, :, :32], do, True, 128 ** -0.5)
+        with pytest.raises(ValueError):
+            fn(q, k, v, q, lse.double(), do, True, 128 ** -0.5)
+    with pytest.raises(ValueError):
+        fa.bwd_preprocess(q.half(), do.half(), lse)
+    assert fa.bwd_preprocess.launches == pre
     assert (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
             fa.flash_bwd_split.launches) == counts
 
