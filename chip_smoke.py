@@ -50,10 +50,14 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    tokens and a 2048-token prefill, the same in f32 at a reduced size,
    and edges in bf16 and f32 (N 768, a ragged N, K past the last full K
    tile, a non-monotone block map with ids out of range, all pairs on
-   one expert, empty experts); time the main shapes beside the plain
-   version, a library call computing the same function
-   (``torch._grouped_mm`` in bf16, per-expert ``torch.matmul`` in f32;
-   timed only) and the bound;
+   one expert, empty experts), each with and without row counts (the
+   dispatch's own, as ``moe_ffn_sorted`` passes them, or counts of 0,
+   1, 63, 64, 65, 128 and clamped values), and bitwise equal across two
+   launches; time the main shapes with and without the dispatch's row
+   counts beside the plain version, a library call computing the same
+   function (``torch._grouped_mm`` in bf16, per-expert ``torch.matmul``
+   in f32; timed only) and the bound, with TFLOP/s, GB/s and the host
+   time a bf16 call takes (tensor-map encoding, the whole wrapper);
 4d. K9 and K10: hold the TP ring step (the copy of ``buf`` into the next
    rank's memory, bit-exact; ``buf @ w``, f32 rtol = atol = 2e-4, bf16
    rows within 4e-2 of their RMS) at ``bench.py``'s TP shape (T 16384,
@@ -64,7 +68,9 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    and at odd sizes, against their plain versions; time each main shape
    beside its plain version, a library yardstick (``torch.matmul`` with
    the copy as ``copy_`` on a side stream; ``copy_``; timed only) and the
-   bound (operations, HBM bytes, NVLink bytes);
+   bound (operations, HBM bytes, NVLink bytes); on distinct cards also
+   K10's launch alone and ``copy_`` by CUDA events on the sending card
+   (with one card: "not measured");
 5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (b 8,
    s 1024, 16 heads, d 128, bf16, causal) and at sq < sk, a ragged s,
@@ -119,8 +125,8 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    through K8's plain version and, on 256 tokens, against a dense f32
    reference that shares no code with ``sort_dispatch``; then
    ``bench.py``'s timing (``moe_ffn_sorted`` chained 8 and 24 times,
-   step = (t24 - t8) / 16): step ms, TFLOP/s by its flops count against
-   989, peak memory;
+   step = (t24 - t8) / 16; K8 with the dispatch's row counts): step ms,
+   TFLOP/s by its flops count against 989, peak memory;
 9b. the TP path at ``bench.py``'s ``_tp_overlap_result`` configuration
    (f32, x [16384, 4096], w [4096, 1024]), mp 2 then 4:
    ``sharded_all_gather_matmul`` and autograd of ``sum(out)`` launch K9
@@ -889,15 +895,43 @@ def gmm_library(xp, w, gid):
                               enumerate(spans)])
 
 
-def gmm_case_check(name, xp, w, gid, card, group_sizes=None, timed=True):
-    """One K8 call against its plain version (and its time, the plain
-    version's, the library call's and the bound's when ``timed``).
-    Returns the K8 output and the readings."""
+def gmm_host_costs(xp, w, gid, rows, iters=200):
+    """Host microseconds a bf16 K8 call spends before its kernel runs:
+    encoding its three TMA tensor maps (in C, the mean of ``iters``
+    encodings), and a whole wrapper call (checks, encodings, launch)
+    timed by the host clock over calls that only enqueue."""
+    from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
+
+    p, k = xp.shape
+    e, _, n = w.shape
+    out = torch.empty(p, n, dtype=xp.dtype, device=xp.device)
+    encode_us = kmd._bind().gmm_encode_us(xp.data_ptr(), w.data_ptr(),
+                                          out.data_ptr(), p, k, n, e, iters)
+    check(encode_us >= 0, "K8: a tensor map did not encode")
+    torch.cuda.synchronize()
+    calls = 20
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        kmd.grouped_matmul(xp, w, gid, rows=rows)
+    call_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return encode_us, call_us
+
+
+def gmm_case_check(name, xp, w, gid, card, group_sizes=None, timed=True,
+                   rows=None, dispatched=True):
+    """One K8 call against its plain version, bitwise equal across two
+    launches (and its time, the plain version's, the library call's and
+    the bound's when ``timed``). With ``rows`` the call with them is held
+    against the plain version with them; when they are a dispatch's own
+    counts (``dispatched``, as ``moe_ffn_sorted`` passes them: pad rows
+    are zero) it must also equal the call without them, and both are
+    timed. Returns the K8 output and the readings."""
     from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
 
     before = kmd.grouped_matmul.launches
-    got = kmd.grouped_matmul(xp, w, gid)
-    want = kmd.grouped_matmul_ref(xp, w, gid)
+    got = kmd.grouped_matmul(xp, w, gid, rows=rows)
+    want = kmd.grouped_matmul_ref(xp, w, gid, rows=rows)
     torch.cuda.synchronize()
     grew = kmd.grouped_matmul.launches - before
     check(grew == 1, "K8 %s: launches grew by %d" % (name, grew))
@@ -908,35 +942,60 @@ def gmm_case_check(name, xp, w, gid, card, group_sizes=None, timed=True):
     else:
         check(rel <= GMM_ROW_TOL, "K8 %s: max abs err %.4g, %.4g of its "
               "row's RMS > %g" % (name, err, rel, GMM_ROW_TOL))
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    check(torch.equal(got.view(bits),
+                      kmd.grouped_matmul(xp, w, gid, rows=rows).view(bits)),
+          "K8 %s: two launches differ" % name)
+    if rows is not None and dispatched:
+        check(torch.equal(got, kmd.grouped_matmul(xp, w, gid)),
+              "K8 %s: the row counts changed the output" % name)
     p, k = xp.shape
     e, _, n = w.shape
     res = dict(max_abs_err=err, row_err=rel, P=p, K=k, N=n, E=e,
-               dtype=str(xp.dtype)[6:])
+               dtype=str(xp.dtype)[6:], row_counts=rows is not None)
     if not timed:
         print("K8 %-22s P=%d K=%d N=%d E=%d %s: max_abs_err=%.3g (%.3e of "
-              "its row's RMS) [%s]" % (name, p, k, n, e, res["dtype"], err,
-                                       rel, card), flush=True)
+              "its row's RMS), bitwise equal across launches [%s]"
+              % (name, p, k, n, e, res["dtype"], err, rel, card),
+              flush=True)
         return got, res
     del want
-    ms = cuda_ms(lambda: kmd.grouped_matmul(xp, w, gid), iters=20)
-    plain_ms = cuda_ms(lambda: kmd.grouped_matmul_ref(xp, w, gid), iters=3,
-                       warmup=1)
+    ms = cuda_ms(lambda: kmd.grouped_matmul(xp, w, gid, rows=rows),
+                 iters=20)
+    all_rows_ms = ms if rows is None else \
+        cuda_ms(lambda: kmd.grouped_matmul(xp, w, gid), iters=20)
+    plain_ms = cuda_ms(lambda: kmd.grouped_matmul_ref(xp, w, gid, rows=rows),
+                       iters=3, warmup=1)
     library_ms = cuda_ms(gmm_library(xp, w, gid), iters=20)
     nbytes, flops, real, touched = gmm_work(xp, w, gid, group_sizes)
     bound_ms, bound_by = bound_of(
         nbytes, flops, BF16_FLOPS_PER_S if xp.dtype == torch.bfloat16
         else F32_FLOPS_PER_S)
-    res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               flops=flops, real_rows=real, experts_touched=touched,
-               tflops=flops / ms / 1e9)
-    print("K8 %-22s P=%d K=%d N=%d E=%d %s (%d real rows, %d experts): "
-          "max_abs_err=%.3g (%.3e of its row's RMS) kernel=%.4f ms (%.1f "
-          "TFLOP/s) plain=%.4f ms library=%.4f ms bound=%.4f ms (%s, %.1f "
+    res.update(ms=ms, all_rows_ms=all_rows_ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, real_rows=real,
+               experts_touched=touched, tflops=flops / ms / 1e9,
+               gb_per_s=nbytes / ms / 1e6,
+               padding_blocks=None if rows is None
+               else int((rows == 0).sum()))
+    line = "K8 %-22s P=%d K=%d N=%d E=%d %s (%d real rows, %d experts" % (
+        name, p, k, n, e, res["dtype"], real, touched)
+    if rows is not None:
+        line += ", %d of %d blocks padding only" % (res["padding_blocks"],
+                                                   rows.numel())
+    line += "): max_abs_err=%.3g (%.3e of its row's RMS) kernel=%.4f ms " \
+            "(%.1f TFLOP/s, %.1f GB/s)" % (err, rel, ms, res["tflops"],
+                                           res["gb_per_s"])
+    if rows is not None:
+        line += " without counts=%.4f ms" % all_rows_ms
+    if xp.dtype == torch.bfloat16:
+        res["encode_us"], res["host_us"] = gmm_host_costs(xp, w, gid, rows)
+        line += " (host: %.2f us to encode the tensor maps, %.1f us a " \
+                "call)" % (res["encode_us"], res["host_us"])
+    print(line + " plain=%.4f ms library=%.4f ms bound=%.4f ms (%s, %.1f "
           "MB, %.1f GFLOP) [%s]"
-          % (name, p, k, n, e, res["dtype"], real, touched, err, rel, ms,
-             res["tflops"], plain_ms, library_ms, bound_ms, bound_by,
-             nbytes / 1e6, flops / 1e9, card), flush=True)
+          % (plain_ms, library_ms, bound_ms, bound_by, nbytes / 1e6,
+             flops / 1e9, card), flush=True)
     return got, res
 
 
@@ -954,10 +1013,11 @@ def moe_kernel_phase(card):
     14336 x N 4096; the same routing in f32 at a reduced size; and edges
     in bf16 and f32: N 768, a ragged N, K not a multiple of the K tile, a
     non-monotone block map with ids out of range, all pairs on one
-    expert, empty experts. Each product's second input is the first's
-    output through SwiGLU. Times the main shapes (CUDA events, back to
-    back: a call takes a millisecond or more) beside the plain version,
-    the library call and the bound."""
+    expert, empty experts, each also with row counts. Each product's
+    second input is the first's output through SwiGLU. Times the main
+    shapes with and without the dispatch's row counts (CUDA events, back
+    to back: a call takes a quarter of a millisecond or more) beside the
+    plain version, the library call and the bound."""
     from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as kmd
 
     results = {}
@@ -965,11 +1025,12 @@ def moe_kernel_phase(card):
     def both(tag, x, gate, w1, w2, k):
         _, d = moe_routing(x, gate, k)
         gs = d["group_sizes"]
+        rows = kmd.block_rows(d["block_gid"], gs, d["padded_sizes"])
         h, results[tag + " ffn1"] = gmm_case_check(
-            tag + " ffn1", d["xp"], w1, d["block_gid"], card, gs)
+            tag + " ffn1", d["xp"], w1, d["block_gid"], card, gs, rows=rows)
         h = swiglu(h).contiguous()
         _, results[tag + " ffn2"] = gmm_case_check(
-            tag + " ffn2", h, w2, d["block_gid"], card, gs)
+            tag + " ffn2", h, w2, d["block_gid"], card, gs, rows=rows)
 
     x, gate, w1, w2 = moe_problem(**MOE_BENCH)
     both("bench", x, gate, w1, w2, MOE_BENCH["topk"])
@@ -1003,6 +1064,10 @@ def moe_kernel_phase(card):
                 gid = torch.tensor(spec, dtype=torch.int32, device="cuda")
                 xp = torch.randn(len(spec) * kmd.BM, kd, generator=g,
                                  device="cuda").to(dtype)
+                # counts with blocks and 64-row halves of no real row
+                counts = torch.tensor([0, 1, 63, 64, 65, 128, 200, -3],
+                                      dtype=torch.int32,
+                                      device="cuda")[:len(spec)]
             else:
                 mask = torch.full((e,), -30.0, device="cuda")
                 mask[live] = 0.0
@@ -1013,9 +1078,14 @@ def moe_kernel_phase(card):
                 check(int(d["group_sizes"][live].sum()) == spec * k,
                       "K8 %s: the routing missed its experts" % name)
                 xp, gid = d["xp"], d["block_gid"]
+                counts = kmd.block_rows(gid, d["group_sizes"],
+                                        d["padded_sizes"])
             tag = "%s %s" % (name, str(dtype)[6:])
             _, results[tag] = gmm_case_check(tag, xp, w, gid, card,
                                              timed=False)
+            _, results[tag + " counts"] = gmm_case_check(
+                tag + " counts", xp, w, gid, card, timed=False, rows=counts,
+                dispatched=k > 0)
     return results
 
 
@@ -2218,8 +2288,13 @@ def moe_phase(card):
           "%.4g" % vs_dense)
     del out, plain, dense
 
-    probs, _ = moe_routing(x, gate, k)
+    probs, d = moe_routing(x, gate, k)
     dispatch_ms = cuda_ms(lambda: kmd.sort_dispatch(x, probs, k), iters=20)
+    # moe_ffn_sorted passes both products the dispatch's row counts
+    counts = kmd.block_rows(d["block_gid"], d["group_sizes"],
+                            d["padded_sizes"])
+    padding_blocks, n_blocks = int((counts == 0).sum()), counts.numel()
+    del d, counts
 
     def window(n):
         torch.cuda.synchronize()
@@ -2245,7 +2320,7 @@ def moe_phase(card):
     tflops = flops / step / 1e12
     res = dict(tokens=s, hidden=m, dff=dff, experts=cfg["experts"], topk=k,
                dtype="bfloat16", launches=launches, step_ms=step * 1e3,
-               dispatch_ms=dispatch_ms,
+               dispatch_ms=dispatch_ms, padding_blocks=padding_blocks,
                t8_s=times[8], t24_s=times[24], tflops=tflops,
                share_of_peak=tflops * 1e12 / BF16_FLOPS_PER_S,
                peak_gb=peak / 1e9, vs_plain_rel_l2=vs_plain,
@@ -2253,10 +2328,11 @@ def moe_phase(card):
                card=card)
     print("moe: moe_ffn_sorted step %.4f ms (chained 8: %.4f s, 24: %.4f s), "
           "%.2f TFLOP/s (%.3f of 989), peak %.2f GB; sort_dispatch alone "
-          "%.4f ms [%s]"
+          "%.4f ms; K8 with the dispatch's row counts (%d of %d row blocks "
+          "padding only) [%s]"
           % (res["step_ms"], times[8], times[24], tflops,
-             res["share_of_peak"], res["peak_gb"], dispatch_ms, card),
-          flush=True)
+             res["share_of_peak"], res["peak_gb"], dispatch_ms,
+             padding_blocks, n_blocks, card), flush=True)
     return res
 
 
@@ -2514,10 +2590,21 @@ def shift_check(name, ring, shape, dtype, card, timed, seed=0):
                 ms = graph_ms(kernel)
                 library_ms = graph_ms(library)
             how = "per call in a CUDA graph"
+            res["device_ms"] = res["device_library_ms"] = None
+            device = "; the kernel alone across cards: not measured (one " \
+                     "card)"
         else:
             ms = ring_ms(kernel, ring, iters=50)
             library_ms = ring_ms(library, ring, iters=50)
             how = "host clock per call, launch overhead included"
+            res["device_ms"], res["device_library_ms"] = shift_device_ms(
+                ring, [x[0] for x in srcs], [y[0] for y in dsts], nbytes)
+            device = "; the kernel alone, rank 0's card %d -> %d: %.4f ms, " \
+                     "copy_ %.4f ms (CUDA events on the sending card, " \
+                     "back to back)" % (ring.device(0).index,
+                                        ring.device(1).index,
+                                        res["device_ms"],
+                                        res["device_library_ms"])
         plain_ms = ring_ms(plain, ring, iters=20)
         how += ", %d buffer sets in rotation" % sets
         del srcs, dsts, held
@@ -2526,10 +2613,54 @@ def shift_check(name, ring, shape, dtype, card, timed, seed=0):
         res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, timed_by=how)
         line += " kernel=%.4f ms plain=%.4f ms library=%.4f ms bound=%.4f " \
-                "ms (%s; %s)" % (ms, plain_ms, library_ms, bound_ms,
-                                 bound_by, how)
+                "ms (%s; %s)%s" % (ms, plain_ms, library_ms, bound_ms,
+                                   bound_by, how, device)
     print(line + " [%s]" % card, flush=True)
     return res
+
+
+def shift_device_ms(ring, srcs, dsts, nbytes, iters=50):
+    """Device milliseconds of one shift from rank 0's card into rank 1's:
+    K10 launched alone (``ring_shift_launch``, no receive allocation, no
+    cross-card events) and ``copy_`` (``cudaMemcpyPeerAsync``), each
+    back to back on the sending card's current stream between CUDA
+    events, the sources and destinations (allocated beforehand) taken in
+    rotation so that each call finds its source cold in L2. The wrapper's
+    count does not move: these are yardstick launches."""
+    from paddle_tpu_torch.incubate.nn.cuda import ring as kring
+
+    lib = kring._bind()
+    src_dev, dst_dev = ring.device(0), ring.device(1)
+    calls = itertools.count()
+
+    def kernel(stream):
+        i = next(calls) % len(srcs)
+        check(lib.ring_shift_launch(srcs[i].data_ptr(), dsts[i].data_ptr(),
+                                    nbytes, stream.cuda_stream) == 0,
+              "K10: a launch failed")
+
+    def library(stream):
+        i = next(calls) % len(srcs)
+        dsts[i].copy_(srcs[i], non_blocking=True)
+
+    out = []
+    with torch.cuda.device(src_dev):
+        stream = torch.cuda.current_stream(src_dev)
+        for fn in (kernel, library):
+            for _ in range(3):
+                fn(stream)
+            torch.cuda.synchronize(src_dev)
+            torch.cuda.synchronize(dst_dev)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(stream)
+            for _ in range(iters):
+                fn(stream)
+            b.record(stream)
+            b.synchronize()
+            torch.cuda.synchronize(dst_dev)
+            out.append(a.elapsed_time(b) / iters)
+    return tuple(out)
 
 
 def ring_kernel_phase(card):
@@ -2970,8 +3101,9 @@ def main_path_phases(card, stamp):
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "at": "bench ffn1: fused_moe's first product at bench.py's MoE "
               "step, P 17408 (16384 real rows) x K 2048 -> N 5632, 8 "
-              "experts, bf16 (its second, K 2816 -> N 2048, under "
-              "cases)", "cases": k8})
+              "experts, bf16, with the dispatch's row counts as "
+              "moe_ffn_sorted passes them (its second, K 2816 -> N 2048, "
+              "and Mixtral-8x7B's under cases)", "cases": k8})
     lines = [json.dumps({"moe": moe}),
              json.dumps({"serving": {"gpt3_1p3B": gpt,
                                      "llama2_7B_int8": llama,
@@ -3006,6 +3138,9 @@ def ring_rows(ring, tp, pp):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "at": at,
             "peer_access": ring["peer_access"], "cases": cases})
+    # K10 alone across cards (None with one card): see shift_device_ms
+    rows[-1].update(device_ms=k10["device_ms"],
+                    device_library_ms=k10["device_library_ms"])
     return rows
 
 
@@ -3042,9 +3177,9 @@ def main(argv=None):
     print("build: %s in %.2f s" % (", ".join(sources), secs))
     for name in sources:
         for line in _build.ptxas_report(name).splitlines():
+            # (C7517) / (C7518): a wgmma kernel waits where it should not
             if "registers" in line or "spill" in line or \
-                    "Function properties" in line or \
-                    "Performance Loss" in line:
+                    "Function properties" in line or "(C75" in line:
                 print("ptxas %s: %s" % (name, line.strip()))
     sys.stdout.flush()
 

@@ -5,7 +5,10 @@ Port of ``paddle_tpu/incubate/nn/pallas/moe_dispatch.py``'s
 the hand-written Hopper kernel K8 (``csrc/moe_dispatch.cu``) on CUDA
 tensors and raises on anything else; :func:`grouped_matmul_ref` is the
 plain PyTorch version of the same function (the Pallas kernel's, block by
-block). :func:`sort_dispatch` is plain PyTorch on any device. The one
+block); both take an optional ``rows``, the real rows of each row
+block, which :func:`block_rows` computes from a dispatch, to zero and
+skip padding. :func:`sort_dispatch` and :func:`block_rows` are plain
+PyTorch on any device. The one
 dispatching, differentiable entry is :mod:`..functional.moe_dispatch`,
 which takes the plain version for CPU tensors.
 """
@@ -18,8 +21,8 @@ import torch
 
 from . import _build
 
-__all__ = ["BM", "sort_dispatch", "grouped_matmul", "grouped_matmul_ref",
-           "check_kernel_inputs"]
+__all__ = ["BM", "sort_dispatch", "block_rows", "grouped_matmul",
+           "grouped_matmul_ref", "check_kernel_inputs"]
 
 BM = 128       # row block: one expert per block after padding
 _KERNEL = "moe_dispatch"
@@ -79,18 +82,38 @@ def sort_dispatch(x, probs, k, normalize=True):
             "padded_sizes": padded}
 
 
-def grouped_matmul_ref(xp, w, block_gid):
+def block_rows(block_gid, group_sizes, padded_sizes):
+    """Real rows of each 128-row block of :func:`sort_dispatch`'s ``xp``,
+    int32 ``[P/128]`` in [0, 128], on the device of its outputs and
+    without a host synchronisation: an expert's real rows come first in
+    its padded span, so block i holds ``min(128, max(0, start + count -
+    128 i))`` of its expert's; a block past every span holds none."""
+    ends = torch.cumsum(padded_sizes, 0, dtype=torch.int32)
+    real_end = (ends - padded_sizes + group_sizes)[block_gid.long()]
+    starts = torch.arange(0, block_gid.numel() * BM, BM, dtype=torch.int32,
+                          device=block_gid.device)
+    return (real_end - starts).clamp_(0, BM).to(torch.int32)
+
+
+def grouped_matmul_ref(xp, w, block_gid, *, rows=None):
     """The Pallas kernel's function on any device: row block i of
     ``xp [P, K]`` (P a multiple of 128) times ``w[block_gid[i]]`` of
     ``w [E, K, N]``, summed in f32 and rounded to xp's type once. An
-    expert id outside [0, E) is clamped into it, as K8 does."""
+    expert id outside [0, E) is clamped into it, as K8 does. With
+    ``rows`` (int32 ``[P/128]``), rows of block i at or past ``rows[i]``
+    are zero, as K8 makes them."""
     gids = block_gid.clamp(0, w.shape[0] - 1).tolist()
     xf = xp.float()
-    return torch.cat([xf[i * BM:(i + 1) * BM] @ w[g].float()
-                      for i, g in enumerate(gids)]).to(xp.dtype)
+    out = torch.cat([xf[i * BM:(i + 1) * BM] @ w[g].float()
+                     for i, g in enumerate(gids)]).to(xp.dtype)
+    if rows is None:
+        return out
+    real = torch.arange(BM, device=rows.device) < rows[:, None]
+    return torch.where(real[..., None], out.view(-1, BM, out.shape[-1]),
+                       0).view_as(out)
 
 
-def check_kernel_inputs(xp, w, block_gid) -> None:
+def check_kernel_inputs(xp, w, block_gid, rows=None) -> None:
     """Raise ``ValueError`` on anything K8 does not take: it reads raw
     pointers 16 bytes at a time, so device, type, shape, layout and
     alignment are settled here."""
@@ -120,11 +143,17 @@ def check_kernel_inputs(xp, w, block_gid) -> None:
         raise ValueError("block_gid must be int32 [%d], got %s %s"
                          % (p // BM, block_gid.dtype,
                             tuple(block_gid.shape)))
-    for name, t in (("w", w), ("block_gid", block_gid)):
+    if rows is not None and (rows.dtype != torch.int32 or
+                             tuple(rows.shape) != (p // BM,)):
+        raise ValueError("rows must be int32 [%d], got %s %s"
+                         % (p // BM, rows.dtype, tuple(rows.shape)))
+    named = [("xp", xp), ("w", w), ("block_gid", block_gid)] + \
+        ([] if rows is None else [("rows", rows)])
+    for name, t in named[1:]:
         if t.device != xp.device:
             raise ValueError("%s is on %s, xp on %s"
                              % (name, t.device, xp.device))
-    for name, t in (("xp", xp), ("w", w), ("block_gid", block_gid)):
+    for name, t in named:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("%s must be contiguous and 16-byte aligned"
                              % name)
@@ -139,23 +168,28 @@ def _bind() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(_KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.gmm_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.gmm_launch.restype = i
+        lib.gmm_encode_us.argtypes = [p, p, p, i, i, i, i, i]
+        lib.gmm_encode_us.restype = ctypes.c_double
         lib.gmm_error_string.argtypes = [i]
         lib.gmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def grouped_matmul(xp, w, block_gid):
+def grouped_matmul(xp, w, block_gid, *, rows=None):
     """``out [P, N]``: row block i of the CUDA tensor ``xp [P, K]`` times
     ``w[block_gid[i]]`` of ``w [E, K, N]`` (bf16 or f32, one type,
     contiguous; ``block_gid`` int32 ``[P/128]`` in any order), on K8.
-    Raises ``ValueError`` on what the kernel does not take, and when grad
-    is enabled and an input requires grad (the kernel has no backward:
+    ``rows`` (optional int32 ``[P/128]``, e.g. :func:`block_rows`): rows
+    of block i at or past ``rows[i]`` are zero, and the kernel skips the
+    work of blocks and 64-row halves that hold none below it. Raises
+    ``ValueError`` on what the kernel does not take, and when grad is
+    enabled and an input requires grad (the kernel has no backward:
     :func:`..functional.moe_dispatch.grouped_matmul` carries the
     gradient). Each launch adds one to ``grouped_matmul.launches``."""
-    check_kernel_inputs(xp, w, block_gid)
+    check_kernel_inputs(xp, w, block_gid, rows)
     if torch.is_grad_enabled() and (xp.requires_grad or w.requires_grad):
         raise ValueError("grouped_matmul returns no gradient: call it "
                          "under no_grad or through the functional "
@@ -167,7 +201,9 @@ def grouped_matmul(xp, w, block_gid):
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream(xp.device).cuda_stream
         rc = lib.gmm_launch(xp.data_ptr(), w.data_ptr(),
-                            block_gid.data_ptr(), out.data_ptr(), p, k, n, e,
+                            block_gid.data_ptr(),
+                            None if rows is None else rows.data_ptr(),
+                            out.data_ptr(), p, k, n, e,
                             int(xp.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("grouped GEMM kernel launch failed: %s"

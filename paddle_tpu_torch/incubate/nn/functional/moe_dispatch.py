@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..cuda import moe_dispatch as _k
-from ..cuda.moe_dispatch import BM, sort_dispatch
+from ..cuda.moe_dispatch import BM, block_rows, sort_dispatch
 
 __all__ = ["grouped_matmul", "moe_ffn_sorted"]
 
@@ -26,34 +26,38 @@ class _GroupedMatmul(torch.autograd.Function):
     recomputed from xp and w."""
 
     @staticmethod
-    def forward(ctx, xp, w, block_gid):
-        ctx.save_for_backward(xp, w, block_gid)
-        return _k.grouped_matmul(xp, w, block_gid)
+    def forward(ctx, xp, w, block_gid, rows):
+        ctx.save_for_backward(xp, w, block_gid, rows)
+        return _k.grouped_matmul(xp, w, block_gid, rows=rows)
 
     @staticmethod
     def backward(ctx, g):
-        xp, w, block_gid = ctx.saved_tensors
+        xp, w, block_gid, rows = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need) for t, need in
                       zip((xp, w), ctx.needs_input_grad[:2])]
             wanted = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad(
-                _k.grouped_matmul_ref(*leaves, block_gid), wanted, g))
+                _k.grouped_matmul_ref(*leaves, block_gid, rows=rows),
+                wanted, g))
         return tuple(next(grads) if t.requires_grad else None
-                     for t in leaves) + (None,)
+                     for t in leaves) + (None, None)
 
 
-def grouped_matmul(xp, w, block_gid):
+def grouped_matmul(xp, w, block_gid, *, rows=None):
     """Row block i of ``xp [P, K]`` times ``w[block_gid[i]]`` (the JAX
-    package's ``grouped_matmul``), differentiable in xp and w."""
+    package's ``grouped_matmul``), differentiable in xp and w. With
+    ``rows`` (int32 ``[P/128]``, :func:`block_rows` of a dispatch), rows
+    of block i at or past ``rows[i]`` are zero and their work is
+    skipped; the JAX function has no such argument."""
     if xp.device.type == "cuda":
         if torch.is_grad_enabled() and (xp.requires_grad or w.requires_grad):
-            return _GroupedMatmul.apply(xp, w, block_gid)
-        return _k.grouped_matmul(xp, w, block_gid)
+            return _GroupedMatmul.apply(xp, w, block_gid, rows)
+        return _k.grouped_matmul(xp, w, block_gid, rows=rows)
     if xp.device.type != "cpu":
         raise ValueError("the grouped GEMM runs on cuda or cpu, not %s"
                          % xp.device)
-    return _k.grouped_matmul_ref(xp, w, block_gid)
+    return _k.grouped_matmul_ref(xp, w, block_gid, rows=rows)
 
 
 def _add_per_block(h, b, block_gid):
@@ -71,10 +75,14 @@ def moe_ffn_sorted(x, probs, w1, w2, k=2, *, activation="swiglu",
     biases [E, H] and [E, M] (or any shape with E rows). ``activation``
     is "swiglu", "gelu" (tanh approximation, ``jax.nn.gelu``'s default)
     or anything else for relu. Returns [S, M]: each token's top-k expert
-    outputs weighted by its (normalised) router probabilities."""
+    outputs weighted by its (normalised) router probabilities. Both
+    products take the dispatch's row counts (:func:`block_rows`), so
+    blocks of padding cost no weight reads; their rows never reach the
+    combine, which gathers only ``dest`` rows."""
     d = sort_dispatch(x, probs, k, normalize=normalize)
     gid = d["block_gid"]
-    h = grouped_matmul(d["xp"], w1, gid)
+    rows = block_rows(gid, d["group_sizes"], d["padded_sizes"])
+    h = grouped_matmul(d["xp"], w1, gid, rows=rows)
     if b1 is not None:
         h = _add_per_block(h, b1, gid)
     if activation == "swiglu":
@@ -84,7 +92,7 @@ def moe_ffn_sorted(x, probs, w1, w2, k=2, *, activation="swiglu",
         h = F.gelu(h, approximate="tanh")
     else:
         h = torch.clamp_min(h, 0)
-    y = grouped_matmul(h.to(x.dtype), w2, gid)
+    y = grouped_matmul(h.to(x.dtype), w2, gid, rows=rows)
     if b2 is not None:
         y = _add_per_block(y, b2, gid)
     s, m = x.shape

@@ -1012,7 +1012,10 @@ def test_decode_wrapper_raises_instead_of_falling_back():
 # at most 2^-7 of a row's largest value, which in a Gaussian row of a few
 # thousand values is up to ~5x the row's RMS: 0.04 of the RMS (read on an
 # H100 at 0.0002-0.0289, bench.py's ffn2 the largest). A column or K tile
-# left out reads 0.3 or more.
+# left out reads 0.3 or more. With row counts (``rows``) the same limits
+# hold against the plain version with the same counts; rows past a count
+# must be exactly zero, and a routed map's own counts must not change the
+# output at all.
 GMM_ROW_TOL = 4e-2
 GMM_F32_TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -1118,6 +1121,10 @@ def test_gmm_wrapper_raises_instead_of_falling_back():
     for name, args in bad.items():
         with pytest.raises(ValueError):
             tmd.grouped_matmul(*args)
+    counts = torch.full_like(gid, tmd.BM)
+    for rows in (counts.long(), counts[:-1], counts.cpu()):
+        with pytest.raises(ValueError, match="rows"):
+            tmd.grouped_matmul(xp, w, gid, rows=rows)
     assert tmd.grouped_matmul.launches == before
 
 
@@ -1168,6 +1175,150 @@ def test_moe_ffn_sorted_gradients_on_the_card():
     assert tmd.grouped_matmul.launches == before + 2
     for name, a, b in zip(("out", "x", "probs", "w1", "w2"), got, want):
         torch.testing.assert_close(a, b, msg=name, **GMM_F32_TOL)
+
+
+def _gmm_rows(name, xp, gid, seed=1):
+    """Row counts for a K8 case: a routed map's own (its rows that came
+    from a token; sort_dispatch puts them first in a block and zeroes
+    the rest); a listed map's drawn from {0, 1, 63, 64, 65, 127, 128}
+    and beyond (clamped), so that some blocks and 64-row halves hold no
+    real row."""
+    if not isinstance(GMM_CASES[name][2], list):
+        return (xp != 0).any(-1).view(-1, tmd.BM).sum(-1).to(torch.int32)
+    picks = torch.tensor([0, 1, 63, 64, 65, 127, 128, 200, -3],
+                         dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    i = torch.randint(0, picks.numel(), gid.shape, generator=g,
+                      device="cuda")
+    rows = picks[i]
+    rows[0] = 0                          # a block of padding only
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(GMM_CASES))
+def test_gmm_kernel_row_counts(name, dtype):
+    """K8 with ``rows``: rows past each block's count are zero, against
+    the plain version with the same counts; on a routed map with its
+    own counts (pad rows zero) equal to the call without counts."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    xp, w, gid = _gmm_case(name, dt)
+    rows = _gmm_rows(name, xp, gid)
+    before = tmd.grouped_matmul.launches
+    got = tmd.grouped_matmul(xp, w, gid, rows=rows)
+    torch.cuda.synchronize()
+    assert tmd.grouped_matmul.launches == before + 1
+    want = tmd.grouped_matmul_ref(xp, w, gid, rows=rows)
+    _check_gmm(got, want, dt, "K8 %s %s rows" % (name, dtype))
+    real = torch.arange(tmd.BM, device="cuda") < rows[:, None]
+    assert not bool(got.view(-1, tmd.BM, got.shape[-1])[~real].any())
+    if not isinstance(GMM_CASES[name][2], list):
+        assert torch.equal(got, tmd.grouped_matmul(xp, w, gid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [4096, 4100])
+def test_gmm_kernel_row_counts_many_blocks(n_blocks):
+    """bf16 with counts at the most row blocks whose walk the kernel
+    orders (4096) and past it (the blocks' own order): every third block
+    holds only padding."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xp = torch.randn(n_blocks * tmd.BM, 64, generator=g,
+                     device="cuda").bfloat16()
+    w = (torch.randn(4, 64, 72, generator=g, device="cuda") / 8).bfloat16()
+    gid = torch.randint(0, 4, (n_blocks,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    rows = torch.randint(1, tmd.BM + 1, (n_blocks,), generator=g,
+                         device="cuda", dtype=torch.int32)
+    rows[::3] = 0
+    got = tmd.grouped_matmul(xp, w, gid, rows=rows)
+    _assert_close(got, tmd.grouped_matmul_ref(xp, w, gid, rows=rows),
+                  GMM_ROW_TOL, "K8 %d blocks rows" % n_blocks)
+
+
+@pytest.mark.cuda
+def test_gmm_block_rows_match_the_dispatch():
+    """``block_rows`` of a real dispatch on the card counts each block's
+    rows that came from a token: the rows of xp that are not the zero
+    pad row (tokens drawn with no zero row)."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for s, e, k in ((8, 8, 2), (300, 8, 2), (2048, 8, 2)):
+        x = torch.randn(s, 64, generator=g, device="cuda") + 10.0
+        probs = torch.softmax(torch.randn(s, e, generator=g, device="cuda"),
+                              -1)
+        d = tmd.sort_dispatch(x, probs, k)
+        rows = tmd.block_rows(d["block_gid"], d["group_sizes"],
+                              d["padded_sizes"])
+        assert rows.dtype == torch.int32 and rows.device == x.device
+        real = (d["xp"] != 0).any(-1).view(-1, tmd.BM).sum(-1)
+        assert torch.equal(rows, real.to(torch.int32)), (s, rows, real)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gemm", ["ffn1", "ffn2"])
+def test_gmm_kernel_bench_shape_row_counts(gemm):
+    """bench.py's two products with the dispatch's row counts: equal to
+    the call without them (pad rows are zero), and within the row limit
+    of the plain version."""
+    _need_hopper()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    s, m, dff, e = 8192, 2048, 2816, 8
+    kdim, n = (m, 2 * dff) if gemm == "ffn1" else (dff, m)
+    x = torch.randn(s, kdim, generator=g, device="cuda").bfloat16()
+    probs = torch.softmax(torch.randn(s, e, generator=g, device="cuda"), -1)
+    d = tmd.sort_dispatch(x, probs, 2)
+    rows = tmd.block_rows(d["block_gid"], d["group_sizes"],
+                          d["padded_sizes"])
+    w = (0.02 * torch.randn(e, kdim, n, generator=g, device="cuda")) \
+        .bfloat16()
+    got = tmd.grouped_matmul(d["xp"], w, d["block_gid"], rows=rows)
+    assert torch.equal(got, tmd.grouped_matmul(d["xp"], w, d["block_gid"]))
+    _assert_close(got, tmd.grouped_matmul_ref(d["xp"], w, d["block_gid"],
+                                              rows=rows),
+                  GMM_ROW_TOL, "K8 bench %s rows" % gemm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["routed", "non_monotone", "k_tail"])
+def test_gmm_kernel_is_deterministic(name, dtype):
+    """No split K, no atomics: two launches give the same bits, with and
+    without counts."""
+    _need_hopper()
+    xp, w, gid = _gmm_case(name, getattr(torch, dtype))
+    rows = _gmm_rows(name, xp, gid)
+    for r in (None, rows):
+        a = tmd.grouped_matmul(xp, w, gid, rows=r)
+        b = tmd.grouped_matmul(xp, w, gid, rows=r)
+        bits = torch.int16 if dtype == "bfloat16" else torch.int32
+        assert torch.equal(a.view(bits), b.view(bits))
+
+
+@pytest.mark.cuda
+def test_gmm_function_with_row_counts_gradients():
+    """The functional layer's autograd Function with ``rows`` (forward
+    on K8, backward the plain version's vjp) against autograd through
+    the plain version with the same counts, f32."""
+    _need_hopper()
+    xp, w, gid = _gmm_case("non_monotone", torch.float32)
+    rows = _gmm_rows("non_monotone", xp, gid)
+    cot = torch.randn(xp.shape[0], w.shape[-1], device="cuda")
+    grads = []
+    for fn in (fmd.grouped_matmul, tmd.grouped_matmul_ref):
+        a = xp.detach().clone().requires_grad_()
+        b = w.detach().clone().requires_grad_()
+        before = tmd.grouped_matmul.launches
+        out = fn(a, b, gid, rows=rows)
+        assert tmd.grouped_matmul.launches == before + \
+            (fn is fmd.grouped_matmul)
+        (out * cot).sum().backward()
+        grads.append((out.detach(), a.grad, b.grad))
+    for what, g, r in zip(("out", "dxp", "dw"), *grads):
+        torch.testing.assert_close(g, r, msg=what, **GMM_F32_TOL)
 
 
 # ------------------------------------------------------------ K9, K10

@@ -15,6 +15,10 @@ Pallas-interpret and ``ragged_dot`` routes at rtol=atol=2e-5 (two f32
 products and the combine, summed in other orders), gradients against
 ``jax.grad`` of the ragged route at rtol=atol=1e-4 (the vjp of the same
 composition, its products summed in other orders over the whole batch).
+``moe_ffn_sorted`` passes both products the dispatch's row counts
+(``block_rows``, which the JAX function has no counterpart of): they are
+held against the rows the JAX ``sort_dispatch`` fills, and the plain
+version with them must equal it without them on a dispatch's ``xp``.
 The Hopper kernel itself is held against the plain version in
 tests/test_torch_kernels_cuda.py, on the card.
 """
@@ -144,6 +148,66 @@ def test_grouped_matmul_ref_clamps_expert_ids():
     np.testing.assert_allclose(got.numpy(), want, **REF)
 
 
+@pytest.mark.parametrize("name", ["k2", "k3_e8", "one_expert_k2",
+                                  "empty_experts"])
+def test_block_rows_count_the_jax_dispatch(name):
+    """``block_rows`` counts, for each 128-row block, the rows the JAX
+    ``sort_dispatch`` filled from a (token, k) pair (its ``dest``): all
+    pairs on one expert and experts with no pair included."""
+    x, probs, k, normalize = _dispatch_inputs(name)
+    want = jmoe.sort_dispatch(jnp.asarray(x), jnp.asarray(probs), k,
+                              normalize=normalize)
+    d = tk.sort_dispatch(torch.from_numpy(x), torch.from_numpy(probs), k,
+                         normalize=normalize)
+    rows = tk.block_rows(d["block_gid"], d["group_sizes"],
+                         d["padded_sizes"])
+    n_blocks = d["block_gid"].numel()
+    counted = np.bincount(np.asarray(want["dest"]) // tk.BM,
+                          minlength=n_blocks)
+    assert rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.numpy(), counted)
+    # and they are each block's first rows
+    filled = np.zeros(n_blocks * tk.BM, bool)
+    filled[np.asarray(want["dest"])] = True
+    first = np.arange(tk.BM)[None] < counted[:, None]
+    np.testing.assert_array_equal(filled.reshape(n_blocks, tk.BM), first)
+
+
+@pytest.mark.parametrize("name", ["k2", "one_expert_k2", "empty_experts"])
+def test_grouped_matmul_ref_row_counts_keep_dispatch_output(name):
+    """On ``sort_dispatch``'s xp (pad rows zero) the plain version with
+    the dispatch's row counts equals it without them, element for
+    element."""
+    x, probs, k, normalize = _dispatch_inputs(name)
+    d = tk.sort_dispatch(torch.from_numpy(x), torch.from_numpy(probs), k,
+                         normalize=normalize)
+    rows = tk.block_rows(d["block_gid"], d["group_sizes"],
+                         d["padded_sizes"])
+    w = torch.from_numpy(np.random.RandomState(2).randn(
+        probs.shape[1], x.shape[1], 24).astype(np.float32))
+    full = tk.grouped_matmul_ref(d["xp"], w, d["block_gid"])
+    got = tk.grouped_matmul_ref(d["xp"], w, d["block_gid"], rows=rows)
+    assert (rows < tk.BM).any()
+    torch.testing.assert_close(got, full, rtol=0, atol=0)
+
+
+def test_grouped_matmul_ref_row_counts_zero_the_rest():
+    """Rows of block i at or past ``rows[i]`` are zero (counts below 0
+    or past 128 clamp), the rest as without counts."""
+    rng = np.random.RandomState(3)
+    gid = np.array([1, 0, 2, 1, 0], np.int32)
+    counts = np.array([0, 64, 128, -3, 200], np.int32)
+    xp = rng.randn(len(gid) * tk.BM, 16).astype(np.float32)
+    w = rng.randn(3, 16, 8).astype(np.float32)
+    got = tk.grouped_matmul_ref(*map(torch.from_numpy, (xp, w, gid)),
+                                rows=torch.from_numpy(counts)).numpy()
+    want = np.concatenate([xp[i * tk.BM:(i + 1) * tk.BM] @ w[g]
+                           for i, g in enumerate(gid)])
+    keep = (np.arange(tk.BM)[None] < np.clip(counts, 0, tk.BM)[:, None])
+    want = want * keep.reshape(-1, 1)
+    np.testing.assert_allclose(got, want, **REF)
+
+
 def _ffn_inputs(s, m, e, dff, activation, routing, bias, seed):
     rng = np.random.RandomState(seed)
     h = 2 * dff if activation == "swiglu" else dff
@@ -190,6 +254,30 @@ def test_moe_ffn_sorted_matches_jax(name, impl):
     assert tk.grouped_matmul.launches == before    # the CPU takes no kernel
     assert got.shape == (s, m) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **FFN)
+
+
+def test_moe_ffn_sorted_passes_row_counts(monkeypatch):
+    """Both products of ``moe_ffn_sorted`` get the dispatch's row
+    counts (so K8 skips padding on the card), with biases too."""
+    x, probs, w1, w2, b1, b2 = _ffn_inputs(40, 16, 4, 24, "swiglu",
+                                           "empty_experts", True, seed=7)
+    seen = []
+    plain = tmoe.grouped_matmul
+
+    def spy(xp, w, block_gid, *, rows=None):
+        seen.append(rows)
+        return plain(xp, w, block_gid, rows=rows)
+
+    monkeypatch.setattr(tmoe, "grouped_matmul", spy)
+    tx, tp = torch.from_numpy(x), torch.from_numpy(probs)
+    tmoe.moe_ffn_sorted(tx, tp, *map(torch.from_numpy, (w1, w2)), k=2,
+                        b1=torch.from_numpy(b1), b2=torch.from_numpy(b2))
+    d = tk.sort_dispatch(tx, tp, 2)
+    want = tk.block_rows(d["block_gid"], d["group_sizes"],
+                         d["padded_sizes"])
+    assert len(seen) == 2
+    for rows in seen:
+        assert torch.equal(rows, want)
 
 
 def test_moe_ffn_sorted_gradients_match_jax():
