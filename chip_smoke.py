@@ -38,10 +38,14 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    a prefill chunk (128 rows of one sequence at positions 896-1023 over
    one block table, 20 rows of padding), plus contexts shorter than a
    page; at Llama-2 7B's (32 heads, d 128) and GPT-3 1.3B's (16 heads)
-   shapes, GQA groups 4 and 8, d 64 and page 128; time K6 and K6-q8
-   beside the plain version, ``scaled_dot_product_attention`` over K/V
-   gathered per row (timed only), K4 / K5 on the same work as one ragged
-   call, and the bound;
+   shapes, GQA groups 4 and 8, d 64 and page 128; and the mixes of the
+   kernel's page sharing: a prefill chunk whose rows' table slots past
+   their own pages hold garbage, 16 rows alternating between two tables,
+   padding rows inside the chunk's tiles, and decode rows of 2048-4096
+   keys over many key splits; bitwise equal across two launches; time K6
+   and K6-q8 beside the plain version, ``scaled_dot_product_attention``
+   over K/V gathered per row (timed only), K4 / K5 on the same work as
+   one ragged call, and the bound, with the call's key split and items;
 4c. K8: hold the MoE grouped GEMM against its plain version on inputs
    from a real ``sort_dispatch`` of seed-0 routing: ``bench.py``'s MoE
    step (8192 tokens x 2048, 8 experts, SwiGLU dff 2816, top-2, bf16: P
@@ -65,12 +69,14 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    200, K 200, a 3-D buffer, 100 rows, two ranks on one card), and the
    ring shift (bit-exact, by 1 and by size - 1) at the pipeline's
    boundary tensor [1, 1024, 2048] in f32 and bf16 over 2 and 4 ranks
-   and at odd sizes, against their plain versions; time each main shape
-   beside its plain version, a library yardstick (``torch.matmul`` with
-   the copy as ``copy_`` on a side stream; ``copy_``; timed only) and the
-   bound (operations, HBM bytes, NVLink bytes); on distinct cards also
-   K10's launch alone and ``copy_`` by CUDA events on the sending card
-   (with one card: "not measured");
+   and at odd sizes, against their plain versions; K9 bitwise equal
+   across two launches; time each main shape beside its plain version, a
+   library yardstick (``torch.matmul`` with the copy as ``copy_`` on a
+   side stream; ``copy_``; timed only) and the bound (operations, HBM
+   bytes, NVLink bytes), K9 with its tile, items and waves, with the
+   ranks on one card and, where there are cards with peer access, one a
+   card; on distinct cards also K10's launch alone and ``copy_`` by CUDA
+   events on the sending card (with one card: "not measured");
 5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (b 8,
    s 1024, 16 heads, d 128, bf16, causal) and at sq < sk, a ragged s,
@@ -111,8 +117,9 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    once a layer and K7 2L + 1 times, K4 and K5 never; the first prefill
    chunk and the first decode batch with two live rows are held against
    the same step through the plain versions of every kernel, as in 7;
-   the share of greedy tokens equal to the ragged layout's stream is
-   printed, not checked;
+   K6's launches are printed split into prefill chunks and decode
+   batches; the share of greedy tokens equal to the ragged layout's
+   stream is printed, not checked;
 8. profiles (torch.profiler) of training steps and of engine steps of
    both models in both layouts: device busy share and the kernels with
    the most device time; for training also the time of every kernel but
@@ -616,19 +623,22 @@ def decode_case(rng, gen, lens, n_heads, n_kv, d=128, page=16,
     token a row with ``lens`` keys each. Shuffled page ids; a row's
     unused block-table tail (all of an empty row's) holds out-of-range
     ids, which the kernel clamps. With ``shared`` every row reads one
-    block table: the rows of an off-layout prefill chunk."""
+    block table, the rows of an off-layout prefill chunk (True: garbage
+    only in an empty row's table; "tails": in every row's slots past its
+    own pages, each row its own), or ("two") rows alternate between two
+    tables."""
     n_rows = len(lens)
     P = -(-max(lens) // page) + 1
-    n_tables = 1 if shared else n_rows
+    n_tables = {False: n_rows, "two": 2}.get(shared, 1)
     total_pages = n_tables * P + 1
     q = torch.randn(n_rows, n_heads, d, generator=gen, device=dev)
     kp = torch.randn(n_kv, total_pages, page, d, generator=gen, device=dev)
     vp = torch.randn(n_kv, total_pages, page, d, generator=gen, device=dev)
     bt = (1 + rng.permutation(n_tables * P)).reshape(n_tables, P)
-    bt = np.repeat(bt, n_rows, 0) if shared else bt
+    bt = bt[np.arange(n_rows) % n_tables]
     for r, c in enumerate(lens):
-        if not shared or c == 0:
-            bt[r, -(-c // page):] = [-1, total_pages + 5][r % 2]
+        if shared is not True or c == 0:
+            bt[r, -(-c // page):] = [-1 - r, total_pages + 5 + r][r % 2]
     bt, cl = (torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
               for a in (bt, lens))
     return q.to(dtype), kp.to(dtype), vp.to(dtype), bt, cl
@@ -661,12 +671,14 @@ def decode_work(case):
 
 def decode_as_ragged(case):
     """The same work as one K4 / K5 call: each live decode row a ragged
-    row of one token; a shared-table prefill chunk one ragged row whose
-    tokens are the chunk's live rows (each one key longer than the one
-    before, as a chunk's rows are)."""
+    row of one token; a prefill chunk (live rows on one table, each one
+    key longer than the one before) one ragged row whose tokens are the
+    chunk's live rows."""
     q, kp, vp, bt, cl = case
     live = (cl > 0).nonzero().reshape(-1)
-    if len(live) > 1 and bool((bt[live] == bt[live[:1]]).all()):
+    steps = cl[live] - cl[live[:1]] - torch.arange(len(live), device=q.device)
+    if len(live) > 1 and bool((bt[live] == bt[live[:1]]).all()) and \
+            bool((steps == 0).all()):
         n = len(live)
         meta = (bt[live[:1]], cl[live[-1:]], torch.tensor(
             [n], dtype=torch.int32, device=q.device))
@@ -702,12 +714,17 @@ def decode_kernel_phase(card):
     (128 rows of one sequence at positions 896-1023 over one block table,
     the last 20 rows padding of length 0), plus contexts shorter than a
     page; at Llama-2 7B's shapes (32 / 32 heads, d 128), GPT-3 1.3B's
-    (16 / 16), GQA groups 4 and 8, d 64 and page 128. Times K6 and K6-q8
+    (16 / 16), GQA groups 4 and 8, d 64 and page 128; and the page-sharing
+    mixes (a prefill chunk with garbage past each row's pages, two tables
+    in one 16-row tile, padding rows inside the tiles, decode rows of
+    2048-4096 keys). Each call twice, bitwise equal. Times K6 and K6-q8
     beside the plain version, a library call (SDPA over K/V gathered per
     row, timed only), K4 / K5 on the same work as one ragged call, and
-    the bound. The kernels and the library call are timed per call in a
-    CUDA graph (``graph_ms``: a call's host time exceeds a decode batch's
-    device time), the plain version back to back from the host."""
+    the bound, and prints the call's key split and items (row-wise: a
+    shared tile counts each row). The kernels and the library call are
+    timed per call in a CUDA graph (``graph_ms``: a call's host time
+    exceeds a decode batch's device time), the plain version back to back
+    from the host."""
     from paddle_tpu_torch.incubate.nn.cuda import paged_attention as pa
 
     rng = np.random.RandomState(4)
@@ -716,6 +733,7 @@ def decode_kernel_phase(card):
     decode_lens[[2, 5]] = 0
     decode_lens = decode_lens.tolist()
     prefill_lens = list(range(897, 1005)) + [0] * 20
+    long_lens = rng.randint(2048, 4097, 8).tolist()
     mixes = {
         # name: (lens, n_heads, n_kv, head_dim, page, shared)
         "decode": (decode_lens, 32, 32, 128, 16, False),
@@ -727,6 +745,13 @@ def decode_kernel_phase(card):
         "gqa8": (decode_lens, 32, 4, 128, 16, False),
         "d64": (decode_lens, 32, 32, 64, 16, False),
         "page128": (decode_lens, 32, 32, 128, 128, False),
+        # page sharing: rows that see the same pages share one read
+        "prefill_tails": (prefill_lens, 32, 32, 128, 16, "tails"),
+        "two_tables": (list(range(897, 913)), 32, 32, 128, 16, "two"),
+        "empty_in_tile": ([c if i % 5 else 0 for i, c in
+                           enumerate(range(897, 1025))], 32, 32, 128, 16,
+                          True),
+        "long": (long_lens, 32, 32, 128, 16, False),
     }
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
@@ -753,6 +778,8 @@ def decode_kernel_phase(card):
                   % (route, name))
             check(bool((got[~live] == 0).all()),
                   "%s %s: empty rows are not exactly zero" % (route, name))
+            check(torch.equal(got, pa.paged_attention(*case)),
+                  "%s %s: two launches differ" % (route, name))
             err, rel = row_err(got[live], want[live])
             if route == "K6":
                 torch.testing.assert_close(got.float(), want.float(),
@@ -785,26 +812,35 @@ def decode_kernel_phase(card):
             del qs, kg, vg, mask
             nbytes, flops, rowwise = decode_work(case)
             bound_ms, bound_by = bound_of(nbytes, flops)
+            window = case[3].shape[1] * page
+            split = pa.decode_split(len(lens), nh, nkv, window)
+            items = dict(split=split, splits=-(-window // split),
+                         items=len(lens) * nkv * -(-window // split),
+                         live_items=nkv * sum(-(-min(c, window) // split)
+                                              for c in lens))
             res[route] = dict(
                 max_abs_err=err, row_err=rel, ms=ms, call_ms=call_ms,
                 plain_ms=plain_ms,
                 library_ms=library_ms, ragged_ms=ragged_ms,
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                rowwise_bytes=rowwise, flops=flops)
-            print("%-5s %-11s rows=%d heads=%d/%d d=%d page=%d: max_abs_err="
-                  "%.3g (%.3e of its row's RMS) kernel=%.4f ms (a call back "
-                  "to back %.4f ms) plain=%.4f ms sdpa=%.4f ms %s on the "
-                  "same work=%.4f ms bound=%.4f ms (%s, %.1f MB distinct, "
-                  "%.1f MB row by row, %.3f GFLOP) [%s]"
+                rowwise_bytes=rowwise, flops=flops, **items)
+            print("%-5s %-13s rows=%d heads=%d/%d d=%d page=%d: max_abs_err="
+                  "%.3g (%.3e of its row's RMS), bitwise equal across "
+                  "launches; kernel=%.4f ms (a call back to back %.4f ms) "
+                  "plain=%.4f ms sdpa=%.4f ms %s on the same work=%.4f ms "
+                  "bound=%.4f ms (%s, %.1f MB distinct, %.1f MB row by row, "
+                  "%.3f GFLOP); %d-key splits x %d, %d items, %d live row "
+                  "by row [%s]"
                   % (route, name, len(lens), nh, nkv, d, page, err, rel, ms,
                      call_ms, plain_ms, library_ms,
                      "K4" if route == "K6" else "K5", ragged_ms, bound_ms,
                      bound_by, nbytes / 1e6, rowwise / 1e6, flops / 1e9,
-                     card), flush=True)
+                     split, items["splits"], items["items"],
+                     items["live_items"], card), flush=True)
             del got, want, same, ragged
         err32 = (got32.float() - pa.paged_attention_ref(*f32)).abs().max()
         res["K6 f32"] = dict(max_abs_err=err32.item())
-        print("K6    %-11s f32 pools: max_abs_err=%.3g (limit rtol = atol = "
+        print("K6    %-13s f32 pools: max_abs_err=%.3g (limit rtol = atol = "
               "2e-4) [%s]" % (name, err32.item(), card), flush=True)
         results[name] = res
         del fp, f32, q8, got32
@@ -1560,12 +1596,16 @@ def serve_main_path(eng, prompts, new_tokens):
     its first decode batch with at least two live rows, each with copies
     of the pool pages it reads. A record holds the step as a function of
     ``(kp, vp, bt, attn)``, its inputs, logits and final hidden states
-    (the residual stream before the last norm), per token."""
+    (the residual stream before the last norm), per token. Counts K6's
+    launches by the kind of pass that made them (``by_kind``: prefill
+    chunk or decode batch), from its counters around each pass."""
+    from paddle_tpu_torch.incubate.nn.cuda import paged_attention as pa
     from paddle_tpu_torch.models import generation
 
     ad = eng._ad
     first = {}
     grab = {}
+    by_kind = {}
     real_ragged, real_paged, real_logits = (ad.ragged_chunk, ad.paged_chunk,
                                             ad.logits)
 
@@ -1600,7 +1640,12 @@ def serve_main_path(eng, prompts, new_tokens):
         if kind not in first and (kind == "prefill"
                                   or int((pos >= 0).sum()) >= 2):
             grab["on"] = True
+        before = (pa.paged_attention.launches,
+                  pa.paged_attention.launches_q8)
         out = real_paged(w, toks, pos, kp, vp, bt, attn=attn)
+        tally = by_kind[kind]
+        tally["K6"] += pa.paged_attention.launches - before[0]
+        tally["K6-q8"] += pa.paged_attention.launches_q8 - before[1]
         if grab:
             toks, pos, bt = toks.clone(), pos.clone(), bt.clone()
             kpc, vpc, btc = snapshot_step(kp, vp, bt, pos,
@@ -1624,6 +1669,8 @@ def serve_main_path(eng, prompts, new_tokens):
     # ---- the main path: counts set to 0 just before, read just after
     for fn, attr in kernels.values():
         setattr(fn, attr, 0)
+    by_kind.update((kind, {"K6": 0, "K6-q8": 0})
+                   for kind in ("prefill", "decode"))
     steps0 = (eng.ragged_steps, eng.prefill_steps, eng.decode_steps)
     t_start = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
@@ -1645,7 +1692,7 @@ def serve_main_path(eng, prompts, new_tokens):
     # model passes: ragged steps, or prefill chunks + decode batches
     return dict(reqs=reqs, outs=outs, step_s=step_s, wall=wall,
                 launches=launches, steps=sum(programs), programs=programs,
-                peak=peak, first=first)
+                by_kind=by_kind, peak=peak, first=first)
 
 
 def check_served(run, prompts, new_tokens, vocab, want_launches, what,
@@ -2013,6 +2060,28 @@ def off_engine_phase(card, model, what, ragged_outs, per_pass, logits_tol,
     check(run["programs"][0] == 0 and min(run["programs"][1:]) > 0,
           "%s: programs run %s (ragged, prefill, decode)"
           % (what, run["programs"]))
+    # K6's launches by the pass that made them, as counted around each
+    # pass: a prefill chunk of rows that share a table or a decode batch
+    # of rows with a table each
+    route = "K6" if per_pass["K6"] else "K6-q8"
+    split = {"prefill_steps": run["by_kind"]["prefill"][route],
+             "decode_steps": run["by_kind"]["decode"][route]}
+    other = "K6-q8" if route == "K6" else "K6"
+    check(sum(split.values()) == run["launches"][route]
+          and run["by_kind"]["prefill"][other] == 0
+          and run["by_kind"]["decode"][other] == 0,
+          "%s: K6 launches by pass %s do not add up to the counts %s"
+          % (what, run["by_kind"], run["launches"]))
+    for key, n in zip(split, run["programs"][1:]):
+        check(split[key] == per_pass[route] * n,
+              "%s: %s launched %d times in %d %s, not %d a pass"
+              % (what, route, split[key], n, key, per_pass[route]))
+    res["launches_by_program"] = {route: split}
+    print("engine %s: %s launched %d times in %d prefill chunks "
+          "(prefill_steps) and %d times in %d decode batches "
+          "(decode_steps), as counted around each pass [%s]"
+          % (what, route, split["prefill_steps"], run["programs"][1],
+             split["decode_steps"], run["programs"][2], card), flush=True)
     eng.shutdown()                     # raises on a leaked block
     for kind in ("prefill", "decode"):
         check(kind in run["first"], "%s: no %s step to check" % (what, kind))
@@ -2472,17 +2541,24 @@ def mm_step_library(bufs, ws, ring):
 def mm_step_check(name, ring, bufs, ws, card, timed):
     """One K9 step of every rank against its plain version: next buffers
     bit-exact, partials within RING_F32_TOL (f32) or RING_ROW_TOL of a
-    row's RMS (bf16); with ``timed``, K9's time per step of all ranks
-    beside the plain version's, the library's and the bound."""
+    row's RMS (bf16), and bitwise equal to a second step's; with
+    ``timed``, K9's time per step of all ranks beside the plain
+    version's, the library's and the bound, with the kernel's tile, items
+    and waves."""
     from paddle_tpu_torch.incubate.nn.cuda import ring as kring
 
     before = kring.mm_step.launches
     parts, nexts = kring.mm_step(bufs, ws, ring)
+    again = kring.mm_step(bufs, ws, ring)[0]
     want_p, want_n = kring.mm_step_ref(bufs, ws, ring)
     for c in ring_cards(ring):
         torch.cuda.synchronize(c)
     grew = kring.mm_step.launches - before
-    check(grew == ring.size, "K9 %s: launches grew by %d" % (name, grew))
+    check(grew == 2 * ring.size, "K9 %s: launches grew by %d"
+          % (name, grew))
+    check(all(torch.equal(a, b) for a, b in zip(parts, again)),
+          "K9 %s: two launches differ" % name)
+    del again
     for r in range(ring.size):
         check(nexts[r].device == ring.device(r) and
               torch.equal(nexts[r], want_n[r]),
@@ -2503,29 +2579,45 @@ def mm_step_check(name, ring, bufs, ws, card, timed):
               "row's RMS > %g" % (name, err, rel, RING_ROW_TOL))
     k, n = ws[0].shape
     t = bufs[0].numel() // k
+    plan = kring.mm_step_plan(t, k, n, bufs[0].dtype, ring.device(0))
     res = dict(max_abs_err=err, row_err=rel, size=ring.size, rows=t, K=k, N=n,
-               dtype=str(bufs[0].dtype)[6:], where=ring_where(ring))
+               dtype=str(bufs[0].dtype)[6:], where=ring_where(ring), **plan)
     del parts, nexts, want_p, want_n
-    line = "K9 %-22s %s rows=%d K=%d N=%d %s: next bit-exact, max_abs_err=%.3g " \
-           "(%.3e of its row's RMS)" % (name, ring_where(ring), t, k, n,
-                                        res["dtype"], err, rel)
+    line = "K9 %-31s %s rows=%d K=%d N=%d %s: next bit-exact, max_abs_err=" \
+           "%.3g (%.3e of its row's RMS), bitwise equal across launches; " \
+           "tile %dx%d, %d items, %d at once (%.2f waves)" % (
+               name, ring_where(ring), t, k, n, res["dtype"], err, rel,
+               plan["tile"][0], plan["tile"][1], plan["items"],
+               plan["at_once"], plan["waves"])
     if timed:
         el = bufs[0].element_size()
-        ms = ring_ms(lambda: kring.mm_step(bufs, ws, ring), ring, iters=10)
+        step = lambda: kring.mm_step(bufs, ws, ring)     # noqa: E731
+        library = mm_step_library(bufs, ws, ring)
+        if len(ring_cards(ring)) == 1:
+            # a step of every rank in a CUDA graph: at mp 4 the wrapper's
+            # host time (four launches and allocations) exceeds the
+            # device's
+            with torch.cuda.device(ring_cards(ring)[0]):
+                ms, library_ms = graph_ms(step), graph_ms(library)
+            res["timed_by"] = "per step of all ranks in a CUDA graph"
+        else:
+            ms = ring_ms(step, ring, iters=10)
+            library_ms = ring_ms(library, ring, iters=10)
+            res["timed_by"] = "host clock per step, launches included"
+        res["call_ms"] = ring_ms(step, ring, iters=10)
         plain_ms = ring_ms(lambda: kring.mm_step_ref(bufs, ws, ring), ring,
                            iters=3, warmup=1)
-        library_ms = ring_ms(mm_step_library(bufs, ws, ring), ring,
-                             iters=10)
         bound_ms, bound_by = ring_bound(
             ring, 2 * t * k * n, (t * k + k * n) * el, t * n * el,
             t * k * el, BF16_FLOPS_PER_S if el == 2 else F32_FLOPS_PER_S)
         res.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
                    tflops=2 * t * k * n * ring.size / ms / 1e9)
-        line += " kernel=%.4f ms (%.1f TFLOP/s over the ring) plain=%.4f " \
-                "ms library=%.4f ms bound=%.4f ms (%s)" % (
-                    ms, res["tflops"], plain_ms, library_ms, bound_ms,
-                    bound_by)
+        line += " kernel=%.4f ms (%.1f TFLOP/s over the ring; %s; back " \
+                "to back %.4f ms) plain=%.4f ms library=%.4f ms bound=%.4f " \
+                "ms (%s)" % (ms, res["tflops"], res["timed_by"],
+                             res["call_ms"], plain_ms, library_ms, bound_ms,
+                             bound_by)
     print(line + " [%s]" % card, flush=True)
     return res
 
@@ -2682,14 +2774,19 @@ def ring_kernel_phase(card):
     out = {"K9": {}, "K10": {}, "peer_access": peers}
     T, K, N = TP_BENCH["T"], TP_BENCH["K"], TP_BENCH["N"]
     for mp in (2, 4):
-        ring = Ring(ring_devices(mp))
-        print("ring: mp %d placement %s" % (mp, [str(d) for d in
-                                                 ring.devices]), flush=True)
-        for dtype in (torch.float32, torch.bfloat16):
-            bufs, ws = mm_step_case(ring, T // mp, K, N // mp, dtype, mp)
-            tag = "bench mp%d %s" % (mp, str(dtype)[6:])
-            out["K9"][tag] = mm_step_check(tag, ring, bufs, ws, card, True)
-            del bufs, ws
+        rings = {"": Ring(ring_devices(mp))}
+        if len(ring_cards(rings[""])) > 1:      # the ranks on one card too
+            rings[" one card"] = Ring(["cuda:0"] * mp)
+        for where, ring in rings.items():
+            print("ring: mp %d placement %s" % (
+                mp, [str(d) for d in ring.devices]), flush=True)
+            for dtype in (torch.float32, torch.bfloat16):
+                bufs, ws = mm_step_case(ring, T // mp, K, N // mp, dtype, mp)
+                tag = "bench mp%d %s%s" % (mp, str(dtype)[6:], where)
+                out["K9"][tag] = mm_step_check(tag, ring, bufs, ws, card,
+                                               True)
+                del bufs, ws
+                torch.cuda.empty_cache()
     shared = Ring(["cuda:0"] * 2)
     ring2 = Ring(ring_devices(2))
     edges = {
@@ -3070,15 +3167,16 @@ def main_path_phases(card, stamp):
             "at": "training shapes: b 8, s 1024, 16 heads, d 128, bf16, "
                   "causal",
             **({"split_route": r["split_route"]} if kname == "K3" else {})})
-    for name, route, mix, line, status, launches, shape in (
-            ("paged_attention", "K6", "gpt_decode", 53, "ported",
-             off_gpt["launches"]["K6"], "bf16 pools, 16 heads, d 128 "
-             "(GPT-3 1.3B serving, ragged=off)"),
-            ("paged_attention_q8", "K6-q8", "decode", 97,
+    for name, route, mix, prefill, line, status, off, shape in (
+            ("paged_attention", "K6", "gpt_decode", "gpt_prefill", 53,
+             "ported", off_gpt, "bf16 pools, 16 heads, d 128 (GPT-3 1.3B "
+             "serving, ragged=off)"),
+            ("paged_attention_q8", "K6-q8", "decode", "prefill", 97,
              "port route, no TPU kernel (the int8 branch of "
-             "_xla_paged_attention)", off_llama["launches"]["K6-q8"],
+             "_xla_paged_attention)", off_llama,
              "bf16 q, int8 pools, 32 heads, d 128 (Llama-2 7B serving, "
              "ragged=off)")):
+        launches = off["launches"][route]
         r = k6[mix][route]
         kernels.append({
             "name": name, "route": "cuda", "source": DECODE_SRC,
@@ -3090,6 +3188,9 @@ def main_path_phases(card, stamp):
             "library_ms": r["library_ms"],
             "at": "%s: a decode batch of 8 rows (contexts 64-1056, two "
                   "empty), page 16, %s" % (mix, shape),
+            "prefill_chunk": {key: k6[prefill][route][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+            "launches_by_program": off["launches_by_program"][route],
             "mixes": {k: v[route] for k, v in k6.items()}})
     r = k8["bench ffn1"]
     kernels.append({
@@ -3118,6 +3219,7 @@ def ring_rows(ring, tp, pp):
     K10), launches from the TP path's (mp 2) and the pipeline's (S 2)
     runs."""
     k9 = ring["K9"]["bench mp2 float32"]
+    k9_bf16 = ring["K9"]["bench mp2 bfloat16"]
     k10 = ring["K10"]["pp2 float32"]
     rows = []
     for name, src, r, launches, at, cases in (
@@ -3138,6 +3240,11 @@ def ring_rows(ring, tp, pp):
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "at": at,
             "peer_access": ring["peer_access"], "cases": cases})
+    # K9 in bf16 at the same shape, beside the f32 figures of the main
+    # path (bench.py's TP leg runs f32)
+    rows[0]["bf16"] = {key: k9_bf16[key] for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+        "tile", "items", "waves")}
     # K10 alone across cards (None with one card): see shift_device_ms
     rows[-1].update(device_ms=k10["device_ms"],
                     device_library_ms=k10["device_library_ms"])

@@ -25,9 +25,10 @@ over an int8 pool, each with its own launch count.
 :func:`paged_attention` (one query token a row: ``q [n_rows, num_heads,
 head_dim]``, ``context_lens [n_rows]`` keys a row) launches
 ``csrc/paged_attention.cu``, the counterpart of ``_decode_kernel`` (K6),
-over an fp or an int8 pool, again with a count each. Every wrapper takes
-CUDA tensors only and raises on anything else; the plain PyTorch
-versions, :func:`ragged_paged_attention_ref` and
+over an fp or an int8 pool, again with a count each; rows of a prefill
+chunk that name the same pages share one read of them there. Every
+wrapper takes CUDA tensors only and raises on anything else; the plain
+PyTorch versions, :func:`ragged_paged_attention_ref` and
 :func:`paged_attention_ref`, serve the CPU (the serving step's
 ``_ragged_attn`` and ``_paged_attn_chunk`` choose between them).
 """
@@ -42,6 +43,7 @@ from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_ref",
            "merge_partials_ref", "paged_attention", "paged_attention_ref",
+           "decode_split",
            "paged_kv_write_chunk", "kv_write_slots", "kv_scatter",
            "quantize_kv_pages", "pool_shape"]
 
@@ -158,10 +160,11 @@ def ragged_paged_attention_ref(q, k_pages, v_pages, block_tables,
 
 def merge_partials_ref(m, l, acc):
     """The split merge of K4 / K5 (``ragged_paged_attention_merge_kernel``)
-    in plain PyTorch. A query's keys fall into disjoint splits; split j
-    leaves ``m [..., S]``, its largest score (-inf where it saw no key),
-    ``l [..., S]``, its sum of exp(s - m), and ``acc [..., S, d]``, its sum
-    of exp(s - m) * v. Returns ``sum_j e^(m_j - M) acc_j / sum_j e^(m_j -
+    and of K6 (``paged_decode_merge_kernel``) in plain PyTorch. A query's
+    keys fall into disjoint splits; split j leaves ``m [..., S]``, its
+    largest score (-inf where it saw no key), ``l [..., S]``, its sum of
+    exp(s - m), and ``acc [..., S, d]``, its sum of exp(s - m) * v.
+    Returns ``sum_j e^(m_j - M) acc_j / sum_j e^(m_j -
     M) l_j`` over the splits that saw a key (M their largest m), and 0 for
     a query whose splits saw none: ``_ragged_accumulate``'s guarded -inf
     arithmetic. The kernel keeps m in log2 units (2^ for e^) and sums in
@@ -397,11 +400,15 @@ def _bind_decode() -> ctypes.CDLL:
     if _decode_lib is None:
         lib = _build.load(_DECODE_KERNEL)
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pa_launch.argtypes = [p] * 6 + [i] * 7 + [ctypes.c_float, i, p]
+        lib.pa_launch.argtypes = [p] * 7 + [i] * 7 + [ctypes.c_float, i, p]
         lib.pa_launch.restype = i
-        lib.pa_q8_launch.argtypes = [p] * 8 + [i] * 7 + [ctypes.c_float, i,
+        lib.pa_q8_launch.argtypes = [p] * 9 + [i] * 7 + [ctypes.c_float, i,
                                                          p]
         lib.pa_q8_launch.restype = i
+        lib.pa_split.argtypes = [i] * 4
+        lib.pa_split.restype = i
+        lib.pa_workspace_floats.argtypes = [i] * 5
+        lib.pa_workspace_floats.restype = ctypes.c_longlong
         lib.pa_error_string.argtypes = [i]
         lib.pa_error_string.restype = ctypes.c_char_p
         _decode_lib = lib
@@ -429,12 +436,18 @@ def _launch_decode(q, k_pages, v_pages, block_tables, context_lens, scale):
     else:
         fn = lib.pa_launch
         pools = (k_pages, v_pages)
+    pages_per_seq = block_tables.shape[1]
     with torch.cuda.device(q.device):
+        # the split partials (m, l, acc) of long rows, sized from shapes
+        # alone
+        ws = torch.empty(lib.pa_workspace_floats(
+            n_rows, n_heads, n_kv, d, pages_per_seq * page),
+            dtype=torch.float32, device=q.device)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), *(t.data_ptr() for t in pools),
                 block_tables.data_ptr(), context_lens.data_ptr(),
-                out.data_ptr(), n_rows, n_heads, n_kv, d, total_pages, page,
-                block_tables.shape[1], float(scale),
+                out.data_ptr(), ws.data_ptr(), n_rows, n_heads, n_kv, d,
+                total_pages, page, pages_per_seq, float(scale),
                 int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError("paged_attention launch failed: %s"
@@ -462,7 +475,14 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
     s`` (head_dim a multiple of 16) and adds one to
     ``paged_attention.launches_q8``. Anything the kernel does not take,
     CPU tensors included, raises ``ValueError``; the plain version,
-    :func:`paged_attention_ref`, serves the CPU."""
+    :func:`paged_attention_ref`, serves the CPU. A call is sized from
+    shapes alone and never waits on the device, so it can be captured in
+    a CUDA graph and replayed with new lengths; rows past one key split
+    leave partials in an f32 workspace that a second kernel merges in a
+    fixed order (:func:`merge_partials_ref` is its plain version): two
+    calls on the same inputs give the same bits. Rows of one 16-query
+    tile that read the same pages (a prefill chunk's) share one read of
+    them (:func:`decode_split` says how a call is cut)."""
     out, launched = _launch_decode(q, k_pages, v_pages, block_tables,
                                    context_lens, scale)
     if isinstance(k_pages, dict):
@@ -474,6 +494,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 
 paged_attention.launches = 0               # K6
 paged_attention.launches_q8 = 0            # K6 over int8 pools
+
+
+def decode_split(n_rows: int, n_heads: int, n_kv: int, window: int,
+                 device=None) -> int:
+    """Keys of one work item (a split) of a K6 call with ``n_rows`` rows,
+    ``n_heads`` query and ``n_kv`` kv heads and a block-table window of
+    ``window`` keys on the card (``device``, default the current one):
+    chosen from the shapes so that the units that walk keys on their own
+    (a row, or a 16-query tile of a prefill chunk's rows, a kv head) fill
+    the SMs about four times over. Launches nothing."""
+    with torch.cuda.device(device):
+        return _bind_decode().pa_split(n_rows, n_heads, n_kv, window)
 
 
 def kv_write_slots(block_tables: torch.Tensor, pos: torch.Tensor,

@@ -27,8 +27,8 @@ import torch
 
 from . import _build
 
-__all__ = ["mm_step", "mm_step_ref", "shift", "enable_peer",
-           "check_kernel_inputs"]
+__all__ = ["mm_step", "mm_step_ref", "mm_step_plan", "shift",
+           "enable_peer", "check_kernel_inputs"]
 
 _KERNEL = "ring"
 _MAX_INT = 2 ** 31 - 1
@@ -102,6 +102,8 @@ def _bind() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ring_mm_step_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.ring_mm_step_launch.restype = i
+        lib.ring_mm_step_plan.argtypes = [i, i, i, i, p]
+        lib.ring_mm_step_plan.restype = i
         lib.ring_shift_launch.argtypes = [p, p, ctypes.c_longlong, p]
         lib.ring_shift_launch.restype = i
         lib.ring_enable_peer.argtypes = [i, i]
@@ -175,6 +177,22 @@ def mm_step(bufs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
 
 
 mm_step.launches = 0
+
+
+def mm_step_plan(rows: int, k: int, n: int, dtype: torch.dtype,
+                 device=None) -> dict:
+    """How K9 lays out one rank's ``[rows, k] @ [k, n]`` step on the
+    card (``device``, default the current one): ``tile`` (rows, columns
+    of an output tile), ``items`` (output tiles), ``at_once`` (items that
+    run together: the bf16 kernel's persistent grid, two f32 blocks an
+    SM) and ``waves`` (items / at_once). Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = _bind().ring_mm_step_plan(rows, k, n,
+                                       int(dtype == torch.bfloat16), out)
+    _raise_on(rc, "K9's plan")
+    return dict(tile=(out[0], out[1]), items=out[2], at_once=out[3],
+                waves=out[2] / out[3])
 
 
 def mm_step_ref(bufs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],

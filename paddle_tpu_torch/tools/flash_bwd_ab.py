@@ -22,9 +22,7 @@ Variants (all by default):
   k2_stages3  K2 with a 3-stage ring of Q / dO tiles (K3 has 3)
   k3_stages2  K3 with a 2-stage ring (K2 has 2)
 """
-import ctypes
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -37,6 +35,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch.incubate.nn.cuda import _build  # noqa: E402
 from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa  # noqa: E402
+from paddle_tpu_torch.tools import _ab  # noqa: E402
 
 SRC = ROOT / "paddle_tpu_torch/incubate/nn/csrc/flash_attn.cu"
 OUT = ROOT / "_archive/flash_bwd_ab"
@@ -57,45 +56,25 @@ VARIANTS = {
 }
 
 
-def build(names):
-    """One library per variant; returns {name: bound ctypes library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, procs = SRC.read_text(), {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError("%s: %r is not in the source" % (name, old))
-            text = text.replace(old, new)
-        cu = OUT / (name + ".cu")
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(OUT / ("lib%s.so" % name)), str(cu)],
-            stdout=open(OUT / (name + ".log"), "w"), stderr=subprocess.STDOUT)
-    libs = {}
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError("nvcc failed on %s:\n%s" % (
-                name, (OUT / (name + ".log")).read_text()[-3000:]))
-        lib = ctypes.CDLL(str(OUT / ("lib%s.so" % name)))
+def bind(libs):
+    """{name: the flash-attention wrapper's library bound to each
+    variant's}."""
+    bound = {}
+    for name, lib in libs.items():
         load, fa._lib = _build.load, None
         _build.load = lambda _name, lib=lib: lib     # bind this library
         try:
-            libs[name] = fa._bind()
+            bound[name] = fa._bind()
         finally:
             _build.load = load
-    return libs
+    return bound
 
 
 def main(argv):
     names = [n for n in VARIANTS if n in argv] or list(VARIANTS)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = _ab.card()
     t0 = time.perf_counter()
-    libs = build(names)
+    libs = bind(_ab.build(_ab.patch(SRC.read_text(), VARIANTS, names), OUT))
     print("%s; built %s in %.1f s" % (card, ", ".join(names),
                                        time.perf_counter() - t0))
     b, sq, _, h, d, _ = cs.FLASH_CASES["train"]

@@ -33,7 +33,6 @@ Variants (all by default):
              and epilogue alone)
 """
 import ctypes
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -47,6 +46,7 @@ import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch.incubate.nn.cuda import _build  # noqa: E402
 from paddle_tpu_torch.incubate.nn.cuda import \
     moe_dispatch as kmd  # noqa: E402
+from paddle_tpu_torch.tools import _ab  # noqa: E402
 
 SRC = ROOT / "paddle_tpu_torch/incubate/nn/csrc/moe_dispatch.cu"
 OUT = ROOT / "_archive/gmm_ab"
@@ -66,32 +66,6 @@ VARIANTS = {
                   "                     blk * kBM + 64 * wg);\n", "")],
     "loads_only": [(PRODUCTS, "")],
 }
-
-
-def build(sources):
-    """One library per variant ({name: source text}); returns {name:
-    loaded library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        cu = OUT / (name + ".cu")
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-             str(OUT / ("lib%s.so" % name)), str(cu)],
-            stdout=open(OUT / (name + ".log"), "w"), stderr=subprocess.STDOUT)
-    libs = {}
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError("nvcc failed on %s:\n%s" % (
-                name, (OUT / (name + ".log")).read_text()[-3000:]))
-        libs[name] = ctypes.CDLL(str(OUT / ("lib%s.so" % name)))
-        log = (OUT / (name + ".log")).read_text().splitlines()
-        for i, line in enumerate(log):        # the bf16 kernel's resources
-            if "Function properties" in line and "gmm_wgmma" in line:
-                print("%-10s ptxas: %s" % (name, " ".join(
-                    x.strip() for x in log[i + 1:i + 3])))
-    return libs
 
 
 def caller(name, lib):
@@ -152,23 +126,13 @@ def main(argv):
     if "--parent" in argv:
         parent = Path(argv[argv.index("--parent") + 1])
     names = [n for n in VARIANTS if n in argv] or list(VARIANTS)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    src, sources = SRC.read_text(), {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError("%s: %r is not in the source" % (name, old))
-            text = text.replace(old, new)
-        sources[name] = text
+    card = _ab.card()
+    sources = _ab.patch(SRC.read_text(), VARIANTS, names)
     if parent is not None:
         sources["parent"] = parent.read_text()
         names.append("parent")
     t0 = time.perf_counter()
-    libs = build(sources)
+    libs = _ab.build(sources, OUT, "gmm_wgmma")
     print("%s; built %s in %.1f s" % (card, ", ".join(names),
                                        time.perf_counter() - t0), flush=True)
     fns = {name: caller(name, libs[name]) for name in names}

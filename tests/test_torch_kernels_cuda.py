@@ -831,10 +831,16 @@ def test_flash_wrapper_raises_instead_of_falling_back():
 
 
 # ------------------------------------------------------------------ K6
-# name -> (context_lens, n_heads, n_kv, shared): one query token a row.
-# "prefill" is an off-layout prefill chunk (rows of one sequence over one
-# block table, each one key longer, padding rows of length 0); "long"
-# rows wrap round the block's 8 warps x 32 keys more than once.
+# name -> (context_lens, n_heads, n_kv, tables): one query token a row.
+# tables: False, a table a row; True, every row one table (an off-layout
+# prefill chunk: rows of one sequence, each one key longer, padding rows
+# of length 0 with garbage tables); "tails", one table whose slots past
+# each row's own pages hold garbage ids of that row's (the rows share
+# pages only over what each sees); "two", rows alternating between two
+# tables (a 16-row tile the kernel must not share). "long" rows and
+# "prefill_long" (one shared tile) span several of the kernel's key splits
+# (128 keys or more, chosen per call; see paged_attention.decode_split);
+# "short_chunk" is a prefill chunk of one tile (12 rows), which shares.
 DECODE_MIXES = {
     "decode": ([9, 33, 0, 17, 70, 0], 4, 4, False),
     "prefill": (list(range(20, 41)) + [0] * 5, 4, 4, True),
@@ -842,6 +848,13 @@ DECODE_MIXES = {
     "long": ([1000, 257, 0, 513], 4, 4, False),
     "gqa2": ([22, 0, 31, 64], 4, 2, False),
     "gqa4": ([40, 300, 0, 7], 8, 2, False),
+    "prefill_tails": (list(range(30, 50)) + [0] * 4, 4, 4, "tails"),
+    "two_tables": (list(range(40, 56)), 4, 4, "two"),
+    "empty_in_tile": ([20, 0, 22, 23, 0, 0, 26, 27, 28, 0, 30, 31, 0, 33,
+                       34, 0, 36], 4, 4, True),
+    "prefill_long": (list(range(300, 331)) + [0] * 3, 4, 4, True),
+    "gqa2_tails": (list(range(50, 70)), 4, 2, "tails"),
+    "short_chunk": (list(range(5, 17)), 4, 4, True),
 }
 
 
@@ -850,21 +863,22 @@ def _decode_setup(context_lens, n_heads, n_kv, shared=False, d=32, page=16,
     """q [rows, heads, d], f32 pools, block tables and lengths for K6:
     shuffled page ids; each row's unused block-table tail (all of an
     empty row's) holds out-of-range ids, which both sides clamp. With
-    ``shared`` every row reads the same block table."""
+    ``shared`` (``tables`` of DECODE_MIXES) every row reads the same block
+    table (True: garbage only in an empty row's; "tails": in every row's
+    tail, each row its own), or ("two") rows alternate between two."""
     rng = np.random.RandomState(seed)
     n_rows = len(context_lens)
     P = -(-max(context_lens) // page) + 1
-    n_tables = 1 if shared else n_rows
+    n_tables = {False: n_rows, "two": 2}.get(shared, 1)
     total_pages = n_tables * P + 1
     q = rng.randn(n_rows, n_heads, d).astype(np.float32)
     kp = rng.randn(n_kv, total_pages, page, d).astype(np.float32)
     vp = rng.randn(n_kv, total_pages, page, d).astype(np.float32)
     bt = (1 + rng.permutation(n_tables * P)).reshape(n_tables, P)
-    bt = np.repeat(bt, n_rows, 0) if shared else bt
-    bt = bt.astype(np.int32)
+    bt = bt[np.arange(n_rows) % n_tables].astype(np.int32)
     for r, c in enumerate(context_lens):
-        if not shared or c == 0:
-            bt[r, -(-c // page):] = [-3, total_pages + 7][r % 2]
+        if shared is not True or c == 0:
+            bt[r, -(-c // page):] = [-3 - r, total_pages + 7 + r][r % 2]
     cl = np.asarray(context_lens, np.int32)
     return q, kp, vp, bt, cl
 
@@ -971,6 +985,62 @@ def test_decode_q8_kernel_matches_fp_kernel_on_the_same_values(dtype):
     got = tpa.paged_attention(q.to(dt), k8, v8, bt, cl)
     want = tpa.paged_attention(q.to(dt), kf, vf, bt, cl)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("mix", ["long", "prefill_long", "prefill_tails"])
+def test_decode_kernel_is_deterministic(mix, pool):
+    """Two launches on the same inputs give the same bits: the warps and
+    the key splits are merged in a fixed order, and whether a tile's rows
+    share one read depends on the inputs alone."""
+    _need_hopper()
+    lens, nh, nkv, shared = DECODE_MIXES[mix]
+    q, kp, vp, bt, cl = _decode_cuda(
+        _decode_setup(lens, nh, nkv, shared, seed=45), torch.float32)
+    if pool == "int8":
+        kp, vp = tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp)
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    case = (q.bfloat16(), kp, vp, bt, cl)
+    assert torch.equal(tpa.paged_attention(*case),
+                       tpa.paged_attention(*case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_decode_kernel_in_a_cuda_graph(pool):
+    """One call captured in a CUDA graph, replayed after new context
+    lengths are written into the captured tensor, matches the plain
+    version on the new lengths: the workspace and the split are sized
+    from shapes alone and nothing waits on the host."""
+    _need_hopper()
+    lens = [1000, 700, 0, 513, 40, 999, 1, 300]
+    q, kp, vp, bt, cl = _decode_cuda(
+        _decode_setup(lens, 8, 4, seed=46), torch.float32)
+    if pool == "int8":
+        kp, vp = tpa.quantize_kv_pages(kp), tpa.quantize_kv_pages(vp)
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    q = q.bfloat16()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: build, bind, allocate
+        tpa.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_attention(q, kp, vp, bt, cl)
+    for new in ([5, 1000, 300, 0, 999, 2, 640, 129],
+                [0, 0, 1000, 1000, 17, 256, 257, 0]):
+        cl.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tpa.paged_attention_ref(q, kp, vp, bt, cl)
+        live = cl > 0
+        _assert_close(out[live], want[live], Q8_TOL["bfloat16"],
+                      "graph %s %s" % (pool, new))
+        assert (out[~live] == 0).all()
 
 
 @pytest.mark.cuda
@@ -1329,13 +1399,19 @@ def test_gmm_function_with_row_counts_gradients():
 RING_F32_TOL = dict(rtol=2e-4, atol=2e-4)
 RING_ROW_TOL = 4e-2
 
-# name -> (t, k, n, leading dims of buf after t)
+# name -> (t, k, n, leading dims of buf after t). "mp2" and "mp4" are a
+# rank's block at bench.py's TP shape (T 16384, K 4096, N 1024) at mp 2
+# and 4: the bf16 kernel's 128 x 256 and 128 x 64 tiles, the f32 kernel's
+# 128 x 128 and 64 x 128.
 RING_CASES = {
     "tiles": (256, 256, 128, ()),
     "n200": (128, 64, 200, ()),
     "k200": (130, 200, 64, ()),
     "3d": (16, 64, 64, (6,)),
     "one_row": (1, 8, 8, ()),
+    "t100": (100, 64, 72, ()),
+    "mp2": (8192, 4096, 512, ()),
+    "mp4": (4096, 4096, 256, ()),
 }
 
 
@@ -1383,6 +1459,32 @@ def test_ring_mm_step_matches_ref(name, dtype):
             else:
                 _assert_close(parts[r], want_p[r], RING_ROW_TOL,
                               "K9 %s rank %d %s" % (name, r, ring))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_mm_step_is_deterministic_and_tiled(dtype):
+    """Two launches on the same inputs give the same bits (no split K, no
+    atomics), and the tile follows the item count: at mp 2 the bf16 kernel
+    takes 128 x 256 tiles and f32 128 x 128, at mp 4 128 x 64 and 64 x 128."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ring = Ring(["cuda:0"] * 2)
+    want = {"mp2": (128, 256) if dtype == "bfloat16" else (128, 128),
+            "mp4": (128, 64) if dtype == "bfloat16" else (64, 128)}
+    for name in ("mp2", "mp4"):
+        t, k, n, _ = RING_CASES[name]
+        plan = kring.mm_step_plan(t, k, n, dt)
+        print(name, dtype, plan)
+        assert plan["tile"] == want[name]
+        bufs = _per_rank(ring, (t, k), dt, g)
+        ws = _per_rank(ring, (k, n), dt, g, 0.05)
+        a = kring.mm_step(bufs, ws, ring)
+        b = kring.mm_step(bufs, ws, ring)
+        for r in range(2):
+            assert torch.equal(a[0][r], b[0][r]), (name, r)
+            assert torch.equal(a[1][r], bufs[r - 1]), (name, r)
 
 
 @pytest.mark.cuda
