@@ -29,8 +29,11 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    rows at 4096 keys over a 4096-key window too; K4's time on the bf16
    pool of each mix beside it), and for K7's RMSNorm
    (with and without a bias) and LayerNorm, bf16 and f32, d 4096 and
-   2048, on 136, 8192 and 1001 rows (library: ``F.rms_norm`` /
-   ``F.layer_norm``, timed only);
+   2048, on 1, 12, 136, 8192 and 1001 rows, and its fused form (the
+   serving steps' residual update and the norm after it, its sum bitwise
+   PyTorch's adds) on 12 and 136 rows (library: ``F.rms_norm`` /
+   ``F.layer_norm``, timed only, also back to back beside K7's call),
+   with the form and blocks each case takes;
 4b. K6: hold the paged-decode kernel (one query token a row) over bf16,
    f32 and int8 pools (bf16 q over int8: the K6-q8 route) against its
    plain version, in the two shapes the ``ragged="off"`` layout calls it
@@ -109,14 +112,18 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    every stream must reach its length, the prefix cache must hit,
    ``shutdown()`` must find no leaked block, and each step must have
    launched, per layer, K4 once and K7's LayerNorm twice (GPT) or K5 once
-   and K7's RMSNorm twice (Llama), plus one norm before the head;
+   and K7's RMSNorm twice (Llama), plus one norm before the head, all but
+   the first of them in the fused form (the residual update, then the
+   norm); the first step's elementwise launches are counted around it
+   and again with the updates unfused (4L more for GPT, 2L for Llama);
 7b. the two-program layout, ``ServingEngine(..., ragged="off")``, on the
    same seed-0 models (no new initialisation) and trace, GPT-3 1.3B over
    bf16 pools and Llama-2 7B over int8 pools: every model pass (a
    prefill chunk or a decode batch) launches K6 (GPT) or K6-q8 (Llama)
-   once a layer and K7 2L + 1 times, K4 and K5 never; the first prefill
-   chunk and the first decode batch with two live rows are held against
-   the same step through the plain versions of every kernel, as in 7;
+   once a layer and K7 2L + 1 times (2L fused), K4 and K5 never; the
+   first prefill chunk and the first decode batch with two live rows are
+   held against the same step through the plain versions of every
+   kernel, and their elementwise launches counted, as in 7;
    K6's launches are printed split into prefill chunks and decode
    batches; the share of greedy tokens equal to the ragged layout's
    stream is printed, not checked;
@@ -537,17 +544,32 @@ def norm_ratio(got, want, rel):
     return ((got.float() - w).abs() / allow).max().item()
 
 
+# K7's cases: name -> (norm kind, the fused form's adds: None, "res" or
+# "bias+res"); the fused forms are the serving adapters' residual updates
+# (Llama: the residual alone; GPT: the linear's bias, then the residual)
+NORM_KINDS = {"rms": ("rms", None), "rms_bias": ("rms_bias", None),
+              "ln": ("ln", None), "rms+res": ("rms", "res"),
+              "ln+bias+res": ("ln", "bias+res")}
+NORM_ROWS = (1, 12, 136, 8192, 1001)
+NORM_FUSED_ROWS = (12, 136)
+
+
 def norm_phase(card):
     """K7 against its plain versions: RMSNorm with and without a bias
     and LayerNorm, bf16 and f32, at d 4096 (Llama-2 7B) and 2048 (GPT-3
-    1.3B), on 136 rows (a serving step's token axis), 8192 (a training
-    batch) and 1001 (ragged); times each beside its plain version, the
-    library call (``F.rms_norm`` / ``F.layer_norm``, timed only; none
-    computes RMSNorm plus a bias in one call) and the bytes bound. At a
-    serving step's 136 rows a call's host time exceeds its device time,
-    so the kernel, plain and library times are device times per call in
-    a CUDA graph (``graph_ms``); ``call_ms`` is the kernel's per call
-    back to back from the host (CUDA events)."""
+    1.3B), on 1 and 12 rows (decode batches), 136 (a serving step's token
+    axis), 8192 (a training batch) and 1001 (ragged); and the fused form
+    the serving adapters call (the residual update, then the norm) at 12
+    and 136 rows, its sum bitwise equal to PyTorch's adds. Times each
+    beside its plain version, the library call (``F.rms_norm`` /
+    ``F.layer_norm``, timed only; none computes RMSNorm plus a bias, or
+    the fused form, in one call) and the bytes bound. At a serving step's
+    rows a call's host time exceeds its device time, so the kernel, plain
+    and library times are device times per call in a CUDA graph
+    (``graph_ms``); ``call_ms`` and ``library_call_ms`` are a call back
+    to back from the host (CUDA events), what an eager caller pays. Prints
+    the form (a block a row or persistent) and the blocks each case
+    takes."""
     from paddle_tpu_torch.incubate.nn.cuda import norms as kn
 
     F = torch.nn.functional
@@ -558,53 +580,83 @@ def norm_phase(card):
             w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")) \
                 .to(dtype)
             b = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
-            for n in (136, 8192, 1001):
+            lin_b = (0.1 * torch.randn(d, generator=g, device="cuda")) \
+                .to(dtype)
+            for n in NORM_ROWS:
                 x = (1.5 * torch.randn(n, d, generator=g, device="cuda")
                      + 0.3).to(dtype)
-                for kind in ("rms", "rms_bias", "ln"):
-                    if kind == "ln":
-                        fn, ref, args = kn.layer_norm, kn.layer_norm_ref, \
-                            (x, w, b, 1e-5)
-                        lib = lambda: F.layer_norm(x, (d,), w, b, 1e-5)
-                    else:
-                        bias = b if kind == "rms_bias" else None
-                        fn, ref, args = kn.rms_norm, kn.rms_norm_ref, \
-                            (x, w, bias, 1e-5)
-                        lib = None if bias is not None else \
-                            (lambda: F.rms_norm(x, (d,), w, 1e-5))
-                    got = fn(*args)
-                    torch.cuda.synchronize()
-                    check(bool(torch.isfinite(got).all()),
-                          "K7 %s: non-finite" % kind)
-                    ratio = norm_ratio(got, ref(*args), NORM_REL[dtype])
-                    err = (got.float() - ref(*args).float()).abs().max()
-                    name = "%s %s d %d n %d" % (kind, str(dtype)[6:], d, n)
-                    check(ratio <= 1.0, "K7 %s: error %.3g of its allowance"
-                          % (name, ratio))
-                    call_ms = cuda_ms(lambda: fn(*args), iters=50)
-                    ms = graph_ms(lambda: fn(*args))
-                    plain_ms = graph_ms(lambda: ref(*args))
-                    library_ms = None if lib is None else graph_ms(lib)
-                    nbytes = (2 * n * d + d * (2 if kind != "rms" else 1)) \
-                        * x.element_size()
-                    bound_ms, bound_by = bound_of(
-                        nbytes, 4 * n * d, BF16_FLOPS_PER_S
-                        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
-                    results[name] = dict(
-                        max_abs_err=err.item(), ratio=ratio, ms=ms,
-                        call_ms=call_ms, plain_ms=plain_ms,
-                        library_ms=library_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, bytes=nbytes)
-                    print("K7 %-28s: max_abs_err %.3g (%.3g of its "
-                          "allowance) kernel=%.4f ms (a call back to back "
-                          "%.4f ms) plain=%s library=%s bound=%.4f ms (%s, "
-                          "%.2f MB) [%s]"
-                          % (name, err.item(), ratio, ms, call_ms,
-                             "%.4f ms" % plain_ms,
-                             "none" if library_ms is None
-                             else "%.4f ms" % library_ms, bound_ms,
-                             bound_by, nbytes / 1e6, card), flush=True)
+                res = (1.5 * torch.randn(n, d, generator=g, device="cuda")
+                       ).to(dtype)
+                for kind, (base, adds) in NORM_KINDS.items():
+                    if adds is not None and n not in NORM_FUSED_ROWS:
+                        continue
+                    results[norm_name(kind, dtype, d, n)] = norm_case(
+                        kn, F, kind, base, adds, x, w, b, lin_b, res, card)
     return results
+
+
+def norm_name(kind, dtype, d, n):
+    return "%s %s d %d n %d" % (kind, str(dtype)[6:], d, n)
+
+
+def norm_case(kn, F, kind, base, adds, x, w, b, lin_b, res, card):
+    """One K7 case (see :func:`norm_phase`): checked, timed, printed."""
+    n, d = x.shape
+    dtype = x.dtype
+    kw = {} if adds is None else dict(
+        residual=res, bias=lin_b if adds == "bias+res" else None)
+    if base == "ln":
+        fn, ref, args = kn.layer_norm, kn.layer_norm_ref, (x, w, b, 1e-5)
+        lib = lambda: F.layer_norm(x, (d,), w, b, 1e-5)
+    else:
+        bias = b if base == "rms_bias" else None
+        fn, ref, args = kn.rms_norm, kn.rms_norm_ref, (x, w, bias, 1e-5)
+        lib = None if bias is not None else \
+            (lambda: F.rms_norm(x, (d,), w, 1e-5))
+    if adds is not None:
+        lib = None
+    name = norm_name(kind, dtype, d, n)
+    got, want = fn(*args, **kw), ref(*args, **kw)
+    torch.cuda.synchronize()
+    if adds is not None:
+        (got, got_sum), (want, want_sum) = got, want
+        check(torch.equal(got_sum, want_sum), "K7 %s: the sum is not "
+              "bitwise PyTorch's adds" % name)
+    check(bool(torch.isfinite(got).all()), "K7 %s: non-finite" % name)
+    ratio = norm_ratio(got, want, NORM_REL[dtype])
+    err = (got.float() - want.float()).abs().max().item()
+    check(ratio <= 1.0, "K7 %s: error %.3g of its allowance" % (name, ratio))
+    call_ms = cuda_ms(lambda: fn(*args, **kw), iters=50)
+    ms = graph_ms(lambda: fn(*args, **kw))
+    plain_ms = graph_ms(lambda: ref(*args, **kw))
+    library_ms = None if lib is None else graph_ms(lib)
+    library_call_ms = None if lib is None else cuda_ms(lib, iters=50)
+    form, blocks, threads, vecs = kn.plan(n, d, base, dtype,
+                                          residual=adds is not None)
+    # each input read once, each output written once: x (or y and the
+    # residual), out (and the sum), w, the norm bias, the added bias
+    rows = 2 if adds is None else 4
+    vectors = 1 + (base != "rms") + (adds == "bias+res")
+    nbytes = (rows * n * d + vectors * d) * x.element_size()
+    bound_ms, bound_by = bound_of(
+        nbytes, 4 * n * d, BF16_FLOPS_PER_S
+        if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    print("K7 %-30s: max_abs_err %.3g (%.3g of its allowance) kernel=%.4f "
+          "ms (a call back to back %.4f ms) plain=%.4f ms library=%s (a "
+          "call back to back %s) bound=%.4f ms (%s, %.2f MB); %s, %d blocks "
+          "of %d threads x %d vectors%s [%s]"
+          % (name, err, ratio, ms, call_ms, plain_ms,
+             "none" if library_ms is None else "%.4f ms" % library_ms,
+             "none" if library_call_ms is None else "%.4f ms"
+             % library_call_ms, bound_ms, bound_by, nbytes / 1e6, form,
+             blocks, threads, vecs,
+             "" if adds is None else "; sum bitwise PyTorch's adds", card),
+          flush=True)
+    return dict(max_abs_err=err, ratio=ratio, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library_call_ms=library_call_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes=nbytes, form=form, blocks=blocks,
+                threads=threads, vectors=vecs)
 
 
 # ----------------------------------------------------------- phase 4b
@@ -1556,7 +1608,9 @@ def serving_kernels():
             "K6": (pa.paged_attention, "launches"),
             "K6-q8": (pa.paged_attention, "launches_q8"),
             "K7 rms_norm": (norms.rms_norm, "launches"),
-            "K7 layer_norm": (norms.layer_norm, "launches")}
+            "K7 layer_norm": (norms.layer_norm, "launches"),
+            "K7 rms_norm fused": (norms.rms_norm, "launches_fused"),
+            "K7 layer_norm fused": (norms.layer_norm, "launches_fused")}
 
 
 def serving_counts():
@@ -1609,10 +1663,10 @@ def serve_main_path(eng, prompts, new_tokens):
     real_ragged, real_paged, real_logits = (ad.ragged_chunk, ad.paged_chunk,
                                             ad.logits)
 
-    def keep_logits(w, x):
+    def keep_logits(w, x, h=None):
         if grab:
             grab["hidden"] = x.clone()
-        return real_logits(w, x)
+        return real_logits(w, x, h)
 
     def keep_ragged(w, *args, attn=None):
         if "ragged" not in first:
@@ -1729,9 +1783,34 @@ def check_served(run, prompts, new_tokens, vocab, want_launches, what,
                 peak_gb=run["peak"] / 1e9)
 
 
-def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
+NORM_HOOKS = ("_rms", "_ln", "_add_rms", "_add_ln")
+
+
+def kernel_norms():
+    """The serving steps' norms as the adapters call them (K7 on the
+    card), by their names in ``models/generation.py``."""
+    from paddle_tpu_torch.models import generation
+
+    return {k: getattr(generation, k) for k in NORM_HOOKS}
+
+
+def plain_norms():
+    """The same four functions through K7's plain versions."""
+    from paddle_tpu_torch.incubate.nn.cuda import norms
+
+    return {"_rms": lambda x, w, eps: norms.rms_norm_ref(x, w, None, eps),
+            "_ln": norms.layer_norm_ref,
+            "_add_rms": lambda y, res, w, eps: norms.rms_norm_ref(
+                y, w, None, eps, residual=res),
+            "_add_ln": lambda y, bias, res, w, b, eps: norms.layer_norm_ref(
+                y, w, b, eps, bias=bias, residual=res)}
+
+
+def rerun_first_step(eng, first, attn, norms, pools=None, plain=False):
     """A recorded step (``first``, see :func:`serve_main_path`) again
-    with ``attn`` for attention and ``rms`` / ``ln`` for the norms, over
+    with ``attn`` for attention and ``norms`` for the norms (the four
+    functions of :func:`kernel_norms`, by name; the fused residual
+    updates ``_add_rms`` / ``_add_ln`` return the norm and the sum), over
     ``pools`` (``(kp, vp, block_tables)``), else the record's copies of
     the pages it reads, else the engine's pools (the ragged first step
     started every row at position 0, so it reads only the K/V it writes
@@ -1739,9 +1818,10 @@ def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
     before it reads them. Returns the logits, the final hidden states,
     each layer's K rows as written at the step's slots, and the residual
     stream as each norm received it (a layer's input, its state after
-    attention, ..., the final hidden states). With ``plain``, fails if a
-    kernel count moved: a substitution that missed would otherwise run
-    the kernels on the plain side."""
+    attention, ..., the final hidden states: the sums of the fused
+    updates). With ``plain``, fails if a kernel count moved: a
+    substitution that missed would otherwise run the kernels on the plain
+    side."""
     from paddle_tpu_torch.incubate.nn.cuda.paged_attention import pool_shape
     from paddle_tpu_torch.models import generation
 
@@ -1749,31 +1829,34 @@ def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
     kept = {}
     real_logits = ad.logits
 
-    def keep_logits(w, x):
+    def keep_logits(w, x, h=None):
         kept["hidden"] = x
-        return real_logits(w, x)
+        return real_logits(w, x, h)
 
     stream = []
 
-    def recorded(norm):
-        def fn(x, *args):
-            stream.append(x)
-            return norm(x, *args)
+    def recorded(name, norm):
+        def fn(*args):
+            got = norm(*args)
+            stream.append(got[1] if name.startswith("_add") else args[0])
+            return got
         return fn
 
     if pools is None:
         pools = first["pools"] + (first["bt"],) if first["pools"] \
             else (eng._kp, eng._vp, first["bt"])
     kp, vp, bt = pools
-    saved = generation._rms, generation._ln
+    saved = kernel_norms()
     counts = serving_counts()
     ad.logits = keep_logits
-    generation._rms, generation._ln = recorded(rms), recorded(ln)
+    for name in NORM_HOOKS:
+        setattr(generation, name, recorded(name, norms[name]))
     try:
         logits, kp, _ = first["step"](kp, vp, bt, attn)
     finally:
         del ad.logits
-        generation._rms, generation._ln = saved
+        for name, fn in saved.items():
+            setattr(generation, name, fn)
     if plain:
         torch.cuda.synchronize()
         check(serving_counts() == counts, "the plain rerun launched "
@@ -1784,6 +1867,46 @@ def rerun_first_step(eng, first, attn, rms, ln, pools=None, plain=False):
                .reshape(n_kv, total * page, d)[:, slots].clone() for p in kp]
     return (logits.reshape(-1, logits.shape[-1]), kept["hidden"], written,
             stream)
+
+
+def elementwise_per_pass(eng, first):
+    """Elementwise launches of one model pass, counted around it: the
+    recorded step (``first``) again through the kernels under a dispatch
+    mode that counts the aten operations tagged pointwise (each one
+    kernel launch on the card; K4-K7 are no aten operations), then again
+    with every fused residual update taken apart into PyTorch's adds and
+    the plain-form K7 launch, as the adapters computed it before the
+    fused form. Returns (fused count, unfused count, fused by op)."""
+    import collections
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.by_op = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if torch.Tag.pointwise in func.tags:
+                self.by_op[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    kern = kernel_norms()
+
+    def add_rms(y, res, w, eps):
+        s = res + y
+        return kern["_rms"](s, w, eps), s
+
+    def add_ln(y, bias, res, w, b, eps):
+        s = res + (y if bias is None else y + bias)
+        return kern["_ln"](s, w, b, eps), s
+
+    counts = []
+    for norms in (kern, dict(kern, _add_rms=add_rms, _add_ln=add_ln)):
+        with Count() as c:
+            rerun_first_step(eng, first, None, norms)
+        counts.append(c.by_op)
+    return sum(counts[0].values()), sum(counts[1].values()), counts[0]
 
 
 def first_step_check(eng, first, logits_tol, hidden_rtol, what):
@@ -1799,10 +1922,9 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
     every layer's input, and the K rows they write: what one layer's
     rounding difference turns into after all of them. The attention is
     K4 / K5 for a ragged step, K6 for a prefill chunk or decode batch of
-    the off layout."""
-    from paddle_tpu_torch.incubate.nn.cuda import norms
+    the off layout. Counts the elementwise launches of the step (see
+    :func:`elementwise_per_pass`)."""
     from paddle_tpu_torch.incubate.nn.cuda import paged_attention as pa
-    from paddle_tpu_torch.models import generation
 
     if first["kind"] == "ragged":
         kernel, plain = pa.ragged_paged_attention, \
@@ -1821,10 +1943,7 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
     def no_attn(q, *args, **kw):
         return torch.zeros_like(q)
 
-    def plain_rms(x, w, eps):
-        return norms.rms_norm_ref(x, w, None, eps)
-
-    errs = {"attention": [], "norm": []}
+    errs = {"attention": [], "norm": [], "sum": 0}
 
     def compared_attn(q, kp, vp, bt, *args, **kw):
         out = kernel(q, kp, vp, bt, *args, **kw)
@@ -1832,21 +1951,27 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
             row_err(out, plain_attn(q, kp, vp, bt, *args, **kw))[1])
         return out
 
-    def compared(kernel, plain):
-        def fn(x, *args):
-            out = kernel(x, *args)
-            errs["norm"].append(norm_ratio(out, plain(x, *args),
-                                           NORM_REL[x.dtype]))
-            return out
+    def compared(name, kernel, plain):
+        # a fused update's sum must be bitwise the plain version's adds
+        def fn(*args):
+            got, want = kernel(*args), plain(*args)
+            if name.startswith("_add"):
+                errs["sum"] += int(not torch.equal(got[1], want[1]))
+                out, want = got[0], want[0]
+            else:
+                out = got
+            errs["norm"].append(norm_ratio(out, want, NORM_REL[out.dtype]))
+            return got
         return fn
 
+    kern, plain_n = kernel_norms(), plain_norms()
     again, _, k_kernel, s_kernel = rerun_first_step(
-        eng, first, compared_attn, compared(generation._rms, plain_rms),
-        compared(generation._ln, norms.layer_norm_ref))
+        eng, first, compared_attn,
+        {k: compared(k, kern[k], plain_n[k]) for k in NORM_HOOKS})
     ref, ref_h, k_plain, s_plain = rerun_first_step(
-        eng, first, plain_attn, plain_rms, norms.layer_norm_ref, plain=True)
-    _, bare_h, _, _ = rerun_first_step(eng, first, no_attn, plain_rms,
-                                       norms.layer_norm_ref, plain=True)
+        eng, first, plain_attn, plain_n, plain=True)
+    _, bare_h, _, _ = rerun_first_step(eng, first, no_attn, plain_n,
+                                       plain=True)
     if k_kernel[0].dtype == torch.int8:
         flips = [(a != b).float().mean().item()
                  for a, b in zip(k_kernel, k_plain)]
@@ -1876,13 +2001,12 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
                     for _ in range(2 * len(eng._kp))]
 
         p16 = bf16_pools()
-        _, h16, _, _ = rerun_first_step(eng, first, None, generation._rms,
-                                        generation._ln,
+        _, h16, _, _ = rerun_first_step(eng, first, None, kern,
                                         (p16[::2], p16[1::2], bt16))
         p16 = bf16_pools()
         _, h16_ref, _, _ = rerun_first_step(
-            eng, first, plain_attn, plain_rms, norms.layer_norm_ref,
-            (p16[::2], p16[1::2], bt16), plain=True)
+            eng, first, plain_attn, plain_n, (p16[::2], p16[1::2], bt16),
+            plain=True)
         del p16
         e16 = ((h16 - h16_ref).float().norm(dim=-1)
                / h16_ref.float().norm(dim=-1))[pos >= 0]
@@ -1934,13 +2058,30 @@ def first_step_check(eng, first, logits_tol, hidden_rtol, what):
           "its row's RMS > %g" % (att_max, PAGED_ROW_TOL))
     check(norm_max <= 1.0, "a norm is off by %.3g of its allowance"
           % norm_max)
+    check(errs["sum"] == 0, "%d fused residual updates' sums are not "
+          "bitwise PyTorch's adds" % errs["sum"])
     check(bool(torch.isfinite(h).all()), "non-finite hidden states")
     check(h_err.max().item() <= hidden_rtol, "hidden states off by %.4g of "
           "their norm > %g" % (h_err.max().item(), hidden_rtol))
     check(logits_rel <= hidden_rtol, "logits off by %.4g of their norm > %g"
           % (logits_rel, hidden_rtol))
     torch.testing.assert_close(got, want, **logits_tol)
-    return dict(logits_err=err, logits_rel_l2=logits_rel,
+    fused, unfused, by_op = elementwise_per_pass(eng, first)
+    # the unfused updates add the residual, and a linear's bias first
+    drop = sum(2 + sum(W.get(k) is not None for k in ("out_b", "fc2_b"))
+               for W in eng._w["layers"])
+    print("engine %s: elementwise launches of the pass, counted around it: "
+          "%d (%s); with each residual update taken apart into PyTorch's "
+          "adds and the norm (the unfused composition): %d, %d more"
+          % (what, fused, ", ".join("%s %d" % kv for kv in
+                                    sorted(by_op.items())), unfused,
+             unfused - fused), flush=True)
+    check(unfused - fused == drop, "%s: fusing the residual updates saved "
+          "%d elementwise launches a pass, not %d" % (what, unfused - fused,
+                                                      drop))
+    return dict(elementwise_launches=fused,
+                elementwise_launches_unfused=unfused,
+                logits_err=err, logits_rel_l2=logits_rel,
                 hidden_rel_l2=h_err.max().item(),
                 moved_median=moved.median().item(),
                 attention_row_err=att_max, norm_ratio=norm_max,
@@ -1972,7 +2113,9 @@ def engine_phase(card):
     L = cfg.num_layers
     res = check_served(run, prompts, new_tokens, cfg.vocab_size,
                        {"K4": L, "K5": 0, "K6": 0, "K6-q8": 0,
-                        "K7 rms_norm": 0, "K7 layer_norm": 2 * L + 1},
+                        "K7 rms_norm": 0, "K7 layer_norm": 2 * L + 1,
+                        "K7 rms_norm fused": 0,
+                        "K7 layer_norm fused": 2 * L},
                        "gpt3_1p3B", card)
     eng.shutdown()                     # raises on a leaked block
     res.update(first_step_check(eng, run["first"]["ragged"], LOGITS_TOL,
@@ -2018,7 +2161,9 @@ def llama_engine_phase(card, seeds=(0, 1, 2)):
         run = serve_main_path(eng, prompts, new_tokens)
         r = check_served(run, prompts, new_tokens, cfg.vocab_size,
                          {"K4": 0, "K5": L, "K6": 0, "K6-q8": 0,
-                          "K7 rms_norm": 2 * L + 1, "K7 layer_norm": 0},
+                          "K7 rms_norm": 2 * L + 1, "K7 layer_norm": 0,
+                          "K7 rms_norm fused": 2 * L,
+                          "K7 layer_norm fused": 0},
                          what, card)
         eng.shutdown()                 # raises on a leaked block
         r.update(first_step_check(eng, run["first"]["ragged"],
@@ -3092,12 +3237,15 @@ def main_path_phases(card, stamp):
     off_gpt = off_engine_phase(
         card, gpt_model, "gpt3_1p3B off", gpt_outs,
         {"K4": 0, "K5": 0, "K6": Lg, "K6-q8": 0, "K7 rms_norm": 0,
-         "K7 layer_norm": 2 * Lg + 1}, LOGITS_TOL, SERVE_HIDDEN_RTOL)
+         "K7 layer_norm": 2 * Lg + 1, "K7 rms_norm fused": 0,
+         "K7 layer_norm fused": 2 * Lg}, LOGITS_TOL, SERVE_HIDDEN_RTOL)
     torch.cuda.empty_cache()
     off_llama = off_engine_phase(
         card, llama_model, "llama2_7B int8 off", llama_outs,
         {"K4": 0, "K5": 0, "K6": 0, "K6-q8": Ll,
-         "K7 rms_norm": 2 * Ll + 1, "K7 layer_norm": 0}, LLAMA_LOGITS_TOL,
+         "K7 rms_norm": 2 * Ll + 1, "K7 layer_norm": 0,
+         "K7 rms_norm fused": 2 * Ll, "K7 layer_norm fused": 0},
+        LLAMA_LOGITS_TOL,
         LLAMA_HIDDEN_RTOL, kv_quant="int8")
     torch.cuda.empty_cache()
     stamp("off-layout serving")
@@ -3138,10 +3286,15 @@ def main_path_phases(card, stamp):
                   + shape + "; ms and library_ms a call in a CUDA graph",
             "mixes": runs})
     for name, line, case, kinds, launches, shape in (
-            ("rms_norm", 32, "rms bfloat16 d 4096 n 136", ("rms", "rms_bias"),
-             llama["launches"]["K7 rms_norm"], "Llama-2 7B serving"),
-            ("layer_norm", 49, "ln bfloat16 d 2048 n 136", ("ln",),
-             gpt["launches"]["K7 layer_norm"], "GPT-3 1.3B serving")):
+            ("rms_norm", 32, "rms+res bfloat16 d 4096 n 136",
+             ("rms", "rms_bias", "rms+res"), llama["launches"]["K7 rms_norm"],
+             "Llama-2 7B serving: the residual update and the norm after "
+             "it, the form of all but one of a pass's 2L + 1 launches"),
+            ("layer_norm", 49, "ln+bias+res bfloat16 d 2048 n 136",
+             ("ln", "ln+bias+res"), gpt["launches"]["K7 layer_norm"],
+             "GPT-3 1.3B serving: the linear's bias, the residual update "
+             "and the norm after it, the form of all but one of a pass's "
+             "2L + 1 launches")):
         r = k7[case]
         kernels.append({
             "name": name, "route": "cuda",

@@ -1,14 +1,17 @@
-"""Row norms over the last axis, and the fused RMSNorm entry.
+"""Row norms over the last axis, and the fused RMSNorm / LayerNorm entries.
 
 Port of the norm half of ``paddle_tpu/incubate/nn/functional/
 fused_ops.py``. :func:`rms_norm` and :func:`layer_norm` are the port's
 one dispatching layer for the norms: a CUDA tensor goes through the
 Hopper kernel (:mod:`..cuda.norms`, the counterpart of the TPU kernel
-K7) and a CPU tensor through its plain version. Either way the gradient
-is autograd through the plain composition, as the JAX package's
-``_rms_bwd`` and ``_ln_bwd`` are the vjp of ``_rms_ref`` and ``_ln_ref``.
-The JAX package's TPU gate (``_pallas_norm_ok``) is not carried over:
-every CUDA tensor the kernel takes goes to it.
+K7) and a CPU tensor through its plain version. :func:`fused_rms_norm`
+and :func:`fused_layer_norm` add ``bias`` and then ``residual`` to x
+and normalise the sum, in one launch of the same kernel on the card.
+Either way the gradient is autograd through the plain composition (the
+adds, then the norm), as the JAX package's ``_rms_bwd`` and ``_ln_bwd``
+are the vjp of ``_rms_ref`` and ``_ln_ref``. The JAX package's TPU gate
+(``_pallas_norm_ok``) is not carried over: every CUDA tensor the kernel
+takes goes to it.
 """
 from __future__ import annotations
 
@@ -16,17 +19,17 @@ import torch
 
 from ..cuda import norms as _k
 
-__all__ = ["rms_norm", "layer_norm", "fused_rms_norm"]
+__all__ = ["rms_norm", "layer_norm", "fused_rms_norm", "fused_layer_norm"]
 
 
-def _forward(kind, x, w, b, eps):
-    if x.device.type == "cuda":
+def _forward(kind, x, w, b, eps, bias=None, residual=None):
+    if x.is_cuda:
         kernel = _k.rms_norm if kind == "rms" else _k.layer_norm
-        return kernel(x, w, b, eps)
+        return kernel(x, w, b, eps, bias=bias, residual=residual)
     if x.device.type != "cpu":
         raise ValueError("norms run on cuda or cpu, not %s" % x.device)
     ref = _k.rms_norm_ref if kind == "rms" else _k.layer_norm_ref
-    return ref(x, w, b, eps)
+    return ref(x, w, b, eps, bias=bias, residual=residual)
 
 
 class _RowNorm(torch.autograd.Function):
@@ -55,11 +58,18 @@ class _RowNorm(torch.autograd.Function):
             for t in leaves)
 
 
-def _norm(kind, x, w, b, eps):
+def _norm(kind, x, w, b, eps, bias=None, residual=None):
+    """The norm of ``(x + bias) + residual`` (``(out, sum)`` with a
+    residual): one kernel launch on the card, unless a gradient is
+    wanted, when the adds are autograd's and the norm is
+    :class:`_RowNorm`."""
     if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, b)):
-        return _RowNorm.apply(kind, eps, x, w, b)
-    return _forward(kind, x, w, b, eps)
+            t is not None and t.requires_grad
+            for t in (x, w, b, bias, residual)):
+        s = _k._added(x, bias, residual)
+        out = _RowNorm.apply(kind, eps, s, w, b)
+        return out if residual is None else (out, s)
+    return _forward(kind, x, w, b, eps, bias, residual)
 
 
 def rms_norm(x, weight, bias=None, eps=1e-6):
@@ -74,6 +84,37 @@ def layer_norm(x, weight, bias, eps=1e-5):
     return _norm("ln", x, weight, bias, float(eps))
 
 
+def _fused(kind, x, w, nb, eps, ax, bias, residual):
+    """The norm over x's axes from ``ax`` on of ``(x + bias) +
+    residual``; ``(out, sum)`` with a residual, else ``out``. One kernel
+    launch when ``bias`` has the normalised axes' shape and ``residual``
+    x's; another bias or residual is added first (PyTorch's broadcast),
+    and the sum then normalised in the launch."""
+    eps = float(eps)
+    tail = x.shape[ax:]
+    if bias is not None and bias.shape != tail:
+        x, bias = x + bias, None
+    if residual is not None and residual.shape != x.shape:
+        s = x + residual
+        return _fused(kind, s, w, nb, eps, ax, None, None), s
+    if ax == x.dim() - 1 and w is not None and w.dim() == 1 and (
+            nb.dim() == 1 if nb is not None else kind == "rms"):
+        return _norm(kind, x, w, nb, eps, bias, residual)
+    shape, d = x.shape, tail.numel()
+    w = torch.ones(d, dtype=x.dtype, device=x.device) if w is None \
+        else w.reshape(d)
+    if nb is not None:
+        nb = nb.reshape(d)
+    elif kind == "ln":
+        nb = torch.zeros(d, dtype=x.dtype, device=x.device)
+    got = _norm(kind, x.reshape(-1, d), w, nb, eps,
+                None if bias is None else bias.reshape(d),
+                None if residual is None else residual.reshape(-1, d))
+    if residual is None:
+        return got.reshape(shape)
+    return got[0].reshape(shape), got[1].reshape(shape)
+
+
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
                    begin_norm_axis=-1, bias=None, residual=None,
                    quant_scale=-1, name=None):
@@ -81,20 +122,21 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
     first, then ``residual``; the sum is normalised over the axes from
     ``begin_norm_axis`` on, scaled by ``norm_weight`` and shifted by
     ``norm_bias``. Returns ``(out, x + bias + residual)`` when a
-    residual is given, else ``out``. ``quant_scale`` and ``name`` are
-    accepted and unused, as in the JAX package."""
-    if bias is not None:
-        x = x + bias
-    if residual is not None:
-        x = x + residual
-    ax = begin_norm_axis % x.dim()
-    shape = x.shape
-    flat = x.reshape(shape[:ax] + (-1,))
-    d = flat.shape[-1]
-    w = torch.ones(d, dtype=x.dtype, device=x.device) \
-        if norm_weight is None else norm_weight.reshape(d)
-    nb = None if norm_bias is None else norm_bias.reshape(d)
-    out = rms_norm(flat, w, nb, epsilon).reshape(shape)
-    if residual is not None:
-        return out, x
-    return out
+    residual is given, else ``out``; on the card, one K7 launch.
+    ``quant_scale`` and ``name`` are accepted and unused, as in the JAX
+    package."""
+    return _fused("rms", x, norm_weight, norm_bias, epsilon,
+                  begin_norm_axis % x.dim(), bias, residual)
+
+
+def fused_layer_norm(x, norm_weight, norm_bias=None, epsilon=1e-5,
+                     begin_norm_axis=-1, bias=None, residual=None,
+                     quant_scale=-1, name=None):
+    """The JAX package's ``fused_layer_norm``: as :func:`fused_rms_norm`
+    with LayerNorm, over the axes from ``begin_norm_axis`` on when it is
+    not negative and over the last axis otherwise (as the JAX function
+    reads it). A missing weight scales by 1, a missing norm bias shifts
+    by 0."""
+    ax = begin_norm_axis if begin_norm_axis >= 0 else x.dim() - 1
+    return _fused("ln", x, norm_weight, norm_bias, epsilon, ax, bias,
+                  residual)

@@ -1,17 +1,19 @@
 """The GPT and Llama serving steps over paged KV pools, and the sampler.
 
 Port of the serving half of ``paddle_tpu/models/generation.py``: the
-norms ``_ln`` and ``_rms`` (on the card through the Hopper row-norm
-kernel K7), ``_rope``, the fp ``_linear``, ``GPTDecodeAdapter`` and
-``LlamaDecodeAdapter`` with their ``ragged_chunk`` (one ragged mixed
-prefill + decode step over fp or int8 pools, the engine's default
-layout) and ``paged_chunk`` (g tokens at per-row positions: a decode
-batch or a prefill chunk of the engine's two-program ``ragged="off"``
-layout), ``_ragged_attn`` (K4 / K5 on the card), ``_paged_attn_chunk``
-(K6 on the card) and ``_sample``. PyTorch runs eagerly, so there is no
-jit: the pools are written in place and a step is a plain function of
-tensors. ``generate()``, beam search, speculative decoding and weight
-quantization are later slices (ROADMAP.md).
+norms ``_ln`` and ``_rms`` and the residual updates fused with the norm
+after them, ``_add_ln`` and ``_add_rms`` (on the card each one launch of
+the Hopper row-norm kernel K7), ``_rope``, the fp ``_linear``,
+``GPTDecodeAdapter`` and ``LlamaDecodeAdapter`` with their
+``ragged_chunk`` (one ragged mixed prefill + decode step over fp or int8
+pools, the engine's default layout) and ``paged_chunk`` (g tokens at
+per-row positions: a decode batch or a prefill chunk of the engine's
+two-program ``ragged="off"`` layout), ``_ragged_attn`` (K4 / K5 on the
+card), ``_paged_attn_chunk`` (K6 on the card) and ``_sample``. PyTorch
+runs eagerly, so there is no jit: the pools are written in place and a
+step is a plain function of tensors. ``generate()``, beam search,
+speculative decoding and weight quantization are later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch.nn.functional as F
 from ..incubate.nn.cuda.paged_attention import (
     kv_scatter, kv_write_slots, paged_attention, paged_attention_ref,
     pool_shape, ragged_paged_attention, ragged_paged_attention_ref)
-from ..incubate.nn.functional.fused_ops import layer_norm, rms_norm
+from ..incubate.nn.functional.fused_ops import (
+    fused_layer_norm, fused_rms_norm, layer_norm, rms_norm)
 
 __all__ = ["GPTDecodeAdapter", "LlamaDecodeAdapter"]
 
@@ -36,6 +39,21 @@ def _ln(x, w, b, eps):
 def _rms(x, w, eps):
     """RMSNorm with f32 statistics (the JAX ``_rms``; K7 on the card)."""
     return rms_norm(x, w, None, eps)
+
+
+def _add_ln(y, bias, res, w, b, eps):
+    """A residual update and the LayerNorm after it: ``(_ln(s), s)``
+    for ``s = res + (y + bias)``, rounded as those two adds round (the
+    JAX ``fused_layer_norm`` with ``bias=`` and ``residual=``; one K7
+    launch on the card)."""
+    return fused_layer_norm(y, w, b, eps, bias=bias, residual=res)
+
+
+def _add_rms(y, res, w, eps):
+    """A residual update and the RMSNorm after it: ``(_rms(s), s)`` for
+    ``s = res + y`` (the JAX ``fused_rms_norm`` with ``residual=``; one
+    K7 launch on the card)."""
+    return fused_rms_norm(y, w, None, eps, residual=res)
 
 
 def _rope_angles(pos, head_dim, base):
@@ -108,8 +126,10 @@ class GPTDecodeAdapter:
         }
         self.dtype = self.weights["wte"].dtype
 
-    def logits(self, w, x):
-        x = _ln(x, w["lnf_w"], w["lnf_b"], self.eps)
+    def logits(self, w, x, h=None):
+        """Logits of the residual stream ``x``; ``h`` is its final norm
+        when the caller has it (fused into the last residual update)."""
+        x = _ln(x, w["lnf_w"], w["lnf_b"], self.eps) if h is None else h
         head = w["lm_head"]
         if head is None:
             return x @ w["wte"].T
@@ -125,20 +145,25 @@ class GPTDecodeAdapter:
         T = toks.shape[0]
         x = (w["wte"][toks.long()]
              + w["wpe"][pos.clamp_min(0).long()]).to(dt)
-        for i, W in enumerate(w["layers"]):
-            h1 = _ln(x, W["ln1_w"], W["ln1_b"], self.eps)
-            qkv = _linear(h1, W["qkv_w"], W["qkv_b"]).reshape(T, 3, nh, hd)
+        layers = w["layers"]
+        # each residual update is fused with the norm after it: the next
+        # layer's ln_1, or ln_f after the last layer
+        h = _ln(x, layers[0]["ln1_w"], layers[0]["ln1_b"], self.eps) \
+            if layers else None
+        for i, W in enumerate(layers):
+            qkv = _linear(h, W["qkv_w"], W["qkv_b"]).reshape(T, 3, nh, hd)
             q, k, v = qkv[:, 0], qkv[:, 1], qkv[:, 2]
             kv_scatter(kpages[i], k, rows, slots)
             kv_scatter(vpages[i], v, rows, slots)
             att = attend(i, q)
-            x = x + _linear(att.reshape(T, nh * hd),
-                            W["out_w"], W["out_b"])
-            h2 = _ln(x, W["ln2_w"], W["ln2_b"], self.eps)
-            m = F.gelu(_linear(h2, W["fc1_w"], W["fc1_b"]),
+            h, x = _add_ln(att.reshape(T, nh * hd) @ W["out_w"], W["out_b"],
+                           x, W["ln2_w"], W["ln2_b"], self.eps)
+            m = F.gelu(_linear(h, W["fc1_w"], W["fc1_b"]),
                        approximate="tanh")
-            x = x + _linear(m, W["fc2_w"], W["fc2_b"])
-        return self.logits(w, x)
+            nw, nb = (layers[i + 1]["ln1_w"], layers[i + 1]["ln1_b"]) \
+                if i + 1 < len(layers) else (w["lnf_w"], w["lnf_b"])
+            h, x = _add_ln(m @ W["fc2_w"], W["fc2_b"], x, nw, nb, self.eps)
+        return self.logits(w, x, h)
 
     @torch.no_grad()
     def ragged_chunk(self, w, toks, pos, row_of, q_starts, query_lens,
@@ -226,21 +251,23 @@ class LlamaDecodeAdapter:
         }
         self.dtype = self.weights["wte"].dtype
 
-    def logits(self, w, x):
-        x = _rms(x, w["norm"], self.eps)
+    def logits(self, w, x, h=None):
+        """Logits of the residual stream ``x``; ``h`` is its final norm
+        when the caller has it (fused into the last residual update)."""
+        x = _rms(x, w["norm"], self.eps) if h is None else h
         head = w["lm_head"]
         if head is None:
             return x @ w["wte"].T
         return _linear(x, head)
 
-    def _qkv(self, W, x):
-        """q [T, nh, hd], k and v [T, kvh, hd] from the residual x."""
+    def _qkv(self, W, h):
+        """q [T, nh, hd], k and v [T, kvh, hd] from the layer's normed
+        input h."""
         nh, kvh, hd = self.num_heads, self.num_kv_heads, self.head_dim
-        h1 = _rms(x, W["in_ln"], self.eps)
-        T = x.shape[0]
-        return (_linear(h1, W["q_w"]).reshape(T, nh, hd),
-                _linear(h1, W["k_w"]).reshape(T, kvh, hd),
-                _linear(h1, W["v_w"]).reshape(T, kvh, hd))
+        T = h.shape[0]
+        return (_linear(h, W["q_w"]).reshape(T, nh, hd),
+                _linear(h, W["k_w"]).reshape(T, kvh, hd),
+                _linear(h, W["v_w"]).reshape(T, kvh, hd))
 
     def _forward(self, w, toks, pos, kpages, vpages, rows, slots, attend):
         """The decoder over a flat token axis, as
@@ -250,17 +277,23 @@ class LlamaDecodeAdapter:
         T = toks.shape[0]
         x = w["wte"][toks.long()].to(dt)
         cos, sin = _rope_angles(pos.clamp_min(0), hd, self.rope_base)
-        for i, W in enumerate(w["layers"]):
-            q, k, v = self._qkv(W, x)
+        layers = w["layers"]
+        # each residual update is fused with the norm after it: post_ln,
+        # the next layer's in_ln, or the final norm after the last layer
+        h = _rms(x, layers[0]["in_ln"], self.eps) if layers else None
+        for i, W in enumerate(layers):
+            q, k, v = self._qkv(W, h)
             q, k = _rope(q, cos, sin), _rope(k, cos, sin)
             kv_scatter(kpages[i], k, rows, slots)
             kv_scatter(vpages[i], v, rows, slots)
             att = attend(i, q)
-            x = x + _linear(att.reshape(T, nh * hd), W["o_w"])
-            h2 = _rms(x, W["post_ln"], self.eps)
-            m = F.silu(_linear(h2, W["gate_w"])) * _linear(h2, W["up_w"])
-            x = x + _linear(m, W["down_w"])
-        return self.logits(w, x)
+            h, x = _add_rms(_linear(att.reshape(T, nh * hd), W["o_w"]), x,
+                            W["post_ln"], self.eps)
+            m = F.silu(_linear(h, W["gate_w"])) * _linear(h, W["up_w"])
+            nw = layers[i + 1]["in_ln"] if i + 1 < len(layers) \
+                else w["norm"]
+            h, x = _add_rms(_linear(m, W["down_w"]), x, nw, self.eps)
+        return self.logits(w, x, h)
 
     @torch.no_grad()
     def ragged_chunk(self, w, toks, pos, row_of, q_starts, query_lens,

@@ -410,7 +410,7 @@ def _norm_inputs(n, d, dtype, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["rms", "rms_bias", "ln"])
-@pytest.mark.parametrize("n", [136, 1001])
+@pytest.mark.parametrize("n", [136, 1001, 1, 12, 8192])
 @pytest.mark.parametrize("d", [2048, 4096])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_norm_kernel_matches_ref(dtype, d, n, kind):
@@ -445,6 +445,180 @@ def test_norm_kernel_odd_widths(d):
                        tn.layer_norm_ref(x, w, b, 1e-6))):
         assert got.shape == x.shape
         assert _norm_ratio(got, want, NORM_REL["float32"]) <= 1.0
+
+
+def _norm_call(kind, x, w, b, eps, **kw):
+    """(kernel, plain version, result of each) of one K7 call."""
+    if kind == "ln":
+        fn, ref, args = tn.layer_norm, tn.layer_norm_ref, (x, w, b, eps)
+    else:
+        fn, ref = tn.rms_norm, tn.rms_norm_ref
+        args = (x, w, b if kind == "rms_bias" else None, eps)
+    return fn, fn(*args, **kw), ref(*args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("adds", ["res", "bias+res", "bias"])
+@pytest.mark.parametrize("kind", ["rms", "rms_bias", "ln"])
+@pytest.mark.parametrize("n", [1, 12, 136, 1001, 8192])
+@pytest.mark.parametrize("d", [2048, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_kernel_fused_matches_ref(dtype, d, n, kind, adds):
+    """The fused form (a bias and / or a residual added to x first, in
+    the same launch): the norm within NORM_REL of the plain version, the
+    sum bitwise PyTorch's two adds, one launch counted as fused."""
+    _need_hopper()
+    dt = getattr(torch, dtype)
+    x, w, b = _norm_inputs(n, d, dt, seed=3 * d + n)
+    r, lb, _ = _norm_inputs(n, d, dt, seed=5 * d + n)
+    kw = dict(bias=lb if "bias" in adds else None,
+              residual=r if "res" in adds else None)
+    fn = tn.layer_norm if kind == "ln" else tn.rms_norm
+    before = (fn.launches, fn.launches_fused)
+    fn, got, want = _norm_call(kind, x, w, b, 1e-5, **kw)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_fused) == (before[0] + 1,
+                                                before[1] + 1)
+    if kw["residual"] is not None:
+        (got, got_sum), (want, want_sum) = got, want
+        added = x + kw["bias"] if kw["bias"] is not None else x
+        assert torch.equal(got_sum, added + r)
+        assert torch.equal(want_sum, added + r)
+    ratio = _norm_ratio(got, want, NORM_REL[dtype])
+    print("%s + %s %s d %d n %d: largest error %.3g of its allowance"
+          % (kind, adds, dtype, d, n, ratio))
+    assert ratio <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [136, 8192])
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+def test_norm_kernel_bitwise_across_launches(kind, n):
+    """Two launches on the same inputs agree bit for bit, in both forms
+    (a block a row at 136 rows, the persistent grid at 8192), plain and
+    fused."""
+    _need_hopper()
+    x, w, b = _norm_inputs(n, 4096, torch.bfloat16, seed=n)
+    r, lb, _ = _norm_inputs(n, 4096, torch.bfloat16, seed=n + 1)
+    for kw in ({}, dict(bias=lb, residual=r)):
+        _, one, _ = _norm_call(kind, x, w, b, 1e-5, **kw)
+        _, two, _ = _norm_call(kind, x, w, b, 1e-5, **kw)
+        for a, c in zip(*(t if isinstance(t, tuple) else (t,)
+                          for t in (one, two))):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [12, 8192])
+def test_norm_kernel_cuda_graph(n):
+    """Captured in a CUDA graph on a side stream and replayed on new
+    values, the plain and the fused calls give what eager calls give."""
+    _need_hopper()
+    x, w, b = _norm_inputs(n, 2048, torch.bfloat16, seed=41 + n)
+    r, lb, _ = _norm_inputs(n, 2048, torch.bfloat16, seed=43 + n)
+
+    def calls():
+        return (tn.rms_norm(x, w, None, 1e-6),
+                tn.layer_norm(x, w, b, 1e-5, bias=lb, residual=r))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        rms, (ln, s) = calls()
+    x2, _, _ = _norm_inputs(n, 2048, torch.bfloat16, seed=47 + n)
+    r2, _, _ = _norm_inputs(n, 2048, torch.bfloat16, seed=53 + n)
+    x.copy_(x2)
+    r.copy_(r2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_rms, (want_ln, want_s) = calls()
+    assert torch.equal(rms, want_rms)
+    assert torch.equal(ln, want_ln)
+    assert torch.equal(s, want_s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 136, 24576])
+def test_norm_kernel_fused_odd_widths(d):
+    """The fused form at the widths of test_norm_kernel_odd_widths, on
+    3-D input, f32 and bf16."""
+    _need_hopper()
+    for dt, rel in ((torch.float32, NORM_REL["float32"]),
+                    (torch.bfloat16, NORM_REL["bfloat16"])):
+        x, w, b = _norm_inputs(6, d, dt, seed=d)
+        r, lb, _ = _norm_inputs(6, d, dt, seed=d + 1)
+        x, r = x.reshape(2, 3, d), r.reshape(2, 3, d)
+        for kind in ("rms", "ln"):
+            _, (got, s), (want, want_s) = _norm_call(
+                kind, x, w, b, 1e-6, bias=lb, residual=r)
+            assert got.shape == s.shape == x.shape
+            assert torch.equal(s, want_s)
+            assert _norm_ratio(got, want, rel) <= 1.0
+
+
+@pytest.mark.cuda
+def test_norm_fused_refusals():
+    """What the fused form does not take raises before any launch: a
+    residual of another shape, type or layout, a bias of another length
+    or type."""
+    _need_hopper()
+    x, w, b = _norm_inputs(4, 64, torch.float32, seed=1)
+    counts = (tn.rms_norm.launches, tn.rms_norm.launches_fused,
+              tn.layer_norm.launches, tn.layer_norm.launches_fused)
+    for kw in (dict(residual=x[:2]), dict(residual=x.bfloat16()),
+               dict(residual=x.t().contiguous().t()),
+               dict(residual=x, bias=b[:32]),
+               dict(residual=x, bias=b.bfloat16()), dict(bias=w.cpu())):
+        with pytest.raises(ValueError):
+            tn.rms_norm(x, w, None, 1e-6, **kw)
+        with pytest.raises(ValueError):
+            tn.layer_norm(x, w, b, 1e-5, **kw)
+    assert (tn.rms_norm.launches, tn.rms_norm.launches_fused,
+            tn.layer_norm.launches, tn.layer_norm.launches_fused) == counts
+
+
+@pytest.mark.cuda
+def test_norm_plan_forms():
+    """A block a row (one vector of 8 values a thread) up to one wave of
+    resident blocks, then the persistent grid (two vectors a thread): at
+    most one wave, every block as many rows."""
+    _need_hopper()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind, d in (("rms", 4096), ("ln", 2048)):
+        form, blocks, threads, vecs = tn.plan(136, d, kind)
+        assert (form, blocks, threads, vecs) == ("rows", 136, d // 8, 1)
+        form, blocks, threads, vecs = tn.plan(8192, d, kind, residual=True)
+        assert (form, threads, vecs) == ("persistent", d // 16, 2)
+        assert sms <= blocks < 8192
+        rows = -(-8192 // blocks)
+        assert -(-8192 // rows) == blocks
+
+
+@pytest.mark.cuda
+def test_fused_functional_one_launch():
+    """``fused_rms_norm`` / ``fused_layer_norm`` with ``bias`` and
+    ``residual`` on the card: one K7 launch each, the plain version's
+    result."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+
+    _need_hopper()
+    x, w, b = _norm_inputs(2 * 68, 4096, torch.bfloat16, seed=61)
+    r, lb, _ = _norm_inputs(2 * 68, 4096, torch.bfloat16, seed=62)
+    x, r = x.reshape(2, 68, 4096), r.reshape(2, 68, 4096)
+    for fused, fn, ref in (
+            (fused_ops.fused_rms_norm, tn.rms_norm, tn.rms_norm_ref),
+            (fused_ops.fused_layer_norm, tn.layer_norm, tn.layer_norm_ref)):
+        before = fn.launches
+        out, s = fused(x, w, b, 1e-5, bias=lb, residual=r)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want, want_s = ref(x, w, b, 1e-5, bias=lb, residual=r)
+        assert torch.equal(s, want_s)
+        assert _norm_ratio(out, want, NORM_REL["bfloat16"]) <= 1.0
 
 
 # ------------------------------------------------------------ K1, K2, K3

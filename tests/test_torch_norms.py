@@ -145,3 +145,154 @@ def test_fused_rms_norm_plain_and_leading_axis_match_jax():
     got = tfused.fused_rms_norm(torch.from_numpy(x), torch.from_numpy(w2),
                                 epsilon=1e-6, begin_norm_axis=1)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD)
+
+
+def _to(a, dtype):
+    """numpy f32 -> (JAX array, torch tensor) of ``dtype``, rounded alike
+    (both round to nearest even from the same f32 values)."""
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rms", "rms_bias", "ln"])
+def test_fused_ref_matches_jax_fused(monkeypatch, kind, dtype):
+    """K7's fused plain version (``bias`` added to x, then ``residual``,
+    then the norm) against the JAX ``fused_rms_norm`` (its Pallas kernel,
+    forced and interpreted) / ``fused_layer_norm``: the sum bitwise, the
+    output within FWD."""
+    monkeypatch.setattr(jfused, "_FORCE_PALLAS", True)
+    rng = np.random.RandomState(23 + len(kind))
+    y, r = (rng.randn(2, 7, 128).astype(np.float32) for _ in range(2))
+    bias, w, nb = (rng.randn(128).astype(np.float32) for _ in range(3))
+    (jy, ty), (jr, tr), (jbias, tbias), (jw, tw), (jnb, tnb) = (
+        _to(a, dtype) for a in (y, r, bias, w, nb))
+    if kind == "ln":
+        jout, jsum = jfused.fused_layer_norm(
+            pt.to_tensor(jy), pt.to_tensor(jw), pt.to_tensor(jnb),
+            epsilon=1e-5, bias=pt.to_tensor(jbias),
+            residual=pt.to_tensor(jr))
+        tout, tsum = tn.layer_norm_ref(ty, tw, tnb, 1e-5, bias=tbias,
+                                       residual=tr)
+    else:
+        with_nb = kind == "rms_bias"
+        jout, jsum = jfused.fused_rms_norm(
+            pt.to_tensor(jy), pt.to_tensor(jw),
+            pt.to_tensor(jnb) if with_nb else None, epsilon=1e-5,
+            bias=pt.to_tensor(jbias), residual=pt.to_tensor(jr))
+        tout, tsum = tn.rms_norm_ref(ty, tw, tnb if with_nb else None,
+                                     1e-5, bias=tbias, residual=tr)
+    assert tsum.dtype == tout.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(tsum.float().numpy(),
+                                  np.asarray(jsum.numpy(), np.float32))
+    np.testing.assert_allclose(tout.float().numpy(),
+                               np.asarray(jout.numpy(), np.float32), **FWD)
+
+
+def test_fused_layer_norm_matches_jax():
+    """The port's ``fused_layer_norm`` against the JAX one: with a
+    residual (the sum back, bitwise), without one, with
+    ``begin_norm_axis=1`` (the trailing two axes) and with no weight or
+    norm bias."""
+    rng = np.random.RandomState(29)
+    x, r = (rng.randn(3, 4, 32).astype(np.float32) for _ in range(2))
+    w2, b2 = (rng.randn(4, 32).astype(np.float32) for _ in range(2))
+    w1, b1, bias = (rng.randn(32).astype(np.float32) for _ in range(3))
+    jt, tt = pt.to_tensor, torch.from_numpy
+    jout, jsum = jfused.fused_layer_norm(jt(x), jt(w1), jt(b1), 1e-5,
+                                         bias=jt(bias), residual=jt(r))
+    tout, tsum = tfused.fused_layer_norm(tt(x), tt(w1), tt(b1), 1e-5,
+                                         bias=tt(bias), residual=tt(r))
+    np.testing.assert_array_equal(tsum.numpy(), jsum.numpy())
+    np.testing.assert_allclose(tout.numpy(), jout.numpy(), **FWD)
+    for args, kw in (((w1, b1), {}), ((w2, b2), dict(begin_norm_axis=1)),
+                     ((None, None), {})):
+        want = jfused.fused_layer_norm(
+            jt(x), *(None if a is None else jt(a) for a in args), 1e-5, **kw)
+        got = tfused.fused_layer_norm(
+            tt(x), *(None if a is None else tt(a) for a in args), 1e-5, **kw)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **FWD)
+
+
+def _ragged_step(cfg, dt, seed):
+    """One ragged step's inputs for an adapter of ``cfg``: a prefill row
+    of 9 tokens, a decode row at position 13, two tokens of padding;
+    pools of type ``dt``."""
+    g = torch.Generator().manual_seed(seed)
+    n_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    L, hd, page, n_pages = cfg.num_layers, cfg.head_dim, 8, 8
+    ql = torch.tensor([9, 1], dtype=torch.int32)
+    cl = torch.tensor([9, 14], dtype=torch.int32)
+    qs = torch.tensor([0, 9], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (12,), generator=g,
+                         dtype=torch.int32)
+    pos = torch.tensor(list(range(9)) + [13, -1, -1], dtype=torch.int32)
+    row_of = torch.tensor([0] * 9 + [1, -1, -1], dtype=torch.int32)
+    bt = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32)
+
+    def pools():
+        return [0.5 * torch.randn(n_kv, n_pages, page, hd, generator=g)
+                .to(dt) for _ in range(L)]
+    return (toks, pos, row_of, qs, ql, cl), pools(), pools(), bt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["gpt", "llama"])
+def test_adapter_fused_updates_equal_unfused(monkeypatch, arch, dtype):
+    """The adapters' ``_forward`` with each residual update fused into
+    the norm after it gives bitwise the logits and K/V of the unfused
+    composition (the update's adds as PyTorch runs them, then the norm):
+    the fused form rounds each add as PyTorch does."""
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         generation, gpt_tiny, llama_tiny)
+
+    dt = getattr(torch, dtype)
+    model = (GPTForCausalLM(gpt_tiny(), device="cpu", dtype=dt)
+             if arch == "gpt" else
+             LlamaForCausalLM(llama_tiny(), device="cpu", dtype=dt))
+    ad = model.decode_adapter()
+    meta, kp, vp, bt = _ragged_step(model.config, dt, seed=31)
+    got = ad.ragged_chunk(ad.weights, *meta, [p.clone() for p in kp],
+                          [p.clone() for p in vp], bt)
+    ln, rms = generation._ln, generation._rms
+    monkeypatch.setattr(
+        generation, "_add_ln", lambda y, bias, res, w, b, eps: (
+            ln(res + (y if bias is None else y + bias), w, b, eps),
+            res + (y if bias is None else y + bias)))
+    monkeypatch.setattr(generation, "_add_rms", lambda y, res, w, eps: (
+        rms(res + y, w, eps), res + y))
+    want = ad.ragged_chunk(ad.weights, *meta, [p.clone() for p in kp],
+                           [p.clone() for p in vp], bt)
+    live = meta[1] >= 0
+    assert torch.equal(got[0][live], want[0][live])
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+def test_fused_grads_are_the_plain_composition(kind):
+    """With a gradient wanted, the fused entries differentiate the plain
+    composition (PyTorch's adds, then the norm's vjp), as the JAX
+    package's custom vjp does: the same gradients within GRAD (the
+    norm's vjp and the sum's cotangent are added in another order)."""
+    rng = np.random.RandomState(37)
+    y, r = (rng.randn(5, 64).astype(np.float32) for _ in range(2))
+    bias, w, nb = (rng.randn(64).astype(np.float32) for _ in range(3))
+    g_out, g_sum = (rng.randn(5, 64).astype(np.float32) for _ in range(2))
+    fused = tfused.fused_layer_norm if kind == "ln" else \
+        tfused.fused_rms_norm
+    ref = tn.layer_norm_ref if kind == "ln" else tn.rms_norm_ref
+
+    def grads(fn):
+        leaves = [torch.from_numpy(a).requires_grad_()
+                  for a in (y, r, bias, w, nb)]
+        out, s = fn(*leaves)
+        return torch.autograd.grad((out, s), leaves, (
+            torch.from_numpy(g_out), torch.from_numpy(g_sum)))
+
+    got = grads(lambda y_, r_, b_, w_, nb_: fused(
+        y_, w_, nb_, 1e-5, bias=b_, residual=r_))
+    want = grads(lambda y_, r_, b_, w_, nb_: ref(
+        y_, w_, nb_, 1e-5, bias=b_, residual=r_))
+    for a, e in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), e.numpy(), **GRAD)
