@@ -41,7 +41,9 @@ def opt_state_from_paddle_tpu(opt_state: Mapping[str, Any]
                               ) -> Dict[str, Any]:
     """The JAX ``TrainStep.opt_state`` (``{"m", "v", "vr", "vc", "t"}``,
     lists in ``named_parameters`` order, as numpy-readable arrays) ->
-    the port's optimizer state, as CPU tensors of the same dtypes.
+    the port's optimizer state, as CPU tensors of the same dtypes (a
+    factored ``v`` of a 3-D MoE expert weight ``[E, h, ffn]`` is ``vr
+    [E]``, ``vc [h * ffn]`` in both).
     :meth:`paddle_tpu_torch.jit.TrainStep.restore_state` takes it."""
     return {key: [_tensor(e) for e in val]
             if isinstance(val, (list, tuple)) else _tensor(val)

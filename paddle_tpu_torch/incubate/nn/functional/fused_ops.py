@@ -1,7 +1,8 @@
-"""Row norms over the last axis, and the fused RMSNorm / LayerNorm entries.
+"""Row norms over the last axis, the fused RMSNorm / LayerNorm entries,
+and rotary position embedding.
 
-Port of the norm half of ``paddle_tpu/incubate/nn/functional/
-fused_ops.py``. :func:`rms_norm` and :func:`layer_norm` are the port's
+Port of the norm half and of ``fused_rotary_position_embedding`` of
+``paddle_tpu/incubate/nn/functional/fused_ops.py``. :func:`rms_norm` and :func:`layer_norm` are the port's
 one dispatching layer for the norms: a CUDA tensor goes through the
 Hopper kernel (:mod:`..cuda.norms`, the counterpart of the TPU kernel
 K7) and a CPU tensor through its plain version. :func:`fused_rms_norm`
@@ -11,7 +12,9 @@ Either way the gradient is autograd through the plain composition (the
 adds, then the norm), as the JAX package's ``_rms_bwd`` and ``_ln_bwd``
 are the vjp of ``_rms_ref`` and ``_ln_ref``. The JAX package's TPU gate
 (``_pallas_norm_ok``) is not carried over: every CUDA tensor the kernel
-takes goes to it.
+takes goes to it. :func:`fused_rotary_position_embedding` is plain,
+differentiable PyTorch (the training path's RoPE; the serving steps
+rotate with ``models/generation.py`` ``_rope``).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 
 from ..cuda import norms as _k
 
-__all__ = ["rms_norm", "layer_norm", "fused_rms_norm", "fused_layer_norm"]
+__all__ = ["rms_norm", "layer_norm", "fused_rms_norm", "fused_layer_norm",
+           "fused_rotary_position_embedding"]
 
 
 def _forward(kind, x, w, b, eps, bias=None, residual=None):
@@ -140,3 +144,59 @@ def fused_layer_norm(x, norm_weight, norm_bias=None, epsilon=1e-5,
     ax = begin_norm_axis if begin_norm_axis >= 0 else x.dim() - 1
     return _fused("ln", x, norm_weight, norm_bias, epsilon, ax, bias,
                   residual)
+
+
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def _rotate_pairwise(x):
+    return torch.stack([-x[..., 1::2], x[..., 0::2]], dim=-1).reshape(
+        x.shape)
+
+
+def _rope_tables(seq_len, head_dim, base, position_ids, neox, device):
+    """cos and sin of the f32 angles, ``[1 or b, s, 1, head_dim]``."""
+    inv = 1.0 / (base ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                       device=device) / head_dim))
+    if position_ids is None:
+        t = torch.arange(seq_len, dtype=torch.float32, device=device)
+        freqs = torch.outer(t, inv)[None]                 # [1, s, hd/2]
+    else:
+        # straight from the (possibly offset) positions: no table
+        freqs = position_ids.to(device, torch.float32)[..., None] * inv
+    emb = torch.cat([freqs, freqs], dim=-1) if neox \
+        else freqs.repeat_interleave(2, dim=-1)
+    return torch.cos(emb)[:, :, None, :], torch.sin(emb)[:, :, None, :]
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True,
+                                    time_major=False,
+                                    rotary_emb_base=10000.0, name=None):
+    """RoPE over ``[batch, seq, heads, head_dim]`` tensors (the JAX
+    package's ``fused_rotary_position_embedding``): each of q, k, v that
+    is given is rotated in f32 and rounded back to its own type; returns
+    the three (None where not given). The angles are ``position *
+    base^(-2i / head_dim)`` in f32, positions ``0..s-1`` or
+    ``position_ids [b, s]``. ``use_neox_rotary_style`` rotates the two
+    halves of head_dim, else each (even, odd) pair. ``time_major`` and
+    ``name`` are accepted and unused, as in the JAX package; precomputed
+    ``sin`` / ``cos`` tables are not ported."""
+    if sin is not None or cos is not None:
+        raise NotImplementedError(
+            "fused_rotary_position_embedding with sin / cos tables is not "
+            "ported yet: see ROADMAP.md")
+    first = next(t for t in (q, k, v) if t is not None)
+    cos_t, sin_t = _rope_tables(first.shape[1], first.shape[-1],
+                                rotary_emb_base, position_ids,
+                                use_neox_rotary_style, first.device)
+    rotate = _rotate_half if use_neox_rotary_style else _rotate_pairwise
+
+    def apply_one(t):
+        tf = t.float()
+        return (tf * cos_t + rotate(tf) * sin_t).to(t.dtype)
+
+    return tuple(None if t is None else apply_one(t) for t in (q, k, v))

@@ -1,6 +1,6 @@
-"""Model families of the port: GPT-3 (training and serving) and Llama-2
-(serving); :mod:`.pipeline_gpt` is ``bench.py``'s pure-function GPT for
-the compiled pipeline."""
+"""Model families of the port: GPT-3 (training, dense or MoE, and
+serving) and Llama-2 (training and serving); :mod:`.pipeline_gpt` is
+``bench.py``'s pure-function GPT for the compiled pipeline."""
 from .generation import GPTDecodeAdapter, LlamaDecodeAdapter
 from .gpt import (GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
                   gpt3_125M, gpt3_1p3B, gpt_tiny)

@@ -6,10 +6,14 @@ names (``gpt.h.{i}.attn.qkv_proj.weight``, ...) and keep Paddle's
 this one by copy (:func:`paddle_tpu_torch.convert.params_from_paddle_tpu`).
 
 Two paths: the full-sequence ``forward`` (training: pre-LN blocks,
-causal attention through the flash-attention kernels K1-K3, tied lm head,
-cross entropy, chunked when ``lm_ce_chunks > 1``), and serving through
-:meth:`GPTForCausalLM.decode_adapter`. Recompute, dropout, MoE, sequence
-parallelism and KV caches in ``forward`` are later slices (ROADMAP.md).
+causal attention through the flash-attention kernels K1-K3, a dense MLP
+or, with ``moe_num_experts > 0``, a top-2 GShard mixture of experts
+(:func:`..fusion.fused_moe_mlp`) whose aux loss joins the LM loss, tied
+lm head, cross entropy, chunked when ``lm_ce_chunks > 1``; with
+``recompute`` the blocks ``recompute_interval`` selects run under
+``torch.utils.checkpoint``), and serving through
+:meth:`GPTForCausalLM.decode_adapter`. Dropout, sequence parallelism
+and KV caches in ``forward`` are later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,13 +24,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..fusion.chunked import lm_head_chunked_ce
+from ..fusion.moe import fused_moe_mlp
 from ..incubate.nn.functional import scaled_dot_product_attention
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "gpt_tiny", "gpt3_125M", "gpt3_1p3B"]
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTMoEMLP",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B"]
 
 
 @dataclass
@@ -43,15 +49,24 @@ class GPTConfig:
     initializer_range: float = 0.02
     tie_word_embeddings: bool = True
     use_bias: bool = True
-    # the JAX package's training options: the port runs recompute=False,
-    # sequence_parallel_mode="gspmd" and moe_num_experts=0 (the others
-    # raise until their slice is ported)
+    # recompute: the selected blocks keep only their input and run their
+    # forward again in the backward (torch.utils.checkpoint). With
+    # recompute_interval k > 0 every k-th block is skipped (its
+    # activations saved; 1 selects every block), with k < 0 only every
+    # (-k)-th block is recomputed
     recompute: bool = False
+    recompute_interval: int = 1
     # > 1: the lm head + cross entropy run in this many token chunks, so
     # the [tokens, vocab] logits never exist in full (fusion/chunked.py)
     lm_ce_chunks: int = 0
+    # only "gspmd" is ported ("ring" / "ulysses" raise)
     sequence_parallel_mode: str = "gspmd"
+    # > 0: every block's MLP is a top-2 GShard mixture of this many
+    # experts, each holding capacity_factor * tokens * 2 / E slots; the
+    # load-balance aux loss, times moe_aux_weight, joins the LM loss
     moe_num_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         if self.intermediate_size is None:
@@ -124,20 +139,73 @@ class GPTMLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
-class GPTBlock(nn.Module):
-    """Pre-LN block: x + attn(ln_1(x)), then + mlp(ln_2(.))."""
+class GPTMoEMLP(nn.Module):
+    """Top-2 GShard mixture of gelu experts (the JAX ``GPTMoEMLP`` on its
+    default route, :func:`..fusion.fused_moe_mlp`): router
+    ``gate_weight [h, E]``, experts ``w1 [E, h, ffn]``, ``b1 [E, ffn]``,
+    ``w2 [E, ffn, h]``, ``b2 [E, h]``, ``max(4, int(capacity_factor * b
+    * s * 2 / E))`` slots an expert. ``forward`` returns ``(y, aux)``."""
 
     def __init__(self, config: GPTConfig, **factory):
+        super().__init__()
+        self.config = config
+        h, ffn = config.hidden_size, config.intermediate_size
+        E = self.num_experts = config.moe_num_experts
+        self.gate_weight = nn.Parameter(torch.empty(h, E, **factory))
+        self.w1 = nn.Parameter(torch.empty(E, h, ffn, **factory))
+        self.b1 = nn.Parameter(torch.zeros(E, ffn, **factory))
+        self.w2 = nn.Parameter(torch.empty(E, ffn, h, **factory))
+        self.b2 = nn.Parameter(torch.zeros(E, h, **factory))
+
+    def forward(self, x):
+        E = self.num_experts
+        cap = max(4, int(self.config.moe_capacity_factor * x.shape[0]
+                         * x.shape[1] * 2 / E))
+        return fused_moe_mlp(x, self.gate_weight, self.w1, self.b1, self.w2,
+                             self.b2, E, cap)
+
+
+def _recomputes(config: GPTConfig, layer_idx: int) -> bool:
+    """Whether block ``layer_idx`` runs under checkpoint (the JAX
+    ``GPTBlock``'s selection by ``recompute_interval``)."""
+    interval = int(config.recompute_interval) or 1
+    if interval > 0:
+        chosen = interval == 1 or layer_idx % interval != interval - 1
+    else:
+        chosen = layer_idx % (-interval) == 0
+    return bool(config.recompute) and chosen
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN block: x + attn(ln_1(x)), then + mlp(ln_2(.)). ``forward``
+    returns ``(x, aux)``, aux the MoE aux loss (None for a dense MLP)."""
+
+    def __init__(self, config: GPTConfig, layer_idx: int = 0, **factory):
         super().__init__()
         eps = config.layer_norm_eps
         self.ln_1 = nn.LayerNorm(config.hidden_size, eps, **factory)
         self.attn = GPTAttention(config, **factory)
         self.ln_2 = nn.LayerNorm(config.hidden_size, eps, **factory)
-        self.mlp = GPTMLP(config, **factory)
+        self.moe = config.moe_num_experts > 0
+        self.mlp = (GPTMoEMLP if self.moe else GPTMLP)(config, **factory)
+        self.recompute = _recomputes(config, layer_idx)
+
+    def _body(self, x):
+        x = x + self.attn(self.ln_1(x))
+        m = self.mlp(self.ln_2(x))
+        m, aux = m if self.moe else (m, None)
+        return x + m, aux
 
     def forward(self, x):
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        if self.recompute and self.training:
+            # non-reentrant: TrainStep takes its grads with
+            # torch.autograd.grad, which the reentrant form refuses. The
+            # aux loss leaves the checkpointed function as an output; the
+            # flash kernels run inside it (the JAX package sends
+            # attention in a rematerialised block to its XLA composition,
+            # a limit of Pallas under jax.checkpoint that does not apply)
+            return checkpoint(self._body, x, use_reentrant=False)
+        return self._body(x)
 
 
 class GPTModel(nn.Module):
@@ -155,18 +223,25 @@ class GPTModel(nn.Module):
             config.max_position_embeddings, h,
             _weight=torch.empty(config.max_position_embeddings, h,
                                 **factory))
-        self.h = nn.ModuleList([GPTBlock(config, **factory)
-                                for _ in range(config.num_layers)])
+        self.h = nn.ModuleList([GPTBlock(config, i, **factory)
+                                for i in range(config.num_layers)])
         self.ln_f = nn.LayerNorm(h, config.layer_norm_eps, **factory)
 
     def forward(self, input_ids, position_ids=None):
+        return self.hidden_and_aux(input_ids, position_ids)[0]
+
+    def hidden_and_aux(self, input_ids, position_ids=None):
+        """``(final hidden states, [each MoE block's aux loss])``."""
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None]
         x = self.wte(input_ids) + self.wpe(position_ids)
+        auxes = []
         for block in self.h:
-            x = block(x)
-        return self.ln_f(x)
+            x, aux = block(x)
+            if aux is not None:
+                auxes.append(aux)
+        return self.ln_f(x), auxes
 
 
 class GPTForCausalLM(nn.Module):
@@ -176,7 +251,8 @@ class GPTForCausalLM(nn.Module):
     weights are drawn from ``generator`` (default: a generator on the
     device seeded with ``seed``) with the JAX package's initializer:
     normal(0, initializer_range), and initializer_range / sqrt(2 L) for
-    the residual-branch outputs ``out_proj`` and ``fc2``; biases zero,
+    the residual-branch outputs ``out_proj`` and ``fc2`` (MoE: ``w2``;
+    ``gate_weight`` and ``w1`` at initializer_range); biases zero,
     LayerNorm weights one."""
 
     def __init__(self, config: GPTConfig, device: DeviceLike = None,
@@ -184,9 +260,6 @@ class GPTForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
         super().__init__()
-        if config.moe_num_experts:
-            raise NotImplementedError(
-                "MoE GPT is not ported yet: see ROADMAP.md")
         self.config = config
         dev = resolve_device(device)
         factory = {"device": dev, "dtype": dtype}
@@ -207,8 +280,13 @@ class GPTForCausalLM(nn.Module):
         for blk in self.gpt.h:
             blk.attn.qkv_proj.weight.normal_(0.0, std, generator=g)
             blk.attn.out_proj.weight.normal_(0.0, std_out, generator=g)
-            blk.mlp.fc1.weight.normal_(0.0, std, generator=g)
-            blk.mlp.fc2.weight.normal_(0.0, std_out, generator=g)
+            if blk.moe:
+                blk.mlp.gate_weight.normal_(0.0, std, generator=g)
+                blk.mlp.w1.normal_(0.0, std, generator=g)
+                blk.mlp.w2.normal_(0.0, std_out, generator=g)
+            else:
+                blk.mlp.fc1.weight.normal_(0.0, std, generator=g)
+                blk.mlp.fc2.weight.normal_(0.0, std_out, generator=g)
         if self.lm_head is not None:
             self.lm_head.weight.normal_(0.0, std, generator=g)
 
@@ -222,9 +300,6 @@ class GPTForCausalLM(nn.Module):
             raise NotImplementedError(
                 "hidden and attention dropout are not ported yet: see "
                 "ROADMAP.md")
-        if self.training and cfg.recompute:
-            raise NotImplementedError(
-                "block recompute is not ported yet: see ROADMAP.md")
         if cfg.sequence_parallel_mode != "gspmd":
             raise NotImplementedError(
                 "sequence_parallel_mode=%r is not ported yet: see "
@@ -234,23 +309,28 @@ class GPTForCausalLM(nn.Module):
                 caches=None):
         """Full-sequence forward. ``input_ids`` [b, s] (int); with
         ``labels`` [b, s] (already shifted; -100 = ignored) returns the
-        mean token cross entropy, else the logits [b, s, vocab]. With
+        mean token cross entropy, plus each MoE block's aux loss times
+        ``moe_aux_weight``, else the logits [b, s, vocab]. With
         ``lm_ce_chunks > 1`` (and b*s divisible by it) the loss is the
         chunked lm head + cross entropy, whose logits never exist in
         full."""
         self._check_supported(caches)
-        x = self.gpt(input_ids, position_ids)
+        x, auxes = self.gpt.hidden_and_aux(input_ids, position_ids)
         tied = self.lm_head is None
         w = self.gpt.wte.weight if tied else self.lm_head.weight
         chunks = int(self.config.lm_ce_chunks or 0)
         if labels is not None and chunks > 1 \
                 and x.shape[0] * x.shape[1] % chunks == 0:
-            return lm_head_chunked_ce(x, w, labels, chunks,
+            loss = lm_head_chunked_ce(x, w, labels, chunks,
                                       transpose_weight=tied)
-        logits = x @ w.t() if tied else x @ w
-        if labels is None:
-            return logits
-        return GPTPretrainingCriterion()(logits, labels)
+        else:
+            logits = x @ w.t() if tied else x @ w
+            if labels is None:
+                return logits
+            loss = GPTPretrainingCriterion()(logits, labels)
+        for aux in auxes:
+            loss = loss + aux * self.config.moe_aux_weight
+        return loss
 
     def decode_adapter(self):
         """Weight-extraction protocol of the serving engine

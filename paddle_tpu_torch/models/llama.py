@@ -5,9 +5,16 @@ Port of ``paddle_tpu/models/llama.py``. Parameters carry the JAX
 package's names (``llama.layers.{i}.self_attn.q_proj.weight``, ...) and
 keep Paddle's ``[in, out]`` linear layout, so a JAX model's
 ``state_dict`` maps onto this one by copy
-(:func:`paddle_tpu_torch.convert.params_from_paddle_tpu`). The model
-serves through :meth:`LlamaForCausalLM.decode_adapter`; the
-full-sequence ``forward`` (training) is a later slice (ROADMAP.md).
+(:func:`paddle_tpu_torch.convert.params_from_paddle_tpu`). Two paths:
+the full-sequence ``forward`` (training: RMSNorm through the row-norm
+kernel K7, RoPE, causal GQA attention through the flash-attention
+kernels K1-K3, the JAX package's fused route for the residual add +
+RMSNorm and the SwiGLU gate, an untied lm head and cross entropy,
+chunked when ``lm_ce_chunks > 1``; with ``recompute`` every block runs
+under ``torch.utils.checkpoint``), and serving through
+:meth:`LlamaForCausalLM.decode_adapter`. KV caches in ``forward`` and
+the ``ring`` / ``ulysses`` sequence-parallel modes are later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -17,11 +24,17 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..fusion.chunked import lm_head_chunked_ce
+from ..fusion.epilogues import add_rms_norm, swiglu_linear
+from ..incubate.nn.functional import (fused_rotary_position_embedding,
+                                      rms_norm, scaled_dot_product_attention)
 from .gpt import Linear
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "llama_tiny", "llama2_7B"]
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "cross_entropy", "llama_tiny",
+           "llama2_7B"]
 
 
 @dataclass
@@ -37,6 +50,14 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    # every block keeps only its input and runs its forward again in the
+    # backward (torch.utils.checkpoint)
+    recompute: bool = False
+    # > 1: the lm head + cross entropy run in this many token chunks
+    # (fusion/chunked.py)
+    lm_ce_chunks: int = 0
+    # only "gspmd" is ported ("ring" / "ulysses" raise)
+    sequence_parallel_mode: str = "gspmd"
 
     def __post_init__(self):
         if self.num_kv_heads is None:
@@ -62,25 +83,44 @@ def llama2_7B(**kw) -> LlamaConfig:
 
 
 class RMSNorm(nn.Module):
-    """The weight of an RMSNorm over the last axis (the serving step
-    normalises through K7, ``models/generation.py`` ``_rms``)."""
+    """RMSNorm over the last axis: f32 statistics, the result in x's
+    type (K7 on the card; its backward is the plain version's vjp)."""
 
-    def __init__(self, d: int, **factory):
+    def __init__(self, d: int, eps: float = 1e-6, **factory):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(d, **factory))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, None, self.eps)
 
 
 class LlamaAttention(nn.Module):
-    """The q/k/v/o projections (no biases); k and v have
-    ``num_kv_heads`` heads."""
+    """The q/k/v/o projections (no biases), RoPE on q and k, causal
+    attention; k and v have ``num_kv_heads`` heads, repeated over each
+    group of query heads inside the attention (GQA)."""
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
+        self.config = config
         h, hd = config.hidden_size, config.head_dim
         self.q_proj = Linear(h, config.num_heads * hd, False, **factory)
         self.k_proj = Linear(h, config.num_kv_heads * hd, False, **factory)
         self.v_proj = Linear(h, config.num_kv_heads * hd, False, **factory)
         self.o_proj = Linear(config.num_heads * hd, h, False, **factory)
+
+    def forward(self, x, position_ids=None):
+        cfg = self.config
+        b, s = x.shape[0], x.shape[1]
+        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, None, position_ids=position_ids,
+            rotary_emb_base=cfg.rope_base)
+        out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
+                                           training=self.training)
+        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -93,15 +133,40 @@ class LlamaMLP(nn.Module):
         self.up_proj = Linear(h, ffn, False, **factory)
         self.down_proj = Linear(ffn, h, False, **factory)
 
+    def forward(self, x):
+        return self.down_proj(swiglu_linear(x, self.gate_proj.weight,
+                                            self.up_proj.weight))
+
 
 class LlamaBlock(nn.Module):
+    """x + attn(input_layernorm(x)), then the residual add and the
+    post-attention RMSNorm as one region, then + mlp(.)."""
+
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
-        h = config.hidden_size
-        self.input_layernorm = RMSNorm(h, **factory)
+        h, eps = config.hidden_size, config.rms_norm_eps
+        self.input_layernorm = RMSNorm(h, eps, **factory)
         self.self_attn = LlamaAttention(config, **factory)
-        self.post_attention_layernorm = RMSNorm(h, **factory)
+        self.post_attention_layernorm = RMSNorm(h, eps, **factory)
         self.mlp = LlamaMLP(config, **factory)
+        self.recompute = bool(config.recompute)
+
+    def _body(self, x, position_ids=None):
+        a = self.self_attn(self.input_layernorm(x), position_ids)
+        ln = self.post_attention_layernorm
+        h, x = add_rms_norm(a, x, ln.weight, ln.eps)
+        return x + self.mlp(h)
+
+    def forward(self, x, position_ids=None):
+        if self.recompute and self.training:
+            # non-reentrant: TrainStep takes its grads with
+            # torch.autograd.grad, which the reentrant form refuses. K1/K2
+            # and K7 run inside the checkpoint (the JAX package sends
+            # attention in a rematerialised block to its XLA composition,
+            # a limit of Pallas under jax.checkpoint that does not apply)
+            return checkpoint(self._body, x, position_ids,
+                              use_reentrant=False)
+        return self._body(x, position_ids)
 
 
 class LlamaModel(nn.Module):
@@ -117,7 +182,26 @@ class LlamaModel(nn.Module):
             _weight=torch.empty(config.vocab_size, h, **factory))
         self.layers = nn.ModuleList([LlamaBlock(config, **factory)
                                      for _ in range(config.num_layers)])
-        self.norm = RMSNorm(h, **factory)
+        self.norm = RMSNorm(h, config.rms_norm_eps, **factory)
+
+    def forward(self, input_ids, position_ids=None):
+        x = self.embed_tokens(input_ids)
+        for block in self.layers:
+            x = block(x, position_ids)
+        return self.norm(x)
+
+
+def cross_entropy(logits, labels, ignore_index: int = -100):
+    """Mean token cross entropy over the non-ignored labels (the JAX
+    ``F.cross_entropy(..., reduction="mean")`` on integer labels):
+    log-softmax in the logits' own type, the sum divided by max(count,
+    1)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    lab = labels.reshape(-1).to(device=logits.device, dtype=torch.long)
+    valid = lab != ignore_index
+    picked = logp.gather(-1, torch.where(valid, lab, 0)[:, None])[:, 0]
+    out = -torch.where(valid, picked, 0.0)
+    return out.sum() / valid.to(out.dtype).sum().clamp_min(1.0)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -163,10 +247,32 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, position_ids=None, labels=None,
                 caches=None):
-        raise NotImplementedError(
-            "Llama's full-sequence forward (training) is not ported yet: "
-            "serve through decode_adapter() / serving.ServingEngine "
-            "(ROADMAP.md)")
+        """Full-sequence forward. ``input_ids`` [b, s] (int); with
+        ``labels`` [b, s] (already shifted; -100 = ignored) returns the
+        mean token cross entropy, else the logits [b, s, vocab]. With
+        ``lm_ce_chunks > 1`` (and b*s divisible by it) the loss is the
+        chunked lm head + cross entropy, whose logits never exist in
+        full."""
+        if caches is not None:
+            raise NotImplementedError(
+                "forward with KV caches is not ported; serve through "
+                "decode_adapter() / serving.ServingEngine (ROADMAP.md)")
+        if self.config.sequence_parallel_mode != "gspmd":
+            raise NotImplementedError(
+                "sequence_parallel_mode=%r is not ported yet: see "
+                "ROADMAP.md" % self.config.sequence_parallel_mode)
+        x = self.llama(input_ids, position_ids)
+        tied = self.lm_head is None
+        w = self.llama.embed_tokens.weight if tied else self.lm_head.weight
+        chunks = int(self.config.lm_ce_chunks or 0)
+        if labels is not None and chunks > 1 \
+                and x.shape[0] * x.shape[1] % chunks == 0:
+            return lm_head_chunked_ce(x, w, labels, chunks,
+                                      transpose_weight=tied)
+        logits = x @ w.t() if tied else x @ w
+        if labels is None:
+            return logits
+        return cross_entropy(logits.reshape(-1, logits.shape[-1]), labels)
 
     def decode_adapter(self):
         """Weight-extraction protocol of the serving engine

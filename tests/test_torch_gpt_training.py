@@ -16,7 +16,10 @@ layers with the same arithmetic in other summation orders:
   zero in exact arithmetic (softmax does not change when one constant is
   added to every score of a row), so both packages feed Adam rounding
   noise there, and m / (sqrt(v) + eps) of noise is anything in [-1, 1];
-* the global gradient norm: rtol 1e-6.
+* the global gradient norm: rtol 1e-6;
+* with ``recompute`` (``recompute_interval`` 1, 2 and -2): every gradient
+  against the JAX model's under ``jax.checkpoint``, rtol 1e-4 and atol
+  1e-6, and against the same port model without recompute, bit for bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -48,10 +51,10 @@ def _np(x):
     return np.array(x, copy=True)
 
 
-def _jax_model(chunks, seed=11):
+def _jax_model(chunks, seed=11, **kw):
     pt.seed(seed)
     return pt.models.GPTForCausalLM(pt.models.gpt_tiny(
-        dropout=0.0, attention_dropout=0.0, lm_ce_chunks=chunks))
+        dropout=0.0, attention_dropout=0.0, lm_ce_chunks=chunks, **kw))
 
 
 def _port_model(jm, chunks):
@@ -72,6 +75,31 @@ def test_forward_loss_matches_jax(chunks):
     logits = tm(torch.from_numpy(ids))
     np.testing.assert_allclose(logits.detach().numpy(),
                                jm(pt.to_tensor(ids)).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("interval", [1, 2, -2])
+def test_recompute_grads_match_jax(interval):
+    jm = _jax_model(4, recompute=True, recompute_interval=interval)
+    ids, labels = _batch(jm.config.vocab_size)
+    loss = jm(pt.to_tensor(ids), labels=pt.to_tensor(labels))
+    loss.backward()
+    want = {n: np.asarray(p.grad._data) for n, p in jm.named_parameters()}
+    got = {}
+    for recompute in (True, False):
+        tm = GPTForCausalLM(gpt_tiny(lm_ce_chunks=4, recompute=recompute,
+                                     recompute_interval=interval),
+                            device="cpu")
+        tm.load_state_dict(params_from_paddle_tpu(
+            {k: v.numpy() for k, v in jm.state_dict().items()}))
+        names, params = zip(*tm.named_parameters())
+        tl = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+        got[recompute] = dict(zip(names, (g.numpy() for g in
+                                          torch.autograd.grad(tl, params))))
+    assert got[True].keys() == want.keys()
+    for n, w in want.items():
+        np.testing.assert_allclose(got[True][n], w, rtol=1e-4, atol=1e-6,
+                                   err_msg=n)
+        np.testing.assert_array_equal(got[True][n], got[False][n], err_msg=n)
 
 
 def test_chunked_ce_invariant_to_chunk_count():

@@ -4,7 +4,9 @@ K4 and K5 (ragged paged attention over fp and int8 pools), K7 (row
 RMSNorm and LayerNorm), K1/K2/K3 (flash attention forward, fused
 backward, split backward), K6 (paged decode), K8 (the MoE grouped
 GEMM), K9 (the TP ring step) and K10 (the ring shift), with the layers
-over them on the card. These tests need an NVIDIA Hopper GPU
+over them on the card: among them the training paths' K1/K2 at Llama-2
+7B's shape, K1/K2 and K7 inside ``torch.utils.checkpoint``, and the MoE
+FFN of MoE GPT training. These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -1801,3 +1803,173 @@ def test_pipeline_on_the_card_matches_the_cpu_ring(S):
             assert abs(got - want) <= 1e-5 * abs(want)
         for a, b in zip(pipes[0].params, pipes[1].params):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+
+# ------------------------------------------------- training paths: K1/K2, K7
+@pytest.mark.cuda
+def test_flash_at_llama_training_shape():
+    """K1 and K2 where Llama-2 7B training runs them: b 2, s 4096, 32
+    heads, d 128, causal, bf16 (s * d under K2's cap), against the plain
+    versions one batch row at a time (their [h, s, s] f32 tiles)."""
+    _need_hopper()
+    b, s, h, d = 2, 4096, 32, 128
+    q, k, v, do = _flash_inputs(b, s, s, h, d, torch.bfloat16, seed=9)
+    scale = d ** -0.5
+    assert fa.uses_fused_bwd(s, s, d)
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    got = fa.flash_bwd(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    for i in range(b):
+        row = slice(i, i + 1)
+        want_out, want_lse = _ref_fwd(q[row], k[row], v[row], True, scale)
+        _assert_close(out[row], want_out, FLASH_TOL["bfloat16"], "out")
+        _assert_lse_close(lse[row], want_lse)
+        want = _ref_bwd(q[row], k[row], v[row], out[row], lse[row], do[row],
+                        True, scale)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            _assert_close(g[row], w, FLASH_TOL["bfloat16"], name)
+        del want_out, want_lse, want
+        torch.cuda.empty_cache()
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.cuda
+def test_kernels_inside_checkpoint():
+    """K7's ``_RowNorm`` and K1/K2 inside non-reentrant
+    ``torch.utils.checkpoint``: the same output and grads as without it
+    (K2 adds dq with atomics, so grads within 1e-2 relative L2; out and
+    the norm's output bit for bit), K1 and K7 launched again by the
+    recompute, K2 once either way."""
+    _need_hopper()
+    from torch.utils.checkpoint import checkpoint
+
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_rms_norm, rms_norm, scaled_dot_product_attention)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, s, h, d = 2, 512, 4, 64
+    x0 = torch.randn(b, s, h * d, generator=g, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(h * d, generator=g, device="cuda")).bfloat16()
+    wqkv = (0.05 * torch.randn(h * d, 3 * h * d, generator=g,
+                               device="cuda")).bfloat16()
+
+    def block(x, w, wqkv):
+        qkv = (rms_norm(x, w, None, 1e-5) @ wqkv).reshape(b, s, 3, h, d)
+        a = scaled_dot_product_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                         qkv[:, :, 2], is_causal=True)
+        y, x = fused_rms_norm(a.reshape(b, s, h * d), w, None, 1e-5,
+                              residual=x)
+        return y + x
+
+    res = []
+    for ckpt in (False, True):
+        leaves = [t.detach().clone().requires_grad_() for t in (x0, w, wqkv)]
+        counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+                  tn.rms_norm.launches)
+        out = checkpoint(block, *leaves, use_reentrant=False) if ckpt \
+            else block(*leaves)
+        grads = torch.autograd.grad((out.float() ** 2).sum(), leaves)
+        torch.cuda.synchronize()
+        launched = tuple(a - b_ for a, b_ in zip(
+            (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+             tn.rms_norm.launches), counts))
+        assert launched == ((2, 1, 4) if ckpt else (1, 1, 2)), launched
+        res.append((out, grads))
+    assert torch.equal(res[0][0], res[1][0])
+    for name, a, w_ in zip(("dx", "dw", "dwqkv"), res[1][1], res[0][1]):
+        assert bool(torch.isfinite(a).all()), name
+        assert _rel_l2(a, w_) <= 1e-2, (name, _rel_l2(a, w_))
+
+
+@pytest.mark.cuda
+def test_llama_recompute_on_the_card():
+    """A 2-layer Llama of head_dim 64 (GQA 4/2) in bf16 on the card, with
+    and without recompute, the same weights: loss bit for bit, grads
+    within 1e-2 relative L2 (K2's dq atomics), a step's launches K1 2L,
+    K2 L, K3 0, K7 4L + 1 with recompute (L, L, 0, 2L + 1 without)."""
+    _need_hopper()
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    L = 2
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=L, num_heads=4,
+               num_kv_heads=2, max_position_embeddings=512,
+               lm_ce_chunks=4)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, 512, (2, 256), generator=g, device="cuda")
+    labels = torch.randint(0, 512, (2, 256), generator=g, device="cuda")
+    res = []
+    for recompute in (False, True):
+        m = LlamaForCausalLM(LlamaConfig(recompute=recompute, **cfg),
+                             dtype=torch.bfloat16, seed=0)
+        counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+                  fa.flash_bwd_split.launches, tn.rms_norm.launches)
+        loss = m(ids, labels=labels)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        launched = tuple(a - b_ for a, b_ in zip(
+            (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+             fa.flash_bwd_split.launches, tn.rms_norm.launches), counts))
+        want = (2 * L, L, 0, 4 * L + 1) if recompute else (L, L, 0,
+                                                           2 * L + 1)
+        assert launched == want, (recompute, launched)
+        res.append((loss, grads))
+    assert torch.equal(res[0][0], res[1][0])
+    for i, (a, w_) in enumerate(zip(res[1][1], res[0][1])):
+        assert bool(torch.isfinite(a).all()), i
+        assert _rel_l2(a, w_) <= 1e-2, (i, _rel_l2(a, w_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor", [1.25, 0.25])
+def test_fused_moe_mlp_on_the_card_matches_the_cpu(factor):
+    """MoE GPT's FFN (``fusion.fused_moe_mlp``) in f32 on the card
+    against the same call on the CPU: identical routing slots from the
+    same logits; y, aux and the grads of x and every weight no farther
+    from an f64 run on the CPU than twice the CPU's f32 run, plus 1e-6
+    (relative L2; TF32 off). The router's gradient holds terms that are
+    zero in exact arithmetic (a token with one kept choice has the
+    normalised gate g / g = 1), which each run computes as the rounding
+    noise of two equal products: at capacity factor 0.25 the card's and
+    the CPU's dgate read 0.0038 apart, so no fixed f32 limit fits."""
+    _need_hopper()
+    from paddle_tpu_torch.fusion.moe import fused_moe_mlp, gshard_top2
+
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(12)
+        E, d, ffn, b, s = 8, 64, 96, 4, 128
+        cap = max(4, int(factor * b * s * 2 / E))
+        arrays = [rng.randn(b, s, d), 0.3 * rng.randn(d, E),
+                  0.1 * rng.randn(E, d, ffn), 0.1 * rng.randn(E, ffn),
+                  0.1 * rng.randn(E, ffn, d), 0.1 * rng.randn(E, d)]
+        logits = arrays[0].reshape(-1, d) @ arrays[1]
+        res, slots = {}, {}
+        for dev, dt in (("cpu", torch.float64), ("cpu", torch.float32),
+                        ("cuda", torch.float32)):
+            ts = [torch.tensor(a, dtype=dt, device=dev).requires_grad_()
+                  for a in arrays]
+            y, aux = fused_moe_mlp(*ts, E, cap)
+            grads = torch.autograd.grad((y ** 2).sum() + aux, ts)
+            res[dev, dt] = [t.detach().cpu().double()
+                            for t in (y, aux, *grads)]
+            if dt == torch.float32:
+                slots[dev] = [t.cpu() for t in gshard_top2(torch.tensor(
+                    logits, dtype=dt, device=dev), E, cap)[:2]]
+        assert all(torch.equal(a, b_) for a, b_ in zip(slots["cpu"],
+                                                       slots["cuda"]))
+        assert (factor < 1) == bool((slots["cpu"][1] == E * cap).any())
+        want = res["cpu", torch.float64]
+        for i, name in enumerate(("y", "aux", "dx", "dgate", "dw1", "db1",
+                                  "dw2", "db2")):
+            err = [((res[k][i] - want[i]).norm() / want[i].norm()).item()
+                   for k in (("cuda", torch.float32),
+                             ("cpu", torch.float32))]
+            print("%s: relative L2 from f64, card %.3g, CPU %.3g"
+                  % (name, *err))
+            assert err[0] <= 2 * err[1] + 1e-6, (name, err)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
