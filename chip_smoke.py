@@ -82,16 +82,17 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    events on the sending card (with one card: "not measured");
 5. K1, K2, K3: hold the flash-attention forward, fused backward and split
    backward against their plain versions at the training shapes (GPT-3
-   1.3B's b 8, s 1024, 16 heads, d 128, and Llama-2 7B's b 2, s 4096, 32
+   1.3B's b 8, s 1024, 16 heads, d 128, Llama-2 7B's b 2, s 4096, 32
+   heads, d 128, and ``bench.py``'s seq-2048 sub-bench's b 4, s 2048, 16
    heads, d 128; bf16, causal) and at sq < sk, a ragged s, full
    attention, d 64 and 256, and a sequence past the fused backward's cap
-   (the split route); time each at both training shapes beside its plain
-   version, the library's flash attention (forward:
+   (the split route); time each at the three training shapes beside its
+   plain version, the library's flash attention (forward:
    ``scaled_dot_product_attention``; backward: its aten backward op; both
    timed only) and its bound, and K3 again at the split route's shape
    (where the backward takes it) beside aten's backward and the bound;
-6. train three models (bf16, random weights from seed 0, full width and
-   depth), one after another, each freed before the next: GPT-3 1.3B as
+6. train six paths (bf16, random weights from seed 0, full width and
+   depth), one after another, each model freed before the next: GPT-3 1.3B as
    ``bench.py`` configures it (batch 8 x 1024 tokens,
    ``lm_ce_chunks=8``); Llama-2 7B with block recompute (``llama2_7B(
    recompute=True, lm_ce_chunks=8)``: 32 layers, h 4096, 32 heads, ffn
@@ -114,7 +115,24 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    model (``step_launches``: K1 L, or 2L with recompute, K2 L, K3 0, K7
    4L + 1 for Llama, 0 for GPT, K4 and K8 0); prints tokens/s, the
    median step, MFU (``bench.py``'s 6N + 6 L h s flops a token against
-   989 TFLOP/s, N the MoE experts at 2/E) and peak memory;
+   989 TFLOP/s, N the MoE experts at 2/E) and peak memory. Then the
+   training options of a real run, on GPT-3 1.3B: ``bench.py``'s seq-2048
+   sub-bench (4 x 2048, checked as above); its streaming sub-bench
+   (fresh 8 x 1024 batches from a seeded numpy generator, stacked by a
+   ``ChunkPrefetcher`` into ``run_steps_stream`` chunks of 4 under a
+   linear warm-up + cosine schedule: every step's learning rate must be
+   the schedule's; ``of_headline`` is its tokens/s over the same-batch
+   ``run_steps`` in the same call); and dropout and attention dropout
+   0.1, block recompute, 8-bit AdamW moments, gradient merge of 2
+   micro-batches of 8 x 1024 and the skip health policy, where on a
+   2-layer copy at full width every mask a recomputed block draws is the
+   forward's and the grads with recompute on and off are equal (bit for
+   bit through the plain versions), a step with a non-finite loss leaves
+   every parameter and state tensor bit for bit as it was and warns, the
+   launches are K1 (L + recomputed blocks) and K2 L a micro-batch, and
+   the 8-bit moments' bytes and a step under the skip policy and under
+   none (in turns) are printed. Each of the three checks every layer's
+   attention against the plain version;
 7. serve GPT-3 1.3B (bf16, bf16 KV pools) and then Llama-2 7B (bf16,
    int8 KV pools), both with random weights from seed 0 at full width and
    depth, each with ``ServingEngine(max_slots=8, block_size=16,
@@ -176,7 +194,7 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    steps whose loss must fall, K10 launched S (M+S-1) + S (M+S-2) times a
    step; tokens/s, ``bench.py``'s MFU formula against 67 TFLOP/s f32,
    peak memory a card;
-9. one JSON line with the three training paths' numbers, one with the
+9. one JSON line with the six training paths' numbers, one with the
    MoE numbers, one with the serving numbers, one with the TP and
    pipeline numbers, then one listing every ported kernel with its
    numbers (``--phases ring``: the last two only);
@@ -1216,10 +1234,12 @@ def moe_kernel_phase(card):
 FLASH_SRC = "paddle_tpu_torch/incubate/nn/csrc/flash_attn.cu"
 FLASH_PALLAS = "paddle_tpu/incubate/nn/pallas/flash_attn.py"
 # name -> (b, sq, sk, h, d, causal); "train" is GPT training's shape,
-# "llama_train" Llama-2 7B training's (s * d at half K2's cap)
+# "llama_train" Llama-2 7B training's (s * d at half K2's cap), "seq2048"
+# bench.py's seq-2048 sub-bench's (GPT-3 1.3B on 4 x 2048)
 FLASH_CASES = {
     "train": (8, 1024, 1024, 16, 128, True),
     "llama_train": (2, 4096, 4096, 32, 128, True),
+    "seq2048": (4, 2048, 2048, 16, 128, True),
     "sq_lt_sk": (2, 300, 1024, 16, 128, True),
     "ragged_s": (2, 1000, 1000, 16, 128, True),
     "full": (2, 1024, 1024, 16, 128, False),
@@ -1229,6 +1249,10 @@ FLASH_CASES = {
     # plain version's [s, s] f32 tiles fit)
     "split_route": (1, 8320, 8320, 2, 128, True),
 }
+
+
+# the shapes phase 5 times (the first is the kernels line's own)
+TIMED_FLASH = ("train", "llama_train", "seq2048")
 
 
 def visible_pairs(sq, sk, causal):
@@ -1336,7 +1360,7 @@ def flash_kernel_phase(card):
                   "%s max_abs_err %.4g (%.3e of its row's RMS)" % (kk, e, r)
                   for kk, (e, r) in errs.items()), lse_err, card),
               flush=True)
-        if name in ("train", "llama_train"):
+        if name in TIMED_FLASH:
             timed[name] = time_flash(fa, q, k, v, do, hm, ref_out, ref_lse,
                                      causal, scale, errs, card, name)
         elif name == "split_route":
@@ -1346,7 +1370,8 @@ def flash_kernel_phase(card):
         torch.cuda.empty_cache()
     results = timed["train"]
     for kname, r in results.items():
-        r["llama_train"] = timed["llama_train"][kname]
+        for other in TIMED_FLASH[1:]:
+            r[other] = timed[other][kname]
     results["K3"]["split_route"] = split
     return results
 
@@ -1447,7 +1472,26 @@ TRAIN_PATHS = {
     "gpt3_1p3B_moe": ("GPTForCausalLM", "gpt3_1p3B",
                       dict(moe_num_experts=8, intermediate_size=2816,
                            lm_ce_chunks=8), (8, 1024)),
+    # bench.py's seq-2048 sub-bench: the headline's model on 4 x 2048
+    "gpt3_1p3B_seq2048": ("GPTForCausalLM", "gpt3_1p3B",
+                          dict(lm_ce_chunks=8), (4, 2048)),
+    # bench.py's streaming sub-bench: fresh 8 x 1024 batches a step through
+    # a ChunkPrefetcher into run_steps_stream, under a warm-up + cosine
+    # schedule (stream_phase)
+    "gpt3_1p3B_stream": ("GPTForCausalLM", "gpt3_1p3B",
+                         dict(lm_ce_chunks=8), (8, 1024)),
+    # the options of a real pretraining run: hidden and attention dropout
+    # 0.1, block recompute, 8-bit Adam moments, gradient merge of 2
+    # micro-batches of the headline's 8 x 1024, the skip health policy
+    # (options_phase)
+    "gpt3_1p3B_options": ("GPTForCausalLM", "gpt3_1p3B",
+                          dict(lm_ce_chunks=8, dropout=0.1,
+                               attention_dropout=0.1, recompute=True),
+                          (16, 1024)),
 }
+STREAM_CHUNK = 4        # steps a run_steps_stream chunk
+STREAM_CHUNKS = 2       # timed chunks (after a warm-up chunk)
+OPTIONS_ACCUMULATE = 2  # micro-batches a step of the options path
 # the 2-layer check's parameters whose grads are held one by one
 TRAIN_GRADS = {
     "gpt3_1p3B": ("gpt.h.0.attn.qkv_proj.weight", "gpt.h.1.mlp.fc1.weight",
@@ -1458,6 +1502,10 @@ TRAIN_GRADS = {
                   "llama.embed_tokens.weight"),
     "gpt3_1p3B_moe": ("gpt.h.0.attn.qkv_proj.weight", "gpt.h.1.mlp.w1",
                       "gpt.h.0.mlp.gate_weight", "gpt.wte.weight"),
+    "gpt3_1p3B_seq2048": ("gpt.h.0.attn.qkv_proj.weight",
+                          "gpt.h.1.mlp.fc1.weight", "gpt.wte.weight"),
+    "gpt3_1p3B_options": ("gpt.h.0.attn.qkv_proj.weight",
+                          "gpt.h.1.mlp.fc1.weight", "gpt.wte.weight"),
 }
 
 
@@ -1506,11 +1554,16 @@ def trunk(model):
 
 def plain_attention(query, key, value, attn_mask=None, dropout_p=0.0,
                     is_causal=False, training=True, name=None):
-    """The model's attention call through the plain composition."""
+    """The model's attention call through the plain composition, with
+    the attention dropout the functional layer applies to its output."""
     from paddle_tpu_torch.incubate.nn.cuda.flash_attn import (
         flash_attention_ref)
+    from paddle_tpu_torch.nn.functional import common
 
-    return flash_attention_ref(query, key, value, causal=is_causal)
+    out = flash_attention_ref(query, key, value, causal=is_causal)
+    if dropout_p > 0.0 and training:
+        out = common.dropout(out, dropout_p)
+    return out
 
 
 def plain_rms_norm(x, weight, bias=None, eps=1e-6):
@@ -1803,11 +1856,12 @@ def training_kernels():
             "K8": (md.grouped_matmul, "launches")}
 
 
-def step_launches(model):
-    """The launches one training step of ``model`` must make: the
-    forward runs K1 once a layer, the backward K2 once a layer (s * d is
-    under K2's cap: never K3), and a recomputed block (``recompute``: every
-    Llama block) its forward again in the backward, K1 included. Llama's
+def step_launches(model, micro=1):
+    """The launches one training step of ``model`` over ``micro``
+    micro-batches (gradient merge) must make: a micro-batch's forward runs
+    K1 once a layer, its backward K2 once a layer (s * d is under K2's
+    cap: never K3), and a recomputed block (``recompute``: every Llama
+    block) its forward again in the backward, K1 included. Llama's
     norms are K7's RMSNorm: two a block (the input norm, and the
     post-attention norm after the residual add, which under a gradient is
     autograd's add and K7's plain form) and the final norm, 2L + 1 in the
@@ -1821,7 +1875,7 @@ def step_launches(model):
     want.update({"K1": L + rc, "K2": L})
     if hasattr(model, "llama"):
         want["K7 rms_norm"] = 2 * L + 1 + 2 * rc
-    return want
+    return {k: micro * n for k, n in want.items()}
 
 
 def active_params(model):
@@ -1882,24 +1936,397 @@ def train_phase(card, path="gpt3_1p3B", model=None):
                                                                  losses))
     check(losses[-1] < first, "%s: loss did not fall: %s"
           % (path, [first] + losses))
-    tokens_s = b * s * TRAIN_STEPS / sum(step_s)
+    res = train_rates(path, model, b * s * TRAIN_STEPS, step_s, peak,
+                      card, losses=[first] + losses, launches=launches)
+    print_rates(path, res, "%d steps of %d x %d tokens" % (TRAIN_STEPS, b,
+                                                           s))
+    return res, step, (ids, labels)
+
+
+def train_rates(path, model, tokens, step_s, peak, card, **more):
+    """tokens/s over the timed steps, the median step, MFU by bench.py's
+    formula (6N + 6 L h s flops a token against 989 TFLOP/s, N the MoE
+    experts at 2/E) and peak memory, with ``more``."""
+    cfg = train_config(path)
+    s = TRAIN_PATHS[path][3][1]
+    tokens_s = tokens / sum(step_s)
     n_params = sum(p.numel() for p in model.parameters())
     n_active = active_params(model)
     flops_per_token = 6 * n_active + 6 * cfg.num_layers * cfg.hidden_size * s
-    mfu = tokens_s * flops_per_token / BF16_FLOPS_PER_S
-    res = dict(tokens_s=tokens_s, median_step_ms=1e3 * statistics.median(
-        step_s), mfu=mfu, peak_gb=peak / 1e9, params=n_params,
-        active_params=n_active, flops_per_token=flops_per_token,
-        losses=[first] + losses, launches=launches, batch=[b, s],
-        layers=cfg.num_layers, card=card)
-    print("train %s: %d steps of %d x %d tokens, losses %s; %.1f tokens/s, "
-          "median step %.2f ms, MFU %.4f (tokens/s x (6N + 6 L h s) / 989 "
-          "TFLOP/s, N = %d of %d params%s, %.4g flops/token), peak memory "
-          "%.2f GB; launches %s [%s]"
-          % (path, TRAIN_STEPS, b, s, ["%.4f" % x for x in losses], tokens_s,
-             res["median_step_ms"], mfu, n_active, n_params,
-             ": the experts at 2/E" if n_active != n_params else "",
-             flops_per_token, peak / 1e9, launches, card), flush=True)
+    return dict(tokens_s=tokens_s, median_step_ms=1e3 * statistics.median(
+        step_s), mfu=tokens_s * flops_per_token / BF16_FLOPS_PER_S,
+        peak_gb=peak / 1e9, params=n_params, active_params=n_active,
+        flops_per_token=flops_per_token, batch=list(TRAIN_PATHS[path][3]),
+        layers=cfg.num_layers, card=card, **more)
+
+
+def print_rates(path, res, what):
+    print("train %s: %s, losses %s; %.1f tokens/s, median step %.2f ms, "
+          "MFU %.4f (tokens/s x (6N + 6 L h s) / 989 TFLOP/s, N = %d of %d "
+          "params%s, %.4g flops/token), peak memory %.2f GB; launches %s "
+          "[%s]" % (path, what, ["%.4f" % x for x in res["losses"]],
+                    res["tokens_s"], res["median_step_ms"], res["mfu"],
+                    res["active_params"], res["params"],
+                    ": the experts at 2/E" if res["active_params"] !=
+                    res["params"] else "", res["flops_per_token"],
+                    res["peak_gb"], res["launches"], res["card"]),
+          flush=True)
+
+
+def zero_counts():
+    """Every training kernel's count set to 0; returns a function that
+    reads them."""
+    kernels = training_kernels()
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
+    return lambda: {k: getattr(fn, attr) for k, (fn, attr) in
+                    kernels.items()}
+
+
+def timed_calls(fn, n):
+    """``fn()`` ``n`` times, each between synchronisations: (the loss
+    each returns, as floats; the seconds each took)."""
+    losses, secs = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss.item())
+    return losses, secs
+
+
+def attention_check(card, path, model, ids):
+    """Every layer's attention output on its own q/k/v against the plain
+    version, in one forward of the model's trunk at full depth under
+    no_grad (in eval mode: dropout, which acts after the kernel, is off;
+    the kernel sees what it sees in training)."""
+    layer_errs = []
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            with_hooks(lambda: trunk(model)(ids), model,
+                       **compared_hooks(model, layer_errs, []))
+    finally:
+        model.train(was)
+    L = train_config(path).num_layers
+    a_err, a_rel = (max(e[i] for e in layer_errs) for i in (0, 1))
+    print("train %s: %d layers on %d x %d tokens, attention output of every "
+          "layer on its own q/k/v: max_abs_err %.4g (%.3e of its row's RMS) "
+          "[%s]" % (path, L, ids.shape[0], ids.shape[1], a_err, a_rel, card),
+          flush=True)
+    check(len(layer_errs) == L, "%s: attention ran %d times, not once per "
+          "layer" % (path, len(layer_errs)))
+    check(a_rel <= FLASH_ROW_TOL, "%s: a layer's attention output is off "
+          "by %.4g of its row's RMS > %g" % (path, a_rel, FLASH_ROW_TOL))
+    return a_err
+
+
+def stream_schedule():
+    """The streaming path's schedule: linear warm-up over 4 steps, then
+    cosine decay over the 8 after it."""
+    from paddle_tpu_torch.optimizer import lr
+
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=8),
+                           warmup_steps=4, start_lr=1e-5, end_lr=1e-4)
+
+
+def stream_phase(card, path, model):
+    """bench.py's streaming sub-bench: fresh 8 x 1024 batches from a
+    seeded numpy generator (ids as labels, as bench.py feeds them), n a
+    chunk, stacked by a ChunkPrefetcher on its thread and trained by
+    ``run_steps_stream(n)`` under ``stream_schedule()``: a warm-up chunk,
+    then the same-batch ``run_steps(n)`` (the headline's loop, timed
+    here in the same call), then STREAM_CHUNKS timed stream chunks with
+    every kernel count set to 0 just before and read just after. The
+    learning rate each step used must be the schedule's."""
+    from paddle_tpu_torch.jit import ChunkPrefetcher, TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = train_config(path)
+    b, s = TRAIN_PATHS[path][3]
+    n = STREAM_CHUNK
+    rng = np.random.default_rng(1)
+
+    def source():
+        for _ in range(n * (1 + STREAM_CHUNKS)):
+            x = rng.integers(0, cfg.vocab_size, (b, s))
+            yield x, x
+
+    feed = ChunkPrefetcher(source(), n)
+    attention_check(card, path, model, torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (b, s))).cuda())
+    t0 = time.perf_counter()
+    sched = stream_schedule()
+    step = TrainStep(model, AdamW(sched, weight_decay=0.01,
+                                  moment_dtype="bfloat16", factored_v=True),
+                     grad_clip_norm=1.0)
+    used = []
+    update = step.optimizer.update
+
+    def recording(params, grads, state, lr=None):
+        used.append(lr)
+        return update(params, grads, state, lr=lr)
+
+    step.optimizer.update = recording
+    try:
+        first = step.run_steps_stream(n, *next(feed)).item()
+        torch.cuda.synchronize()
+        print("train %s: bf16 built, warm-up chunk of %d steps in %.2f s, "
+              "loss %.4f" % (path, n, time.perf_counter() - t0, first),
+              flush=True)
+        ids, labels = train_batch(cfg.vocab_size, b, s)
+        _, same_s = timed_calls(lambda: step.run_steps(n, ids, labels),
+                                STREAM_CHUNKS)
+        torch.cuda.reset_peak_memory_stats()
+        read = zero_counts()
+        losses, chunk_s = timed_calls(
+            lambda: step.run_steps_stream(n, *next(feed)), STREAM_CHUNKS)
+        launches = read()
+        peak = torch.cuda.max_memory_allocated()
+        check(next(feed, None) is None, "%s: the prefetcher has batches "
+              "left" % path)
+    finally:
+        feed.close()
+        del step.optimizer.update
+    ref = stream_schedule()
+    want = []
+    for _ in range(n * (1 + STREAM_CHUNKS)):
+        want.append(ref())
+        ref.step()
+    f32 = [float(np.float32(x)) for x in want]
+    got = dict(warmup=used[:n], same_batch=used[n:n + n * STREAM_CHUNKS],
+               stream=used[n + n * STREAM_CHUNKS:])
+    check(got["warmup"] == f32[:n] and got["stream"] == f32[n:] and
+          got["same_batch"] == [want[n]] * (n * STREAM_CHUNKS),
+          "%s: learning rates %s, the schedule's %s" % (path, used, want))
+    check(sched.last_epoch == n * (1 + STREAM_CHUNKS),
+          "%s: the schedule is at step %d" % (path, sched.last_epoch))
+    steps = n * STREAM_CHUNKS
+    want_launches = {k: steps * c for k, c in step_launches(model).items()}
+    check(launches == want_launches, "%s: training launches %s, want %s "
+          "(%d steps)" % (path, launches, want_launches, steps))
+    check(all(np.isfinite([first] + losses)), "%s: non-finite loss %s"
+          % (path, [first] + losses))
+    check(losses[-1] < first, "%s: loss did not fall: %s"
+          % (path, [first] + losses))
+    res = train_rates(path, model, b * s * steps,
+                      [x / n for x in chunk_s for _ in range(n)], peak, card,
+                      losses=[first] + losses, launches=launches,
+                      learning_rates=got["warmup"] + got["stream"])
+    same_tokens_s = b * s * n * STREAM_CHUNKS / sum(same_s)
+    res.update(same_batch_tokens_s=same_tokens_s,
+               of_headline=res["tokens_s"] / same_tokens_s,
+               chunk=n, chunks=STREAM_CHUNKS)
+    print_rates(path, res, "%d chunks of %d fresh %d x %d batches" % (
+        STREAM_CHUNKS, n, b, s))
+    print("train %s: of_headline %.3f (fresh data %.1f tokens/s, the same "
+          "batch through run_steps(%d) %.1f tokens/s in this call); learning "
+          "rates as the schedule's: %s [%s]"
+          % (path, res["of_headline"], res["tokens_s"], n, same_tokens_s,
+             ["%.4g" % x for x in res["learning_rates"]], card), flush=True)
+    return res, step, (ids, labels)
+
+
+def mask_replay_check(card, path, micro):
+    """On a 2-layer copy of the path's model at full width (bf16), with
+    dropout: every dropout mask a recomputed block draws in the backward
+    is the mask it drew in the forward, and the forward's draws equal
+    those of the same model without recompute, all bit for bit under one
+    seed; the losses too, and the grads through the plain versions (every
+    operation deterministic); through the kernels the grads are held
+    within TRAIN_GRAD_RTOL (K2 reduce-adds dq in any order)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.nn.functional import common
+    from paddle_tpu_torch.observability import grad_health
+
+    b, s = TRAIN_PATHS[path][3]
+    cfg = train_config(path, num_layers=2)
+    ids, labels = train_batch(cfg.vocab_size, b // micro, s)
+    on = train_model(path, num_layers=2, seed=1)
+    off = train_model(path, num_layers=2, seed=1, recompute=False)
+    off.load_state_dict(on.state_dict())
+
+    def run(m, hooks):
+        drawn = []
+        draw = common.dropout_mask
+
+        def recorded(shape, p, device):
+            keep = draw(shape, p, device)
+            drawn.append(keep)
+            return keep
+
+        common.dropout_mask = recorded
+        try:
+            paddle_tpu_torch.seed(3)
+            ps = list(m.parameters())
+
+            def loss_and_grads():
+                loss = m(ids, labels=labels)
+                return loss.detach(), torch.autograd.grad(loss, ps)
+
+            loss, grads = with_hooks(loss_and_grads, m, **hooks)
+        finally:
+            common.dropout_mask = draw
+        return loss, grads, drawn
+
+    L = cfg.num_layers
+    for kind, hooks in (("plain", plain_hooks(on)), ("kernels", {})):
+        l_on, g_on, d_on = run(on, hooks)
+        l_off, g_off, d_off = run(off, hooks)
+        forward = d_on[:1 + 3 * L]
+        again = d_on[1 + 3 * L:]
+        check(len(d_off) == 1 + 3 * L and len(again) == 3 * L,
+              "%s: %d / %d dropout draws with recompute on / off"
+              % (path, len(d_on), len(d_off)))
+        check(all(torch.equal(x, y) for x, y in zip(forward, d_off)),
+              "%s: the forward's masks differ with recompute on" % path)
+        for j in range(L):       # the backward recomputes the last first
+            redo = again[3 * (L - 1 - j):3 * (L - j)]
+            check(all(torch.equal(x, y) for x, y in zip(
+                redo, forward[1 + 3 * j:4 + 3 * j])),
+                "%s: block %d's recompute drew other masks" % (path, j))
+        check(torch.equal(l_on, l_off), "%s (%s): loss %r with recompute, "
+              "%r without" % (path, kind, l_on.item(), l_off.item()))
+        if kind == "plain":
+            same = all(torch.equal(x, y) for x, y in zip(g_on, g_off))
+            check(same, "%s: plain grads differ with recompute on" % path)
+            print("train %s: 2-layer copy, dropout %g / attention %g: the "
+                  "%d masks of a step replayed bit for bit by recompute; "
+                  "loss and every grad (plain versions) equal bit for bit "
+                  "with recompute on and off [%s]"
+                  % (path, cfg.dropout, cfg.attention_dropout, len(d_off),
+                     card), flush=True)
+            continue
+        gn_on, gn_off = grad_health(g_on).item(), grad_health(g_off).item()
+        rel = max(rel_l2(x, y) for x, y in zip(g_on, g_off))
+        check(abs(gn_on - gn_off) <= TRAIN_GNORM_RTOL * gn_off and
+              rel <= TRAIN_GRAD_RTOL, "%s: kernels' grads with recompute on "
+              "/ off: norm %r / %r, relative L2 up to %.4g"
+              % (path, gn_on, gn_off, rel))
+        print("train %s: 2-layer copy through the kernels: loss equal bit "
+              "for bit with recompute on and off, grad norm %.6f / %.6f, "
+              "largest relative L2 of a grad %.4g [%s]"
+              % (path, gn_on, gn_off, rel, card), flush=True)
+    del on, off
+    torch.cuda.empty_cache()
+
+
+def state_bytes(state):
+    return sum(e.numel() * e.element_size() for v in state.values()
+               for e in (v if isinstance(v, list) else [v]))
+
+
+def options_phase(card, path, model):
+    """The options of a real pretraining run on GPT-3 1.3B: dropout and
+    attention dropout 0.1, block recompute, AdamW with 8-bit moments,
+    gradient merge over OPTIONS_ACCUMULATE micro-batches of 8 x 1024, the
+    skip health policy. Checks each layer's attention, the masks' replay
+    (mask_replay_check), the launches of TRAIN_STEPS timed steps (per
+    micro-batch K1 L + recomputed blocks, K2 L), and that a step whose
+    loss is non-finite leaves every parameter and state tensor bit for
+    bit as it was and warns; times the skip policy's sync against a step
+    under the policy off, in turns."""
+    import warnings
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.observability import health
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = train_config(path)
+    b, s = TRAIN_PATHS[path][3]
+    k = OPTIONS_ACCUMULATE
+    ids, labels = train_batch(cfg.vocab_size, b, s)
+    attention_check(card, path, model, ids[:b // k])
+    mask_replay_check(card, path, k)
+
+    def opt():
+        return AdamW(learning_rate=1e-4, weight_decay=0.01,
+                     moment_quant="8bit")
+
+    t0 = time.perf_counter()
+    health.configure("skip")
+    try:
+        step = TrainStep(model, opt(), grad_clip_norm=1.0,
+                         accumulate_steps=k)
+        first = step(ids, labels).item()
+        torch.cuda.synchronize()
+        print("train %s: bf16 built, warm-up step in %.2f s, loss %.4f"
+              % (path, time.perf_counter() - t0, first), flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        read = zero_counts()
+        losses, step_s = timed_calls(lambda: step(ids, labels), TRAIN_STEPS)
+        launches = read()
+        peak = torch.cuda.max_memory_allocated()
+        want = {n: TRAIN_STEPS * c for n, c in step_launches(
+            model, micro=k).items()}
+        check(launches == want, "%s: training launches %s, want %s (%d "
+              "steps of %d micro-batches)" % (path, launches, want,
+                                              TRAIN_STEPS, k))
+        check(all(np.isfinite([first] + losses)), "%s: non-finite loss %s"
+              % (path, [first] + losses))
+        check(losses[-1] < first, "%s: loss did not fall: %s"
+              % (path, [first] + losses))
+
+        # the skip policy: a non-finite step writes nothing
+        params = [p.detach().clone() for p in model.parameters()]
+        state = {key: [e.clone() for e in v] if isinstance(v, list)
+                 else v.clone() for key, v in step.opt_state.items()}
+        step.loss_fn = lambda m, x, y: m(x, labels=y) * float("inf")
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            step(ids, labels)
+        step.loss_fn = None
+        kept = all(torch.equal(p, q) for p, q in zip(params,
+                                                     model.parameters()))
+        kept_state = all(torch.equal(x, y) for key, v in state.items()
+                         for x, y in zip(v if isinstance(v, list) else [v],
+                                         step.opt_state[key] if isinstance(
+                                             v, list) else
+                                         [step.opt_state[key]]))
+        messages = [str(w.message) for w in warned]
+        check(kept and kept_state and len(messages) == 1 and
+              "update discarded" in messages[0],
+              "%s: a non-finite step: parameters kept %s, state kept %s, "
+              "warnings %s" % (path, kept, kept_state, messages))
+        del params, state
+        print("train %s: a step whose loss is inf left every parameter and "
+              "every optimizer state tensor (t included) bit for bit as it "
+              "was and warned: %s [%s]" % (path, messages[0], card),
+              flush=True)
+
+        # the skip policy's host read against no policy, in turns
+        health.configure("off")
+        plain_step = TrainStep(model, opt(), grad_clip_norm=1.0,
+                               accumulate_steps=k)
+        health.configure("skip")
+        plain_step(ids, labels)
+        turns = {"skip": [], "off": []}
+        for name in ("skip", "off", "off", "skip"):
+            run = step if name == "skip" else plain_step
+            turns[name] += timed_calls(lambda: run(ids, labels), 1)[1]
+        del plain_step
+    finally:
+        health.configure("off")
+    n = sum(p.numel() for p in model.parameters())
+    q8 = state_bytes({key: step.opt_state[key] for key in ("m", "m_ax", "v",
+                                                            "v_ax")})
+    res = train_rates(path, model, b * s * TRAIN_STEPS, step_s, peak, card,
+                      losses=[first] + losses, launches=launches,
+                      accumulate_steps=k,
+                      moments_gb=q8 / 1e9, bf16_m_f32_v_gb=n * 6 / 1e9,
+                      skip_step_ms=[1e3 * x for x in turns["skip"]],
+                      off_step_ms=[1e3 * x for x in turns["off"]])
+    print_rates(path, res, "%d steps of %d x %d tokens in %d micro-batches"
+                % (TRAIN_STEPS, b, s, k))
+    print("train %s: 8-bit moments %.3f GB (codes and absmax) against %.3f "
+          "GB for bf16 m + f32 v; a step under the skip policy %s ms, under "
+          "no policy %s ms (in turns) [%s]"
+          % (path, res["moments_gb"], res["bf16_m_f32_v_gb"],
+             ["%.2f" % x for x in res["skip_step_ms"]],
+             ["%.2f" % x for x in res["off_step_ms"]], card), flush=True)
     return res, step, (ids, labels)
 
 
@@ -3603,8 +4030,13 @@ def main_path_phases(card, stamp):
         # one path's models at a time: Llama-2 7B's step holds ~40 GB of
         # parameters, grads and moments
         model = train_model(path)
-        train_check(card, path, model)
-        training[path], step, batch = train_phase(card, path, model)
+        if path == "gpt3_1p3B_stream":
+            training[path], step, batch = stream_phase(card, path, model)
+        elif path == "gpt3_1p3B_options":
+            training[path], step, batch = options_phase(card, path, model)
+        else:
+            train_check(card, path, model)
+            training[path], step, batch = train_phase(card, path, model)
         train_profile(step, batch, card, path)
         del model, step, batch
         torch.cuda.empty_cache()
@@ -3707,7 +4139,8 @@ def main_path_phases(card, stamp):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "training shapes: b 8, s 1024, 16 heads, d 128, bf16, "
                   "causal (GPT-3 1.3B; Llama-2 7B's, b 2, s 4096, 32 "
-                  "heads, under llama_train)",
+                  "heads, under llama_train; bench.py's seq-2048 "
+                  "sub-bench's, b 4, s 2048, 16 heads, under seq2048)",
             **({"split_route": r["split_route"]} if kname == "K3" else {})})
     for name, route, mix, prefill, line, status, off, shape in (
             ("paged_attention", "K6", "gpt_decode", "gpt_prefill", 53,

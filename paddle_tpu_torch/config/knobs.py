@@ -44,8 +44,7 @@ _ALL = (
        "Token axis of the ragged step "
        "(default: SERVE_SLOTS + SERVE_PREFILL_CHUNK)."),
     _k("HEALTH", "str", "off",
-       "Training health policy: off|warn|skip|raise (only off is ported: "
-       "TrainStep raises on the others)."),
+       "Non-finite grad policy: off|warn|skip|raise."),
     _k("TP_OVERLAP", "str", "auto",
        "TP comm/compute overlap: auto|on|off|pallas."),
 )

@@ -40,10 +40,12 @@ def params_from_paddle_tpu(state: Mapping[str, Any]
 def opt_state_from_paddle_tpu(opt_state: Mapping[str, Any]
                               ) -> Dict[str, Any]:
     """The JAX ``TrainStep.opt_state`` (``{"m", "v", "vr", "vc", "t"}``,
-    lists in ``named_parameters`` order, as numpy-readable arrays) ->
-    the port's optimizer state, as CPU tensors of the same dtypes (a
-    factored ``v`` of a 3-D MoE expert weight ``[E, h, ffn]`` is ``vr
-    [E]``, ``vc [h * ffn]`` in both).
+    or with 8-bit moments ``{"m", "m_ax", "v", "v_ax", "t"}``; lists in
+    ``named_parameters`` order, as numpy-readable arrays) -> the port's
+    optimizer state, as CPU tensors of the same dtypes (a factored ``v``
+    of a 3-D MoE expert weight ``[E, h, ffn]`` is ``vr [E]``, ``vc [h *
+    ffn]`` in both; 8-bit codes are int8 ``m`` / uint8 ``v`` ``[nb,
+    256]`` beside f32 absmax ``[nb, 1]`` in both).
     :meth:`paddle_tpu_torch.jit.TrainStep.restore_state` takes it."""
     return {key: [_tensor(e) for e in val]
             if isinstance(val, (list, tuple)) else _tensor(val)

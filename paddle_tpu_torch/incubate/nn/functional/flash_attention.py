@@ -9,9 +9,15 @@ the JAX package's TPU gate (seq >= 1024, seq % 128 == 0) was a TPU tuning
 choice and is not carried over. CPU tensors take the plain composition
 the JAX package runs off the TPU, ``_xla_attention``
 (:func:`..cuda.flash_attn.flash_attention_ref`).
+
+Attention dropout drops the attention OUTPUT, after the kernel, as the
+JAX package does (``flash_attention``: ``bernoulli`` over ``out``), not
+the probabilities inside it: that is the reference's semantics, not a
+choice of the port, and it keeps K1 / K2 on the path unchanged.
 """
 from __future__ import annotations
 
+from ....nn.functional import common
 from ..cuda.flash_attn import flash_attention as _flash_kernel
 from ..cuda.flash_attn import flash_attention_ref
 
@@ -29,11 +35,12 @@ def _attention(q, k, v, causal):
 def flash_attention(query, key, value, dropout=0.0, causal=False,
                     training=True):
     """Returns ``(out, None)`` like the JAX package (no softmax is
-    returned). Attention dropout is not ported yet (ROADMAP.md)."""
+    returned). With ``dropout > 0`` in training, ``out`` (the kernel's
+    output) goes through dropout, as in the JAX package."""
+    out = _attention(query, key, value, causal)
     if dropout > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout is not ported yet: see ROADMAP.md")
-    return _attention(query, key, value, causal), None
+        out = common.dropout(out, dropout)
+    return out, None
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

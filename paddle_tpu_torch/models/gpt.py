@@ -12,8 +12,13 @@ or, with ``moe_num_experts > 0``, a top-2 GShard mixture of experts
 lm head, cross entropy, chunked when ``lm_ce_chunks > 1``; with
 ``recompute`` the blocks ``recompute_interval`` selects run under
 ``torch.utils.checkpoint``), and serving through
-:meth:`GPTForCausalLM.decode_adapter`. Dropout, sequence parallelism
-and KV caches in ``forward`` are later slices (ROADMAP.md).
+:meth:`GPTForCausalLM.decode_adapter`. In training, ``dropout`` drops the
+embeddings' sum and each block's two residual branches
+(``fusion.dropout_add``), ``attention_dropout`` the attention output
+(as in the JAX package); the masks come from the random streams of
+:mod:`paddle_tpu_torch.core.random` and a recomputed block replays its
+forward's. Sequence parallelism and KV caches in ``forward`` are later
+slices (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,10 +31,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core import random as _random
 from ..device import DeviceLike, resolve_device
 from ..fusion.chunked import lm_head_chunked_ce
+from ..fusion.epilogues import dropout_add
 from ..fusion.moe import fused_moe_mlp
 from ..incubate.nn.functional import scaled_dot_product_attention
+from ..nn.functional import dropout
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTMoEMLP",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B"]
@@ -120,8 +128,9 @@ class GPTAttention(nn.Module):
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
-                                           training=self.training)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=s > 1, dropout_p=cfg.attention_dropout
+            if self.training else 0.0, training=self.training)
         return self.out_proj(out.reshape(b, s, cfg.hidden_size))
 
 
@@ -177,8 +186,9 @@ def _recomputes(config: GPTConfig, layer_idx: int) -> bool:
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN block: x + attn(ln_1(x)), then + mlp(ln_2(.)). ``forward``
-    returns ``(x, aux)``, aux the MoE aux loss (None for a dense MLP)."""
+    """Pre-LN block: x + dropout(attn(ln_1(x))), then + dropout(mlp(ln_2(
+    .))). ``forward`` returns ``(x, aux)``, aux the MoE aux loss (None
+    for a dense MLP)."""
 
     def __init__(self, config: GPTConfig, layer_idx: int = 0, **factory):
         super().__init__()
@@ -189,12 +199,45 @@ class GPTBlock(nn.Module):
         self.moe = config.moe_num_experts > 0
         self.mlp = (GPTMoEMLP if self.moe else GPTMLP)(config, **factory)
         self.recompute = _recomputes(config, layer_idx)
+        self.dropout = config.dropout
+        self.draws = bool(config.dropout or config.attention_dropout)
 
     def _body(self, x):
-        x = x + self.attn(self.ln_1(x))
+        p = self.dropout
+        x = dropout_add(self.attn(self.ln_1(x)), x, p, self.training)
         m = self.mlp(self.ln_2(x))
         m, aux = m if self.moe else (m, None)
-        return x + m, aux
+        return dropout_add(m, x, p, self.training), aux
+
+    def _replaying(self, device):
+        """``_body`` whose calls after the first draw the first call's
+        dropout masks again. torch.utils.checkpoint stashes and restores
+        only the global CPU and CUDA RNGs, not the explicit generator
+        dropout draws from: the recompute would draw new masks and give
+        wrong gradients. So the generator's state is taken before the
+        checkpoint; the forward draws from it as usual, and a recompute
+        runs from that state and then puts back the generator's state of
+        the moment, so the draws after the block see the same stream
+        with recompute on or off. The recompute runs where the backward
+        runs (a thread of the autograd engine for CUDA tensors), so it
+        installs the generator itself."""
+        gen = _random.generator(device)
+        start = gen.get_state()
+        first = True
+
+        def body(x):
+            nonlocal first
+            if first:
+                first = False
+                return self._body(x)
+            now = gen.get_state()
+            gen.set_state(start)
+            try:
+                with _random.rng_guard(gen):
+                    return self._body(x)
+            finally:
+                gen.set_state(now)
+        return body
 
     def forward(self, x):
         if self.recompute and self.training:
@@ -204,7 +247,8 @@ class GPTBlock(nn.Module):
             # flash kernels run inside it (the JAX package sends
             # attention in a rematerialised block to its XLA composition,
             # a limit of Pallas under jax.checkpoint that does not apply)
-            return checkpoint(self._body, x, use_reentrant=False)
+            body = self._replaying(x.device) if self.draws else self._body
+            return checkpoint(body, x, use_reentrant=False)
         return self._body(x)
 
 
@@ -226,6 +270,7 @@ class GPTModel(nn.Module):
         self.h = nn.ModuleList([GPTBlock(config, i, **factory)
                                 for i in range(config.num_layers)])
         self.ln_f = nn.LayerNorm(h, config.layer_norm_eps, **factory)
+        self.dropout = config.dropout
 
     def forward(self, input_ids, position_ids=None):
         return self.hidden_and_aux(input_ids, position_ids)[0]
@@ -235,7 +280,8 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None]
-        x = self.wte(input_ids) + self.wpe(position_ids)
+        x = dropout(self.wte(input_ids) + self.wpe(position_ids),
+                    self.dropout, training=self.training)
         auxes = []
         for block in self.h:
             x, aux = block(x)
@@ -296,10 +342,6 @@ class GPTForCausalLM(nn.Module):
             raise NotImplementedError(
                 "forward with KV caches is not ported; serve through "
                 "decode_adapter() / serving.ServingEngine (ROADMAP.md)")
-        if self.training and (cfg.dropout or cfg.attention_dropout):
-            raise NotImplementedError(
-                "hidden and attention dropout are not ported yet: see "
-                "ROADMAP.md")
         if cfg.sequence_parallel_mode != "gspmd":
             raise NotImplementedError(
                 "sequence_parallel_mode=%r is not ported yet: see "

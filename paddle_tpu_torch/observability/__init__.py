@@ -1,4 +1,6 @@
-"""Observability of the port (so far the global gradient norm)."""
+"""Observability of the port: the global gradient norm and the
+training health policies (:mod:`.health`)."""
+from . import health
 from .health import grad_health
 
-__all__ = ["grad_health"]
+__all__ = ["grad_health", "health"]

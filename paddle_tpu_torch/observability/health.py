@@ -1,24 +1,72 @@
-"""Training health: the global gradient norm.
+"""Training health: the global gradient norm and the non-finite policies.
 
-Port of ``grad_health`` from ``paddle_tpu/observability/health.py``: one
-f32 squared-sum over every gradient, square-rooted once, shared by
-gradient clipping. A non-finite gradient anywhere makes the norm
-non-finite, so ``torch.isfinite(norm)`` is the whole-model health bit.
-The JAX package's health policies (``PADDLE_TPU_HEALTH=warn|skip|raise``)
-are not ported yet: :func:`policy` reads the knob so that ``TrainStep``
-can refuse a policy it would not honour.
+Port of ``paddle_tpu/observability/health.py``: one f32 squared-sum over
+every gradient, square-rooted once, shared by gradient clipping. A
+non-finite gradient anywhere makes the norm non-finite, so
+``torch.isfinite(norm)`` is the whole-model health bit.
+
+The policy (``PADDLE_TPU_HEALTH=warn|skip|raise``, read once at import,
+or :func:`configure` before building the train step):
+
+- ``warn``  -- warn on a non-finite step, keep the update;
+- ``skip``  -- discard the update: parameters and optimizer state keep
+  their values (``TrainStep`` reads ``isfinite(gnorm)`` once, before it
+  writes anything: its update is in place);
+- ``raise`` -- raise :class:`NonFiniteError` after the step.
+
+``TrainStep`` captures the policy when it is built, as the JAX package
+compiles it into the step. The JAX module's telemetry half (the
+``train.grad_norm`` gauge, the ``train.nonfinite_steps`` counter, the
+flight recorder) is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Iterable
+import math
+import warnings
+from typing import Iterable, Optional
 
 import torch
 
 from ..config import knobs
 
-__all__ = ["grad_health", "policy"]
+__all__ = ["NonFiniteError", "configure", "enabled", "get_policy",
+           "policy", "grad_health", "record_step"]
 
 _POLICIES = ("off", "warn", "skip", "raise")
+
+
+def _env_policy() -> str:
+    v = knobs.get_str("PADDLE_TPU_HEALTH").strip().lower()
+    return v if v in _POLICIES else "off"
+
+
+_policy = _env_policy()
+
+
+class NonFiniteError(RuntimeError):
+    """A training step produced a non-finite global grad norm (or loss)
+    under the ``raise`` policy."""
+
+
+def configure(policy: str) -> None:
+    """Set the health policy ("off" disables). Takes effect for steps
+    BUILT afterwards."""
+    global _policy
+    if policy not in _POLICIES:
+        raise ValueError(
+            f"health policy must be one of {_POLICIES}, got {policy!r}")
+    _policy = policy
+
+
+def enabled() -> bool:
+    return _policy != "off"
+
+
+def get_policy() -> str:
+    return _policy
+
+
+policy = get_policy
 
 
 def grad_health(grads: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -27,8 +75,19 @@ def grad_health(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
 
 
-def policy() -> str:
-    """The ``PADDLE_TPU_HEALTH`` policy; "off" when unset or unknown, as
-    in the JAX package."""
-    v = knobs.get_str("PADDLE_TPU_HEALTH").strip().lower()
-    return v if v in _POLICIES else "off"
+def record_step(gnorm: float, source: str = "grad",
+                step: Optional[int] = None) -> bool:
+    """Apply the warn / raise policy to one step's health scalar (on the
+    host). Returns True when the step was finite."""
+    if math.isfinite(gnorm):
+        return True
+    if _policy == "raise":
+        raise NonFiniteError(
+            f"non-finite {source} at step {step}: {gnorm!r}")
+    if _policy in ("warn", "skip"):
+        warnings.warn(
+            f"paddle_tpu_torch.health: non-finite {source} at step {step} "
+            f"({gnorm!r}); policy={_policy}"
+            + (" — update discarded" if _policy == "skip" else ""),
+            stacklevel=2)
+    return False

@@ -17,9 +17,15 @@ import torch
 
 from paddle_tpu.incubate.nn.functional.flash_attention import _xla_attention
 from paddle_tpu.incubate.nn.pallas import flash_attn as jfa
+import paddle_tpu_torch
 from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+from paddle_tpu_torch.incubate.nn.cuda.flash_attn import flash_attention_ref
 from paddle_tpu_torch.incubate.nn.functional import (
     flash_attention, scaled_dot_product_attention)
+
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
 
 ATOL = 1e-4
 BLOCK = 64
@@ -168,11 +174,23 @@ def test_functional_cpu_path_is_the_xla_composition(causal):
 
 
 def test_functional_refuses_what_is_not_ported():
+    """An explicit ``attn_mask`` is not ported and raises. Attention
+    dropout is: it drops the attention output, as the JAX package does
+    (``tests/test_torch_dropout.py`` holds it against the JAX model)."""
     q = torch.zeros(1, 8, 2, 32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention(q, q, q, dropout=0.1, causal=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8))
+    x = torch.randn(3, 1, 8, 2, 32,
+                    generator=torch.Generator().manual_seed(0))
+    plain = flash_attention_ref(x[0], x[1], x[2], causal=True)
+    paddle_tpu_torch.seed(1)
+    out, _ = flash_attention(x[0], x[1], x[2], dropout=0.1, causal=True)
+    keep = out != 0
+    assert 0 < int(keep.sum()) < out.numel()
+    assert torch.equal(out[keep], (plain / 0.9)[keep])
+    paddle_tpu_torch.seed(1)
+    again, _ = flash_attention(x[0], x[1], x[2], dropout=0.1, causal=True)
+    assert torch.equal(again, out)
     out, _ = flash_attention(q, q, q, dropout=0.1, training=False)
     assert out.shape == q.shape
 

@@ -20,6 +20,10 @@ from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.models.generation import _sample
 from paddle_tpu_torch.serving import ServingEngine
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def models():

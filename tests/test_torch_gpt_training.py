@@ -36,6 +36,10 @@ from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.observability import grad_health
 from paddle_tpu_torch.optimizer import AdamW
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 B, S = 2, 64
 
 

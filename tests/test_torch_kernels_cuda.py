@@ -5,8 +5,10 @@ RMSNorm and LayerNorm), K1/K2/K3 (flash attention forward, fused
 backward, split backward), K6 (paged decode), K8 (the MoE grouped
 GEMM), K9 (the TP ring step) and K10 (the ring shift), with the layers
 over them on the card: among them the training paths' K1/K2 at Llama-2
-7B's shape, K1/K2 and K7 inside ``torch.utils.checkpoint``, and the MoE
-FFN of MoE GPT training. These tests need an NVIDIA Hopper GPU
+7B's shape and at bench.py's seq-2048 shape, K1/K2 and K7 inside
+``torch.utils.checkpoint``, the MoE FFN of MoE GPT training, dropout
+masks from a CUDA generator replayed by a recomputed block, and the
+8-bit Adam moments' encoding on the card against the CPU's. These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -1973,3 +1975,118 @@ def test_fused_moe_mlp_on_the_card_matches_the_cpu(factor):
             assert err[0] <= 2 * err[1] + 1e-6, (name, err)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+@pytest.mark.cuda
+def test_flash_at_seq2048_training_shape():
+    """K1 and K2 where bench.py's seq-2048 sub-bench runs them: GPT-3
+    1.3B on 4 x 2048, 16 heads, d 128, causal, bf16, against the plain
+    versions one batch row at a time."""
+    _need_hopper()
+    b, s, h, d = 4, 2048, 16, 128
+    q, k, v, do = _flash_inputs(b, s, s, h, d, torch.bfloat16, seed=13)
+    scale = d ** -0.5
+    assert fa.uses_fused_bwd(s, s, d)
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches)
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    got = fa.flash_bwd(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches - counts[0],
+            fa.flash_bwd_fused.launches - counts[1]) == (1, 1)
+    for i in range(b):
+        row = slice(i, i + 1)
+        want_out, want_lse = _ref_fwd(q[row], k[row], v[row], True, scale)
+        _assert_close(out[row], want_out, FLASH_TOL["bfloat16"], "out")
+        _assert_lse_close(lse[row], want_lse)
+        want = _ref_bwd(q[row], k[row], v[row], out[row], lse[row], do[row],
+                        True, scale)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            _assert_close(g[row], w, FLASH_TOL["bfloat16"], name)
+        del want_out, want_lse, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, -2])
+def test_dropout_replays_inside_checkpoint_on_the_card(interval):
+    """A 2-layer GPT of head_dim 64 in bf16 on the card with dropout and
+    attention dropout 0.1, with and without recompute, the same weights
+    and seed: the masks drawn from the CUDA generator are the same (a
+    recomputed block draws its forward's again), the loss is equal bit
+    for bit, the grads within 1e-2 relative L2 (K2's dq atomics); K1 runs
+    again in each recomputed block."""
+    _need_hopper()
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn.functional import common
+
+    L = 2
+    cfg = dict(vocab_size=512, hidden_size=256, num_layers=L, num_heads=4,
+               max_position_embeddings=512, lm_ce_chunks=4, dropout=0.1,
+               attention_dropout=0.1, recompute_interval=interval)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ids = torch.randint(0, 512, (2, 256), generator=g, device="cuda")
+    labels = torch.randint(0, 512, (2, 256), generator=g, device="cuda")
+    draw = common.dropout_mask
+    res = []
+    for recompute in (False, True):
+        m = GPTForCausalLM(GPTConfig(recompute=recompute, **cfg),
+                           dtype=torch.bfloat16, seed=0)
+        rc = sum(blk.recompute for blk in m.gpt.h)
+        drawn = []
+
+        def recorded(shape, p, device):
+            keep = draw(shape, p, device)
+            assert keep.device.type == "cuda"
+            drawn.append(keep)
+            return keep
+
+        common.dropout_mask = recorded
+        try:
+            paddle_tpu_torch.seed(5)
+            k1 = fa.flash_fwd.launches
+            loss = m(ids, labels=labels)
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            torch.cuda.synchronize()
+        finally:
+            common.dropout_mask = draw
+        assert fa.flash_fwd.launches - k1 == L + rc
+        assert len(drawn) == 1 + 3 * L + 3 * rc
+        res.append((loss, grads, drawn))
+    (l_off, g_off, d_off), (l_on, g_on, d_on) = res
+    assert all(torch.equal(a, b_) for a, b_ in zip(d_on, d_off))
+    again = d_on[1 + 3 * L:]
+    chosen = [j for j in range(L) if m.gpt.h[j].recompute][::-1]
+    for n, j in enumerate(chosen):
+        for a, b_ in zip(again[3 * n:3 * n + 3], d_off[1 + 3 * j:4 + 3 * j]):
+            assert torch.equal(a, b_), j
+    assert torch.equal(l_on, l_off)
+    for i, (a, w_) in enumerate(zip(g_on, g_off)):
+        assert bool(torch.isfinite(a).all()), i
+        assert _rel_l2(a, w_) <= 1e-2, (i, _rel_l2(a, w_))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signed", [True, False], ids=["m", "v"])
+def test_q8_quantize_on_the_card_matches_the_cpu(signed):
+    """The 8-bit moments' encoding and decoding on the card equal the
+    CPU's, bit for bit, given the same input and the same noise (and
+    without noise), a ragged last block included."""
+    _need_hopper()
+    from paddle_tpu_torch.optimizer.optimizers import (_q8_dequantize,
+                                                       _q8_quantize)
+
+    rng = np.random.RandomState(2)
+    n = 3 * 256 + 77
+    x = (rng.randn(n) * 10.0 ** rng.uniform(-8, 1, n)).astype(np.float32)
+    if not signed:
+        x = np.abs(x)
+    noise = torch.from_numpy(rng.rand(4, 256).astype(np.float32))
+    for u in (None, noise):
+        cpu = _q8_quantize(torch.from_numpy(x), signed, u)
+        card = _q8_quantize(torch.from_numpy(x).cuda(), signed,
+                            None if u is None else u.cuda())
+        for a, b_ in zip(cpu, card):
+            assert torch.equal(a, b_.cpu())
+        back = _q8_dequantize(*card, (n,), signed)
+        assert torch.equal(back.cpu(), _q8_dequantize(*cpu, (n,), signed))

@@ -28,6 +28,10 @@ from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
 from paddle_tpu_torch.models.generation import _rope, _rope_angles
 from paddle_tpu_torch.serving import EngineConfig, ServingEngine
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 # the pallas package exports a function of the module's own name
 jpa = importlib.import_module(
     "paddle_tpu.incubate.nn.pallas.paged_attention")

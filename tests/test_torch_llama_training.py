@@ -40,6 +40,10 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
 from paddle_tpu_torch.optimizer import AdamW
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 B, S = 2, 64
 
 

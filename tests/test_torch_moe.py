@@ -35,6 +35,10 @@ from paddle_tpu_torch.incubate.nn.cuda import moe_dispatch as tk
 from paddle_tpu_torch.incubate.nn.functional import fused_moe
 from paddle_tpu_torch.incubate.nn.functional import moe_dispatch as tmoe
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 REF = dict(rtol=1e-5, atol=1e-5)
 FFN = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=1e-4, atol=1e-4)

@@ -37,6 +37,10 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 from paddle_tpu_torch.optimizer import AdamW
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 B, S, E = 2, 64, 4
 LR = 1e-3
 
@@ -176,14 +180,22 @@ def test_grads_match_jax(recompute, interval):
                                    err_msg=n)
 
 
+@pytest.fixture(scope="module")
+def four_layers():
+    """A 4-layer JAX model (its weights), the batch, and the port's loss
+    and grads without recompute: what every recompute case is held to."""
+    jm = _jax_model(num_layers=4)
+    ids, labels = _batch(1024, seed=5)
+    return jm, ids, labels, _port_loss_and_grads(_port_model(jm), ids,
+                                                 labels)
+
+
 @pytest.mark.parametrize("interval,chosen", [
     (1, [True, True, True, True]), (2, [True, False, True, False]),
     (-2, [True, False, True, False]), (3, [True, True, False, True]),
     (-3, [True, False, False, True])])
-def test_recompute_equals_plain(interval, chosen):
-    jm = _jax_model(num_layers=4)
-    ids, labels = _batch(1024, seed=5)
-    plain = _port_loss_and_grads(_port_model(jm), ids, labels)
+def test_recompute_equals_plain(four_layers, interval, chosen):
+    jm, ids, labels, plain = four_layers
     rc = _port_model(jm, recompute=True, recompute_interval=interval)
     assert [blk.recompute for blk in rc.gpt.h] == chosen
     got = _port_loss_and_grads(rc, ids, labels)

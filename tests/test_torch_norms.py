@@ -23,6 +23,10 @@ from paddle_tpu.incubate.nn.pallas import norms as pnorms
 from paddle_tpu_torch.incubate.nn.cuda import norms as tn
 from paddle_tpu_torch.incubate.nn.functional import fused_ops as tfused
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 FWD = dict(rtol=1e-6, atol=1e-6)
 GRAD = dict(rtol=1e-5, atol=1e-5)
 

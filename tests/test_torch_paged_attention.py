@@ -21,6 +21,10 @@ import torch
 from paddle_tpu_torch.incubate.nn.cuda import paged_attention as tpa
 from test_torch_kernels_cuda import MIXES, _setup
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 # the pallas package exports a function of the module's own name
 jpa = importlib.import_module(
     "paddle_tpu.incubate.nn.pallas.paged_attention")

@@ -33,6 +33,10 @@ from paddle_tpu_torch.models.generation import _paged_attn_chunk
 from paddle_tpu_torch.serving import EngineConfig
 from test_torch_kernels_cuda import DECODE_MIXES, _decode_setup
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 # the pallas package exports a function of the module's own name
 jpa = importlib.import_module(
     "paddle_tpu.incubate.nn.pallas.paged_attention")

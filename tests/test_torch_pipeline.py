@@ -33,6 +33,10 @@ from paddle_tpu_torch.incubate.nn.cuda import ring as kring
 from paddle_tpu_torch.models import pipeline_gpt
 from paddle_tpu_torch.optimizer import SGD
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
 

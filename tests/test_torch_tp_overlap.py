@@ -22,6 +22,10 @@ from paddle_tpu_torch.distributed import Ring
 from paddle_tpu_torch.fusion import overlap_mm as tom
 from paddle_tpu_torch.incubate.nn.cuda import ring as kring
 
+# tiny shapes: one torch thread a test process (more only contend
+# with the other pytest-xdist workers for the cores)
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
