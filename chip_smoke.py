@@ -176,6 +176,32 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    ``bench.py``'s timing (``moe_ffn_sorted`` chained 8 and 24 times,
    step = (t24 - t8) / 16; K8 with the dispatch's row counts): step ms,
    TFLOP/s by its flops count against 989, peak memory;
+9d. (after 9a) the decode paths. K1 at a prefill's shape (b 8, s 128,
+   16 heads, d 128, causal) and at one query a row over a 320-key cache
+   (b 8), held against the plain version and timed a call in a CUDA
+   graph beside it, aten's SDPA and the bound. Then ``bench.py``'s decode
+   sub-bench on GPT-3 1.3B (bf16, random weights from seed 0, 8 prompts
+   of 128 tokens from ``np.random.default_rng(2)``): ``generate`` in
+   tiers bf16, int8_kv8 and int4_kv8 over its two-point window (64 and
+   192 new tokens, each after a warm-up call: ms a step = (t192 - t64) /
+   128), tokens/s, the bound of a step (the served weights and the
+   whole 320-slot cache read once over 3.35 TB/s), peak memory and the
+   quantized tree's bytes; each tier's prefill and first-step logits
+   held within LOGITS_TOL against the same calls through the plain
+   versions of K1 and K7, 16 decode steps profiled (busy share, copies
+   and casts a step: the weight dequantization); a 64-token greedy
+   generate launches K1 L and K7 (2L + 1) a token, every count 0 just
+   before it, and its agreement with the plain versions' stream is
+   printed; ``speculative_generate`` (int8 weights and KV, gamma 4, 6
+   draft layers, 128 new: tokens/s raw, ``mean_accepted``); on a 2-layer
+   copy at full width in f32, bit for bit: speculative tokens equal
+   ``generate``'s (fp and int8_kv8), the eager ``forward(caches=...)``
+   loop's equal ``generate``'s with K1 launched L a call, and
+   ``generate`` and ``beam_search`` equal the plain versions'. Then
+   Llama-2 7B (bf16, seed 0): ``generate`` at b 8 in bf16 and int8_kv8
+   over a 64-step window (16 -> 80 new), its launches, ``beam_search``
+   (4 beams, b 2, 32 new) seconds, and the same exact checks on its
+   2-layer f32 copy;
 9b. the TP path at ``bench.py``'s ``_tp_overlap_result`` configuration
    (f32, x [16384, 4096], w [4096, 1024]), mp 2 then 4:
    ``sharded_all_gather_matmul`` and autograd of ``sum(out)`` launch K9
@@ -195,9 +221,10 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    step; tokens/s, ``bench.py``'s MFU formula against 67 TFLOP/s f32,
    peak memory a card;
 9. one JSON line with the six training paths' numbers, one with the
-   MoE numbers, one with the serving numbers, one with the TP and
-   pipeline numbers, then one listing every ported kernel with its
-   numbers (``--phases ring``: the last two only);
+   MoE numbers, one with the serving numbers, one with the decode
+   numbers, one with the TP and pipeline numbers, then one listing
+   every ported kernel with its numbers (``--phases ring``: the last two
+   only);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -236,6 +263,11 @@ LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)
 # the same f32 scores): read at <= 1.9e-6.
 FLASH_ROW_TOL = 6e-2
 FLASH_LSE_ATOL = 1e-4
+# K1 in f32 (FFMA, f32 p) at one query a row, as the 2-layer f32 copies'
+# cached forward loops call it: as tests/test_torch_kernels_cuda.py's f32
+# limit, 1e-3 of a row's RMS; the same rows with the last key left out
+# are printed beside it and must read above it.
+FLASH_F32_ROW_TOL = 1e-3
 # training phase, kernels vs plain versions (bf16 weights and
 # activations; the two round p, and Llama's norms, at different places).
 # Held directly: every layer's attention output on its own q/k/v within
@@ -298,7 +330,14 @@ SERVE_HIDDEN_RTOL = 4e-2
 # and each norm on its own inputs is held tightly beside them
 # (PAGED_ROW_TOL, NORM_REL).
 LLAMA_HIDDEN_RTOL = 8e-2
+# The decode phase holds the same model's prefill last-row and first-step
+# logits (bf16 KV cache and int8_kv8) to the same max-abs limit: read on
+# an H100, 0.3438 / 0.3047 (bf16) and 0.3696 / 0.375 (int8_kv8) max abs;
+# 0.0577 / 0.0494 and 0.0647 / 0.0558 relative L2, beside those of
+# GPT-3 1.3B there, 0.0141-0.0159, held to SERVE_HIDDEN_RTOL.
 LLAMA_LOGITS_TOL = dict(rtol=0, atol=0.5)
+# relative L2 of the Llama decode logits: ~1.5x the largest reading above
+LLAMA_DECODE_LOGITS_RTOL = 1e-1
 SERVE_ENGINE = dict(max_slots=8, block_size=16, num_blocks=2048,
                     prefill_chunk=128)
 
@@ -1596,9 +1635,9 @@ def plain_hooks(model):
     return hooks
 
 
-def with_hooks(fn, model, **hooks):
-    """Run ``fn()`` with names of the model's module replaced."""
-    module = model_module(model)
+def patched(fn, module, hooks):
+    """Run ``fn()`` with the names ``hooks`` gives replaced in ``module``,
+    restored after it."""
     saved = {k: getattr(module, k) for k in hooks}
     for k, v in hooks.items():
         setattr(module, k, v)
@@ -1607,6 +1646,11 @@ def with_hooks(fn, model, **hooks):
     finally:
         for k, v in saved.items():
             setattr(module, k, v)
+
+
+def with_hooks(fn, model, **hooks):
+    """Run ``fn()`` with names of the model's module replaced."""
+    return patched(fn, model_module(model), hooks)
 
 
 def compared_hooks(model, layer_errs, norm_errs):
@@ -2593,17 +2637,14 @@ def rerun_first_step(eng, first, attn, norms, pools=None, plain=False):
         pools = first["pools"] + (first["bt"],) if first["pools"] \
             else (eng._kp, eng._vp, first["bt"])
     kp, vp, bt = pools
-    saved = kernel_norms()
     counts = serving_counts()
     ad.logits = keep_logits
-    for name in NORM_HOOKS:
-        setattr(generation, name, recorded(name, norms[name]))
     try:
-        logits, kp, _ = first["step"](kp, vp, bt, attn)
+        logits, kp, _ = patched(
+            lambda: first["step"](kp, vp, bt, attn), generation,
+            {name: recorded(name, norms[name]) for name in NORM_HOOKS})
     finally:
         del ad.logits
-        for name, fn in saved.items():
-            setattr(generation, name, fn)
     if plain:
         torch.cuda.synchronize()
         check(serving_counts() == counts, "the plain rerun launched "
@@ -3353,6 +3394,601 @@ def moe_phase(card):
     return res
 
 
+# ------------------------------------------------------------ phase 9d
+# bench.py's decode sub-bench (_bench_decode) on the port: GPT-3 1.3B in
+# bf16, 8 prompts of 128 tokens from np.random.default_rng(2), each tier
+# timed over bench.py's two-point window (64 and 192 new tokens after one
+# warm-up call of 64: (t192 - t64) / 128 a step)
+DECODE_BATCH, DECODE_PROMPT = 8, 128
+DECODE_WINDOW = (64, 192)
+DECODE_TIERS = {"bf16": {},
+                "int8_kv8": dict(weight_quant="int8", kv_cache_quant="int8"),
+                "int4_kv8": dict(weight_quant="int4", kv_cache_quant="int8")}
+# bench.py's speculative datapoint: int8 weights and KV, gamma 4, the
+# first 6 blocks as the draft, 128 new tokens
+SPEC_KW = dict(weight_quant="int8", kv_cache_quant="int8", gamma=4,
+               draft_layers=6)
+SPEC_NEW = 128
+# the greedy streams through the kernels and through the plain versions
+# (bf16) are compared over the window's first length, the agreement
+# printed (random weights leave near ties among 50304 logits; a flip
+# changes the rest of the row's stream)
+# Llama-2 7B: generate at b 8 over a 64-step window (t80 - t16), beam
+# search of 4 beams on b 2 with 32 new tokens
+LLAMA_DECODE_WINDOW = (16, 80)
+LLAMA_BEAM = dict(batch=2, num_beams=4, new=32)
+# the exact checks at full width in f32 (two layers): new tokens
+EXACT_NEW = 32
+# the cached forward loop's logits there against the same loop through
+# the plain versions, fed the same tokens: the CPU tests' limit for the
+# cached forward against the JAX package's; read on an H100 at 9.78e-6
+# (GPT-3 1.3B) and 2.22e-5 (Llama-2 7B) max abs
+CACHED_LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+# the decode steps a profile covers (after a prefill outside it)
+DECODE_PROFILE_STEPS = 16
+
+
+def decode_kernels():
+    """The decode paths' kernels by name: (wrapper, counter)."""
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+    from paddle_tpu_torch.incubate.nn.cuda import norms
+
+    return {"K1": (fa.flash_fwd, "launches"),
+            "K7 rms_norm": (norms.rms_norm, "launches"),
+            "K7 rms_norm fused": (norms.rms_norm, "launches_fused"),
+            "K7 layer_norm": (norms.layer_norm, "launches"),
+            "K7 layer_norm fused": (norms.layer_norm, "launches_fused")}
+
+
+def counted(fn):
+    """``fn()`` with every decode kernel's count set to 0 just before it
+    and read just after: (its result, the counts)."""
+    kernels = decode_kernels()
+    for f, attr in kernels.values():
+        setattr(f, attr, 0)
+    out = fn()
+    return out, {k: getattr(f, attr) for k, (f, attr) in kernels.items()}
+
+
+def generate_launches(model, new, beams=1):
+    """The launches of one ``generate`` (or beam search) of ``new``
+    tokens: the prefill runs K1 once a layer and K7 2L + 1 times (each
+    residual update fused with the norm after it but the last, which is
+    two adds, then the head's norm on the last row), each of the new - 1
+    decode steps K7 2L + 1 times (2L fused: the final norm rides the last
+    update) and no K1 (its attention over the dense cache is plain)."""
+    L = model.config.num_layers
+    norm = "rms_norm" if hasattr(model, "llama") else "layer_norm"
+    want = {k: 0 for k in decode_kernels()}
+    want["K1"] = L
+    want["K7 " + norm] = (2 * L + 1) * new
+    want["K7 %s fused" % norm] = 2 * L - 1 + 2 * L * (new - 1)
+    return want
+
+
+def cached_launches(model, calls):
+    """The launches of ``calls`` calls of ``forward(caches=...)``: K1
+    once a layer a call (a prompt with past 0 causal, a token with a
+    cache full); GPT's LayerNorm is PyTorch's, Llama's RMSNorm K7 (2L +
+    1 a call, L of them the fused residual update)."""
+    L = model.config.num_layers
+    want = {k: 0 for k in decode_kernels()}
+    want["K1"] = L * calls
+    if hasattr(model, "llama"):
+        want["K7 rms_norm"] = (2 * L + 1) * calls
+        want["K7 rms_norm fused"] = L * calls
+    return want
+
+
+def plain_generation(fn):
+    """``fn()`` with the decode engine's attention (K1 in the prefill)
+    and norms (K7) replaced in ``models/generation.py`` by their plain
+    versions."""
+    from paddle_tpu_torch.models import generation
+
+    return patched(fn, generation, dict(
+        plain_norms(), scaled_dot_product_attention=plain_attention))
+
+
+def decode_model(factory, seed=0, dtype=torch.bfloat16, **overrides):
+    """A decode path's model on the card in eval mode, weights drawn from
+    a generator there seeded ``seed``."""
+    from paddle_tpu_torch import models
+
+    cfg = dataclasses.replace(getattr(models, factory)(), **overrides)
+    cls = models.LlamaForCausalLM if factory.startswith("llama") else \
+        models.GPTForCausalLM
+    model = cls(cfg, dtype=dtype,
+                generator=torch.Generator(device="cuda").manual_seed(seed))
+    return model.eval()
+
+
+def decode_ids(vocab, batch=DECODE_BATCH, prompt=DECODE_PROMPT, seed=2):
+    """bench.py's prompts: ``np.random.default_rng(2).integers(0, vocab,
+    (8, 128))``."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, prompt))
+                            .astype(np.int32)).cuda()
+
+
+def window_times(fn, window):
+    """bench.py's two-point window over ``fn(n)``: one warm-up call of
+    the shorter length (eager PyTorch compiles nothing per length, it
+    only warms the allocator and the libraries), then each length timed
+    once. For each: (seconds, result, the kernel counts of that call,
+    every count 0 just before it)."""
+    fn(window[0])
+    out = []
+    for n in window:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, launches = counted(lambda: fn(n))
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t, got, launches))
+    return out
+
+
+def timed_generate(fn):
+    """Seconds of ``fn()`` after a warm-up call of its own (bench.py's
+    ``timed_gen``), and its result."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, out
+
+
+def tree_bytes(tree):
+    """Bytes of every tensor in a weight tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if \
+        isinstance(tree, torch.Tensor) else 0
+
+
+def step_bytes(model, tier, total):
+    """The bytes a decode step must read: the served weights (every
+    layer's, the final norm's and the head's: ``lm_head``, or ``wte``
+    tied; the embedding rows of 8 tokens are left out) and the whole
+    ``total``-slot KV cache of every layer (bf16, or int8 codes and f32
+    scales)."""
+    from paddle_tpu_torch.models import generation
+
+    ad = model.decode_adapter()
+    w = generation._resolve_weight_quant(model, ad.weights,
+                                         tier.get("weight_quant"))
+    head = w["wte"] if w["lm_head"] is None else w["lm_head"]
+    weights = tree_bytes([w["layers"], head] + [
+        v for k, v in w.items() if k not in ("layers", "lm_head", "wte",
+                                             "wpe")])
+    cfg = model.config
+    slots = 2 * cfg.num_layers * DECODE_BATCH * ad.num_kv_heads * total
+    cache = slots * (ad.head_dim + 4 if tier.get("kv_cache_quant")
+                     else 2 * ad.head_dim)
+    return weights, cache
+
+
+def decode_logits_check(model, ids, tier, what, tol, rtol):
+    """The prefill's last-row logits and the first decode step's, through
+    the kernels (K1, K7) and through their plain versions, the same
+    prompt and weights: held element by element within ``tol`` and in
+    relative L2 within ``rtol`` (GPT-3 1.3B: LOGITS_TOL and
+    SERVE_HIDDEN_RTOL; Llama-2 7B: LLAMA_LOGITS_TOL and
+    LLAMA_DECODE_LOGITS_RTOL, its 32 layers' bf16 drift)."""
+    from paddle_tpu_torch.models import generation
+
+    ad = model.decode_adapter()
+    w = generation._activate_q4(generation._resolve_weight_quant(
+        model, ad.weights, tier.get("weight_quant")))
+    b, plen = ids.shape
+    total = plen + 4
+    slots = torch.arange(total, device=ids.device)
+    pos = torch.full((), plen, dtype=torch.int64, device=ids.device)
+
+    def run(tok=None):
+        # the plain run steps on the kernels' token: a near tie of the
+        # prefill's logits would otherwise feed the two runs other tokens
+        x, ck, cv = ad.prefill(w, ids, total,
+                               kv_quant=bool(tier.get("kv_cache_quant")))
+        lg0 = ad.logits(w, x[:, -1])
+        own = lg0.argmax(-1).to(torch.int32)
+        lg1, _, _ = ad.step(w, own if tok is None else tok, pos, ck, cv,
+                            slots <= pos)
+        return lg0.float(), lg1.float(), own
+
+    got = run()
+    want = plain_generation(lambda: run(got[2]))
+    torch.cuda.synchronize()
+    res = {}
+    for name, g, p in (("prefill", got[0], want[0]),
+                       ("step", got[1], want[1])):
+        check(bool(torch.isfinite(g).all()), "%s %s: non-finite logits"
+              % (what, name))
+        err, rel = (g - p).abs().max().item(), rel_l2(g, p)
+        check(torch.allclose(g, p, **tol), "%s %s logits: max abs "
+              "err %.4g against the plain versions" % (what, name, err))
+        check(rel <= rtol, "%s %s logits: relative L2 %.4g against the "
+              "plain versions > %g" % (what, name, rel, rtol))
+        res[name + "_logits_max_abs_err"] = err
+        res[name + "_logits_rel_l2"] = rel
+    res["first_token_agreement"] = (got[2] == want[2]).float().mean().item()
+    return res
+
+
+def profile_decode(model, ids, tier, what, card):
+    """torch.profiler over DECODE_PROFILE_STEPS greedy decode steps (the
+    loop of ``generate``, after a prefill outside the profile): the
+    device's busy share and the kernels by group (the int8 tiers' weight
+    dequantization shows as "copies and casts")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import generation
+
+    ad = model.decode_adapter()
+    w = generation._activate_q4(generation._resolve_weight_quant(
+        model, ad.weights, tier.get("weight_quant")))
+    b, plen = ids.shape
+    total = plen + DECODE_PROFILE_STEPS + 1
+    x, ck, cv = ad.prefill(w, ids, total,
+                           kv_quant=bool(tier.get("kv_cache_quant")))
+    tok = ad.logits(w, x[:, -1]).argmax(-1).to(torch.int32)
+    slots = torch.arange(total, device=ids.device)
+    pos = torch.full((), plen, dtype=torch.int64, device=ids.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PROFILE_STEPS):
+            lg, ck, cv = ad.step(w, tok, pos, ck, cv, slots <= pos)
+            tok = lg.argmax(-1).to(torch.int32)
+            pos = pos + 1
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    print_profile(prof, wall_us, "decode %s %s (%d steps)"
+                  % (what, "+".join(tier.values()) or "bf16",
+                     DECODE_PROFILE_STEPS), card)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels)
+    copies = sum(e.self_device_time_total for e in kernels
+                 if group_of(e.key) == "copies and casts")
+    return dict(wall_ms=wall_us / 1e3, busy_share=busy / wall_us
+                if busy else None, copies_ms_per_step=copies / 1e3
+                / DECODE_PROFILE_STEPS if busy else None)
+
+
+def gpt_decode_phase(card):
+    """(a) bench.py's decode sub-bench on the port, (b) its speculative
+    datapoint, (c) the eager cached-forward loop; see DECODE_*."""
+    model = decode_model("gpt3_1p3B")
+    cfg = model.config
+    ids = decode_ids(cfg.vocab_size)
+    res = {"batch": DECODE_BATCH, "prompt": DECODE_PROMPT,
+           "window": list(DECODE_WINDOW), "tiers": {}}
+    total = DECODE_PROMPT + DECODE_WINDOW[1]
+    first = {}      # each tier's first window call: tokens, launches
+    for tag, kw in DECODE_TIERS.items():
+        torch.cuda.reset_peak_memory_stats()
+        (t1, short, launches), (t2, out, _) = window_times(
+            lambda n: model.generate(ids, max_new_tokens=n, **kw),
+            DECODE_WINDOW)
+        first[tag] = short, launches
+        peak = torch.cuda.max_memory_allocated()
+        check(out.shape == (DECODE_BATCH, DECODE_WINDOW[1])
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              "decode %s: tokens out of range" % tag)
+        step_s = (t2 - t1) / (DECODE_WINDOW[1] - DECODE_WINDOW[0])
+        wbytes, cbytes = step_bytes(model, kw, total)
+        bound_ms = (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3
+        qtree = getattr(model, {"int8": "_gen_quant_w", "int4":
+                                "_gen_quant_w4"}.get(
+                                    kw.get("weight_quant"), ""), None)
+        r = dict(tokens_s=DECODE_BATCH / step_s, ms_per_step=step_s * 1e3,
+                 t_short_s=t1, t_long_s=t2, bound_ms=bound_ms,
+                 bound_by="bytes", weight_bytes=wbytes, cache_bytes=cbytes,
+                 of_bound=bound_ms / (step_s * 1e3), peak_gb=peak / 1e9,
+                 quant_tree_gb=None if qtree is None
+                 else tree_bytes(qtree) / 1e9, card=card)
+        r.update(decode_logits_check(model, ids, kw, "decode " + tag,
+                                     LOGITS_TOL, SERVE_HIDDEN_RTOL))
+        r["profile"] = profile_decode(model, ids, kw, "gpt3_1p3B", card)
+        res["tiers"][tag] = r
+        print("decode gpt3_1p3B %s: %.1f tokens/s, %.4f ms a step (%d -> "
+              "%d new: %.3f s -> %.3f s), bound %.4f ms (%.3f GB of "
+              "weights + %.3f GB of cache at %d slots, over 3.35 TB/s; %.3f "
+              "of it), peak %.2f GB, quantized tree %s GB; vs plain: "
+              "prefill %.4g, step %.4g max abs [%s]"
+              % (tag, r["tokens_s"], r["ms_per_step"], *DECODE_WINDOW, t1,
+                 t2, bound_ms,
+                 wbytes / 1e9, cbytes / 1e9, total, r["of_bound"],
+                 r["peak_gb"], "%.3f" % r["quant_tree_gb"]
+                 if qtree is not None else "-",
+                 r["prefill_logits_max_abs_err"],
+                 r["step_logits_max_abs_err"], card), flush=True)
+
+    # the launches of the bf16 tier's timed generate of the window's
+    # first length
+    n = DECODE_WINDOW[0]
+    got, launches = first["bf16"]
+    want = generate_launches(model, n)
+    check(launches == want, "decode: launches %s, want %s"
+          % (launches, want))
+    plain = plain_generation(lambda: model.generate(ids, max_new_tokens=n))
+    res["launches"] = launches
+    res["greedy_agreement_vs_plain"] = (got == plain).float().mean().item()
+    print("decode gpt3_1p3B bf16: %d new tokens, launches %s; greedy "
+          "tokens equal to the plain versions' run: %.4f [%s]"
+          % (n, launches, res["greedy_agreement_vs_plain"], card),
+          flush=True)
+
+    # (b) speculative decoding, bench.py's datapoint (its warm-up call
+    # shorter: eager PyTorch compiles nothing, it only warms the caches)
+    speculative(model, ids, 16, **SPEC_KW)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, stats = speculative(model, ids, SPEC_NEW, **SPEC_KW)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    greedy = model.generate(ids, max_new_tokens=SPEC_NEW,
+                            weight_quant="int8", kv_cache_quant="int8")
+    res["speculative_int8"] = dict(
+        tokens_s_raw=DECODE_BATCH * SPEC_NEW / t, seconds=t,
+        mean_accepted=stats["mean_accepted"], iterations=stats["iterations"],
+        tokens_per_target_pass=stats["tokens_per_target_pass"],
+        agreement_with_generate=(toks == greedy).float().mean().item(),
+        card=card)
+    print("decode gpt3_1p3B speculative (%s, %d new): %.1f tokens/s raw "
+          "(%.3f s), mean_accepted %.3f over %d row-iterations; tokens "
+          "equal to generate's: %.4f (bf16: the verify pass's [b, gamma + "
+          "1] products round apart from the step's [b, 1]) [%s]"
+          % (SPEC_KW, SPEC_NEW, res["speculative_int8"]["tokens_s_raw"], t,
+             stats["mean_accepted"], stats["iterations"],
+             res["speculative_int8"]["agreement_with_generate"], card),
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # the exact contracts on a 2-layer copy at full width in f32
+    small = decode_model("gpt3_1p3B", dtype=torch.float32, num_layers=2)
+    res["exact_f32"] = exact_checks(small, ids, "gpt3_1p3B f32 x 2", card)
+    del small
+    torch.cuda.empty_cache()
+    return res
+
+
+def speculative(model, ids, new, **kw):
+    from paddle_tpu_torch.models import speculative_generate
+
+    return speculative_generate(model, ids, max_new_tokens=new,
+                                return_stats=True, **kw)
+
+
+def exact_checks(model, ids, what, card):
+    """f32 at full width: speculative tokens equal ``generate``'s, bit
+    for bit, with draft_layers 1 and with the int8 tiers (the
+    exact-greedy contract); (c) the eager ``forward(caches=...)`` loop's
+    greedy tokens equal ``generate``'s, its K1 launches L a call; and
+    ``generate`` / ``beam_search`` through the kernels equal the same
+    through the plain versions."""
+    res = {}
+    n = EXACT_NEW
+    for tag, kw in (("fp", {}), ("int8_kv8", DECODE_TIERS["int8_kv8"])):
+        want = model.generate(ids, max_new_tokens=n, **kw)
+        got, stats = speculative(model, ids, n, gamma=4, draft_layers=1,
+                                 **kw)
+        check(torch.equal(got, want), "%s: speculative %s tokens differ "
+              "from generate's (%.4f equal)" % (what, tag, (got == want)
+                                                .float().mean().item()))
+        res["speculative_" + tag] = dict(equal=True, **stats)
+    (gen, logits), launches = counted(
+        lambda: eager_cached_decode(model, ids, n))
+    want = cached_launches(model, n)
+    check(launches == want, "%s cached: launches %s, want %s"
+          % (what, launches, want))
+    check(torch.equal(gen, model.generate(ids, max_new_tokens=n)),
+          "%s: the eager cached loop's tokens differ from generate's" % what)
+    # the same loop through the plain versions, fed the same tokens
+    _, plain = with_hooks(lambda: eager_cached_decode(model, ids, n, gen),
+                          model, **plain_hooks(model))
+    err = (logits - plain).abs().max().item()
+    check(torch.allclose(logits, plain, **CACHED_LOGITS_TOL), "%s cached: "
+          "logits max abs err %.4g against the plain versions' loop"
+          % (what, err))
+    res["cached_loop"] = dict(equal=True, calls=n, launches=launches,
+                              logits_max_abs_err_vs_plain=err)
+    for name, fn in (
+            ("generate", lambda: model.generate(ids, max_new_tokens=n)),
+            ("beam_search", lambda: model.beam_search(
+                ids[:2], max_new_tokens=n // 2, num_beams=4))):
+        a = fn()
+        b = plain_generation(fn)
+        check(torch.equal(a, b), "%s: %s through the kernels differs from "
+              "the plain versions' (%.4f equal)"
+              % (what, name, (a == b).float().mean().item()))
+        res[name + "_vs_plain"] = "equal"
+    print("decode %s: speculative == generate (fp: mean_accepted %.3f; "
+          "int8_kv8: %.3f), the cached forward loop == generate (%d calls, "
+          "launches %s), generate and beam search == the plain versions', "
+          "all bit for bit; the cached loop's logits within %.3g of the "
+          "plain versions' loop [%s]"
+          % (what, res["speculative_fp"]["mean_accepted"],
+             res["speculative_int8_kv8"]["mean_accepted"], n, launches, err,
+             card), flush=True)
+    return res
+
+
+def eager_cached_decode(model, ids, n, feed=None):
+    """Greedy decode through ``forward(caches=...)``: the prompt, then a
+    token a call (the reference's test_generate_matches_eager_cached_
+    decode). Returns the tokens and each call's last-row logits; with
+    ``feed`` (tokens), those are fed instead of the argmax."""
+    out, rows = [], []
+    with torch.no_grad():
+        caches = model.init_caches(ids.shape[0])
+        logits, caches = model(ids.long(), caches=caches)
+        for i in range(n):
+            rows.append(logits[:, -1])
+            tok = logits[:, -1].argmax(-1) if feed is None else feed[:, i]
+            out.append(tok)
+            if i + 1 < n:
+                logits, caches = model(tok[:, None].long(), caches=caches)
+    return torch.stack(out, 1).to(torch.int32), torch.stack(rows, 1)
+
+
+def llama_decode_phase(card):
+    """(d) Llama-2 7B: generate at b 8 (bf16 and int8_kv8) over a
+    LLAMA_DECODE_WINDOW step window, beam search, the launches; then the
+    exact checks on a 2-layer f32 copy at full width."""
+    model = decode_model("llama2_7B")
+    cfg = model.config
+    ids = decode_ids(cfg.vocab_size)
+    res = {"tiers": {}}
+    lo, hi = LLAMA_DECODE_WINDOW
+    for tag in ("bf16", "int8_kv8"):
+        kw = DECODE_TIERS[tag]
+        torch.cuda.reset_peak_memory_stats()
+        (t1, _, launches), (t2, _, _) = window_times(
+            lambda n: model.generate(ids, max_new_tokens=n, **kw),
+            LLAMA_DECODE_WINDOW)
+        if tag == "bf16":
+            bf16_launches = launches
+        step_s = (t2 - t1) / (hi - lo)
+        wbytes, cbytes = step_bytes(model, kw, DECODE_PROMPT + hi)
+        bound_ms = (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3
+        r = dict(tokens_s=DECODE_BATCH / step_s, ms_per_step=step_s * 1e3,
+                 bound_ms=bound_ms, bound_by="bytes",
+                 of_bound=bound_ms / (step_s * 1e3),
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+        r.update(decode_logits_check(model, ids, kw, "llama decode " + tag,
+                                     LLAMA_LOGITS_TOL,
+                                     LLAMA_DECODE_LOGITS_RTOL))
+        res["tiers"][tag] = r
+        print("decode llama2_7B %s: %.1f tokens/s, %.4f ms a step (%d -> %d "
+              "new), bound %.4f ms (%.3f of it), peak %.2f GB; vs plain: "
+              "prefill %.4g, step %.4g max abs [%s]"
+              % (tag, r["tokens_s"], r["ms_per_step"], lo, hi, bound_ms,
+                 r["of_bound"], r["peak_gb"],
+                 r["prefill_logits_max_abs_err"],
+                 r["step_logits_max_abs_err"], card), flush=True)
+    # the launches of the bf16 tier's timed generate of the window's
+    # first length
+    n, launches = lo, bf16_launches
+    want = generate_launches(model, n)
+    check(launches == want, "llama decode: launches %s, want %s"
+          % (launches, want))
+    res["launches"] = launches
+    bb = LLAMA_BEAM
+    t, beams = timed_generate(lambda: model.beam_search(
+        ids[:bb["batch"]], max_new_tokens=bb["new"],
+        num_beams=bb["num_beams"]))
+    check(beams.shape == (bb["batch"], bb["new"]), "llama beam: shape")
+    res["beam_search"] = dict(seconds=t, **bb)
+    print("decode llama2_7B: launches of a %d-token generate %s; beam "
+          "search (%d beams, b %d, %d new) %.3f s [%s]"
+          % (n, launches, bb["num_beams"], bb["batch"], bb["new"], t, card),
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    small = decode_model("llama2_7B", dtype=torch.float32, num_layers=2)
+    res["exact_f32"] = exact_checks(small, ids, "llama2_7B f32 x 2", card)
+    del small
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_flash_times(card):
+    """K1 at the decode paths' shapes (GPT-3 1.3B's 16 heads, d 128,
+    bf16): a prefill (b 8, s 128, causal) and one query a row over a
+    320-key cache (b 8, sq 1, not causal: ``forward(caches=...)``'s
+    token), each held row by row against the plain version and timed
+    beside it, aten's SDPA and the bound."""
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for name, (b, sq, sk, h, d, causal) in (
+            ("prefill", (8, 128, 128, 16, 128, True)),
+            ("sq1", (8, 1, 320, 16, 128, False))):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda")
+                   .bfloat16() for s in (sq, sk, sk))
+        hm = [x.transpose(1, 2) for x in (q, k, v)]
+        scale = d ** -0.5
+        out, _ = fa.flash_fwd(q, k, v, causal, scale)
+        ref, _ = fa.flash_fwd_ref(*hm, causal, scale)
+        err, rel = row_err(out, ref.transpose(1, 2))
+        check(rel <= FLASH_ROW_TOL, "K1 %s: %.4g of its row's RMS" % (name,
+                                                                      rel))
+        nbytes, flops = flash_work(b, sq, sk, h, d, causal, backward=False)
+        bound_ms, bound_by = bound_of(nbytes, flops)
+        r = dict(max_abs_err=err, row_err=rel, shape=[b, sq, sk, h, d],
+                 causal=causal,
+                 ms=graph_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+                 plain_ms=cuda_ms(lambda: fa.flash_fwd_ref(*hm, causal,
+                                                           scale), 5),
+                 library_ms=graph_ms(lambda: sdpa(*hm, is_causal=causal)),
+                 bound_ms=bound_ms, bound_by=bound_by)
+        res[name] = r
+        print("K1 decode %s (b %d, sq %d, sk %d, %d heads, d %d, causal %d): "
+              "kernel=%.4f ms plain=%.4f ms library=%.4f ms bound=%.4f ms "
+              "(%s) a call in a CUDA graph; max_abs_err %.3g [%s]"
+              % (name, b, sq, sk, h, d, causal, r["ms"], r["plain_ms"],
+                 r["library_ms"], bound_ms, bound_by, err, card), flush=True)
+    res["sq1_f32"] = decode_flash_f32(gen, card)
+    return res
+
+
+def decode_flash_f32(gen, card):
+    """K1 in f32 where the 2-layer f32 copies' cached forward loops call
+    it: one query a row over 129-160 keys (ragged against the key tiles),
+    16 heads (GPT-3 1.3B) and 32 (Llama-2 7B), d 128, b 8, not causal;
+    row by row and lse against the plain version, beside the plain
+    version with the last key left out (what a lost tail key reads)."""
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+
+    res, scale = {}, 128 ** -0.5
+    for h in (16, 32):
+        for sk in (129, 157, 160):
+            q, k, v = (torch.randn(8, s, h, 128, generator=gen,
+                                   device="cuda") for s in (1, sk, sk))
+            hm = [x.transpose(1, 2) for x in (q, k, v)]
+            out, lse = fa.flash_fwd(q, k, v, False, scale)
+            ref, ref_lse = fa.flash_fwd_ref(*hm, False, scale)
+            cut, _ = fa.flash_fwd_ref(hm[0], hm[1][:, :, :-1],
+                                      hm[2][:, :, :-1], False, scale)
+            err, rel = row_err(out, ref.transpose(1, 2))
+            lse_err = (lse - ref_lse[..., 0]).abs().max().item()
+            lost = row_err(cut, ref)[1]
+            name = "h%d_sk%d" % (h, sk)
+            check(rel <= FLASH_F32_ROW_TOL and lse_err <= FLASH_LSE_ATOL,
+                  "K1 f32 sq 1 %s: %.4g of its row's RMS, lse %.3g" %
+                  (name, rel, lse_err))
+            check(lost > FLASH_F32_ROW_TOL, "K1 f32 sq 1 %s: a lost tail "
+                  "key reads %.4g, within the limit" % (name, lost))
+            res[name] = dict(max_abs_err=err, row_err=rel, lse_err=lse_err,
+                             lost_tail_key_row_err=lost)
+    print("K1 decode f32 sq 1 (b 8, 16 / 32 heads, d 128, sk 129 / 157 / "
+          "160): row errors %s of a row's RMS (limit %g; the last key left "
+          "out: %s) [%s]"
+          % (["%.3g" % r["row_err"] for r in res.values()], FLASH_F32_ROW_TOL,
+             ["%.3g" % r["lost_tail_key_row_err"] for r in res.values()],
+             card), flush=True)
+    return res
+
+
+def decode_phase(card):
+    """Phase 9d: K1 at the decode shapes, then the GPT and Llama decode
+    paths."""
+    res = {"k1": decode_flash_times(card)}
+    res["gpt3_1p3B"] = gpt_decode_phase(card)
+    res["llama2_7B"] = llama_decode_phase(card)
+    return res
+
+
 # ------------------------------------------------ phases 4d, 9b and 9c
 RING_SRC = "paddle_tpu_torch/incubate/nn/csrc/ring.cu"
 NVLINK_BYTES_PER_S = 450e9      # one H100's NVLink, each way (data sheet)
@@ -4011,10 +4647,11 @@ def pipeline_phase(card):
 
 
 def main_path_phases(card, stamp):
-    """Phases 3 to 9a, with 4d: every kernel phase, training, serving in
-    both layouts, the profiles and the MoE path. Returns the kernels
-    line's rows of K1-K8, its JSON lines of the training, MoE and serving
-    numbers, and phase 4d's K9 / K10 readings."""
+    """Phases 3 to 9a, with 4d, and 9d: every kernel phase, training,
+    serving in both layouts, the profiles, the MoE path and the decode
+    paths. Returns the kernels line's rows of K1-K8, its JSON lines of
+    the training, MoE, serving and decode numbers, and phase 4d's K9 /
+    K10 readings."""
     k4 = kernel_phase(card)
     k5 = q8_kernel_phase(card)
     k7 = norm_phase(card)
@@ -4077,6 +4714,10 @@ def main_path_phases(card, stamp):
     moe = moe_phase(card)
     torch.cuda.empty_cache()
     stamp("the MoE path")
+    decode = decode_phase(card)
+    torch.cuda.empty_cache()
+    stamp("the decode paths")
+    dg, dl = decode["gpt3_1p3B"], decode["llama2_7B"]
 
     rpa_src = "paddle_tpu_torch/incubate/nn/csrc/ragged_paged_attention.cu"
     kernels = []
@@ -4120,10 +4761,15 @@ def main_path_phases(card, stamp):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "at": "%s: 136 rows (%s)" % (case, shape),
             "cases": {k: v for k, v in k7.items() if k.split()[0] in kinds},
-            **({"launches_by_path": {
+            "launches_by_path": {
                 "llama2_7B_int8 serving": launches,
                 "llama2_7B training": training["llama2_7B"]["launches"][
-                    "K7 rms_norm"]}} if name == "rms_norm" else {})})
+                    "K7 rms_norm"],
+                "llama2_7B_decode": dl["launches"]["K7 rms_norm"],
+                "llama2_7B_cached": dl["exact_f32"]["cached_loop"][
+                    "launches"]["K7 rms_norm"]} if name == "rms_norm" else {
+                "gpt3_1p3B serving": launches,
+                "gpt3_1p3B_decode": dg["launches"]["K7 layer_norm"]}})
     for kname, name, line in (("K1", "flash_fwd", 53),
                               ("K2", "flash_bwd_fused", 279),
                               ("K3", "flash_bwd_split", 168)):
@@ -4132,8 +4778,14 @@ def main_path_phases(card, stamp):
             "name": name, "route": "cuda", "source": FLASH_SRC,
             "replaces": "%s:%d" % (FLASH_PALLAS, line), "status": "ported",
             "launches": train_launches[kname],
-            "launches_by_path": {p: t["launches"][kname]
-                                 for p, t in training.items()},
+            "launches_by_path": dict(
+                {p: t["launches"][kname] for p, t in training.items()},
+                **({"gpt3_1p3B_decode": dg["launches"]["K1"],
+                    "gpt3_1p3B_cached": dg["exact_f32"]["cached_loop"][
+                        "launches"]["K1"],
+                    "llama2_7B_decode": dl["launches"]["K1"],
+                    "llama2_7B_cached": dl["exact_f32"]["cached_loop"][
+                        "launches"]["K1"]} if kname == "K1" else {})),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4141,7 +4793,8 @@ def main_path_phases(card, stamp):
                   "causal (GPT-3 1.3B; Llama-2 7B's, b 2, s 4096, 32 "
                   "heads, under llama_train; bench.py's seq-2048 "
                   "sub-bench's, b 4, s 2048, 16 heads, under seq2048)",
-            **({"split_route": r["split_route"]} if kname == "K3" else {})})
+            **({"split_route": r["split_route"]} if kname == "K3" else {}),
+            **({"decode_shapes": decode["k1"]} if kname == "K1" else {})})
     for name, route, mix, prefill, line, status, off, shape in (
             ("paged_attention", "K6", "gpt_decode", "gpt_prefill", 53,
              "ported", off_gpt, "bf16 pools, 16 heads, d 128 (GPT-3 1.3B "
@@ -4185,7 +4838,8 @@ def main_path_phases(card, stamp):
              json.dumps({"serving": {"gpt3_1p3B": gpt,
                                      "llama2_7B_int8": llama,
                                      "gpt3_1p3B_off": off_gpt,
-                                     "llama2_7B_int8_off": off_llama}})]
+                                     "llama2_7B_int8_off": off_llama}}),
+             json.dumps({"decode": decode})]
     return kernels, lines, ring
 
 

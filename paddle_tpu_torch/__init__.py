@@ -5,10 +5,13 @@ the slices ported so far in PyTorch: GPT serving, GPT training, Llama
 serving over bf16 or int8 KV pages, the engine's two-program layout, the
 MoE serving op, and the TP ring primitives (``fusion.overlap_mm``) and
 the compiled pipeline (``distributed.pipeline``) over a ring of devices
-driven by one process (``distributed.Ring``), and the training options
+driven by one process (``distributed.Ring``), the training options
 of a real run (LR schedulers, gradient merge, health policies, 8-bit
 Adam moments, dropout, ``TrainStep.run_steps_stream``; ``seed(n)``
-seeds dropout outside a ``TrainStep``). Every TPU kernel on those
+seeds dropout outside a ``TrainStep``), and whole-generation decoding
+(``models.generate`` / ``beam_search`` / ``speculative_generate`` over
+int8 / int4 weights and an int8 KV cache, ``forward(caches=...)``;
+``seed(n)`` seeds their sampling too). Every TPU kernel on those
 slices is rewritten by hand for ``sm_90a``. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"`` (or a ring of CPU devices).
 """

@@ -59,13 +59,22 @@ def _dequant(q8, s, dtype=torch.float32):
     return q8.to(dtype) * s[..., None].to(dtype)
 
 
+def _const(value: float, device) -> torch.Tensor:
+    """``value`` as a 0-d f32 tensor on ``device`` (a fill, no copy from
+    the host)."""
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
 def _quantize_rows(x):
     """Per-row symmetric int8 over the last axis (the JAX package's
     ``_quantize_rows``): ``s = max|x| / 127`` floored at 1e-8, codes
     ``round(x / s)`` clipped to +-127. ``torch.round`` rounds half to
-    even, as ``jnp.round`` does, so both packages write the same codes."""
+    even, as ``jnp.round`` does, so both packages write the same codes.
+    127 is a 0-d tensor on x's device: PyTorch's CUDA division by a
+    Python number multiplies by its reciprocal, one rounding away from
+    the division the CPU and the JAX package do."""
     xf = x.float()
-    s = (xf.abs().amax(-1) / 127.0).clamp_min(1e-8)
+    s = (xf.abs().amax(-1) / _const(127.0, x.device)).clamp_min(1e-8)
     q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
     return q, s
 

@@ -11,14 +11,16 @@ or, with ``moe_num_experts > 0``, a top-2 GShard mixture of experts
 (:func:`..fusion.fused_moe_mlp`) whose aux loss joins the LM loss, tied
 lm head, cross entropy, chunked when ``lm_ce_chunks > 1``; with
 ``recompute`` the blocks ``recompute_interval`` selects run under
-``torch.utils.checkpoint``), and serving through
-:meth:`GPTForCausalLM.decode_adapter`. In training, ``dropout`` drops the
+``torch.utils.checkpoint``; with ``caches`` from :meth:`init_caches`,
+the incremental form that appends each call's keys and values), and
+decoding through :meth:`GPTForCausalLM.decode_adapter`
+(:meth:`~GPTForCausalLM.generate`, :meth:`~GPTForCausalLM.beam_search`,
+the serving engine). In training, ``dropout`` drops the
 embeddings' sum and each block's two residual branches
 (``fusion.dropout_add``), ``attention_dropout`` the attention output
 (as in the JAX package); the masks come from the random streams of
 :mod:`paddle_tpu_torch.core.random` and a recomputed block replays its
-forward's. Sequence parallelism and KV caches in ``forward`` are later
-slices (ROADMAP.md).
+forward's. Sequence parallelism is a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -114,7 +116,9 @@ class Linear(nn.Module):
 
 class GPTAttention(nn.Module):
     """Causal self-attention: fused qkv projection, flash attention on
-    the ``[b, s, heads, head_dim]`` slices of it, output projection."""
+    the ``[b, s, heads, head_dim]`` slices of it, output projection. With
+    a ``cache`` ``(k, v)`` of ``[b, past, heads, head_dim]`` the call's
+    keys and values are appended to it and returned with the output."""
 
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -123,15 +127,23 @@ class GPTAttention(nn.Module):
         self.qkv_proj = Linear(h, 3 * h, config.use_bias, **factory)
         self.out_proj = Linear(h, h, config.use_bias, **factory)
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
         cfg = self.config
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if cache is not None:
+            k = torch.cat([cache[0], k], 1)
+            v = torch.cat([cache[1], v], 1)
+            cache = (k, v)
+        # causal is bottom-right aligned: with a cache of `past` keys,
+        # query t sees keys <= past + t, the JAX package's
+        # _offset_causal_mask(s, past) (one token sees every key)
         out = scaled_dot_product_attention(
             q, k, v, is_causal=s > 1, dropout_p=cfg.attention_dropout
             if self.training else 0.0, training=self.training)
-        return self.out_proj(out.reshape(b, s, cfg.hidden_size))
+        out = self.out_proj(out.reshape(b, s, cfg.hidden_size))
+        return out if cache is None else (out, cache)
 
 
 class GPTMLP(nn.Module):
@@ -202,12 +214,15 @@ class GPTBlock(nn.Module):
         self.dropout = config.dropout
         self.draws = bool(config.dropout or config.attention_dropout)
 
-    def _body(self, x):
+    def _body(self, x, cache=None):
         p = self.dropout
-        x = dropout_add(self.attn(self.ln_1(x)), x, p, self.training)
+        a = self.attn(self.ln_1(x), cache)
+        a, cache = (a, None) if cache is None else a
+        x = dropout_add(a, x, p, self.training)
         m = self.mlp(self.ln_2(x))
         m, aux = m if self.moe else (m, None)
-        return dropout_add(m, x, p, self.training), aux
+        x = dropout_add(m, x, p, self.training)
+        return (x, aux) if cache is None else (x, aux, cache)
 
     def _replaying(self, device):
         """``_body`` whose calls after the first draw the first call's
@@ -239,7 +254,10 @@ class GPTBlock(nn.Module):
                 gen.set_state(now)
         return body
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
+        """``(x, aux)``; with a ``cache``, ``(x, aux, cache)``."""
+        if cache is not None:
+            return self._body(x, cache)
         if self.recompute and self.training:
             # non-reentrant: TrainStep takes its grads with
             # torch.autograd.grad, which the reentrant form refuses. The
@@ -275,19 +293,29 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, position_ids=None):
         return self.hidden_and_aux(input_ids, position_ids)[0]
 
-    def hidden_and_aux(self, input_ids, position_ids=None):
-        """``(final hidden states, [each MoE block's aux loss])``."""
+    def hidden_and_aux(self, input_ids, position_ids=None, caches=None):
+        """``(final hidden states, [each MoE block's aux loss])``; with
+        ``caches`` (a ``(k, v)`` pair a layer) also the caches with this
+        call's keys and values appended, and positions by default from
+        the cache's length on."""
+        past = 0 if caches is None else caches[0][0].shape[1]
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[1],
+            position_ids = torch.arange(past, past + input_ids.shape[1],
                                         device=input_ids.device)[None]
         x = dropout(self.wte(input_ids) + self.wpe(position_ids),
                     self.dropout, training=self.training)
-        auxes = []
-        for block in self.h:
-            x, aux = block(x)
+        auxes, new_caches = [], []
+        for i, block in enumerate(self.h):
+            if caches is None:
+                x, aux = block(x)
+            else:
+                x, aux, c = block(x, caches[i])
+                new_caches.append(c)
             if aux is not None:
                 auxes.append(aux)
-        return self.ln_f(x), auxes
+        if caches is None:
+            return self.ln_f(x), auxes
+        return self.ln_f(x), auxes, new_caches
 
 
 class GPTForCausalLM(nn.Module):
@@ -336,12 +364,8 @@ class GPTForCausalLM(nn.Module):
         if self.lm_head is not None:
             self.lm_head.weight.normal_(0.0, std, generator=g)
 
-    def _check_supported(self, caches) -> None:
+    def _check_supported(self) -> None:
         cfg = self.config
-        if caches is not None:
-            raise NotImplementedError(
-                "forward with KV caches is not ported; serve through "
-                "decode_adapter() / serving.ServingEngine (ROADMAP.md)")
         if cfg.sequence_parallel_mode != "gspmd":
             raise NotImplementedError(
                 "sequence_parallel_mode=%r is not ported yet: see "
@@ -355,9 +379,16 @@ class GPTForCausalLM(nn.Module):
         ``moe_aux_weight``, else the logits [b, s, vocab]. With
         ``lm_ce_chunks > 1`` (and b*s divisible by it) the loss is the
         chunked lm head + cross entropy, whose logits never exist in
-        full."""
-        self._check_supported(caches)
-        x, auxes = self.gpt.hidden_and_aux(input_ids, position_ids)
+        full. With ``caches`` (:meth:`init_caches`, or the caches a
+        previous call returned) the tokens continue the cached ones and,
+        without labels, ``(logits, caches)`` comes back, each layer's
+        cache grown by this call's keys and values."""
+        self._check_supported()
+        if caches is None:
+            x, auxes = self.gpt.hidden_and_aux(input_ids, position_ids)
+        else:
+            x, auxes, caches = self.gpt.hidden_and_aux(
+                input_ids, position_ids, caches)
         tied = self.lm_head is None
         w = self.gpt.wte.weight if tied else self.lm_head.weight
         chunks = int(self.config.lm_ce_chunks or 0)
@@ -368,15 +399,48 @@ class GPTForCausalLM(nn.Module):
         else:
             logits = x @ w.t() if tied else x @ w
             if labels is None:
-                return logits
+                return logits if caches is None else (logits, caches)
             loss = GPTPretrainingCriterion()(logits, labels)
         for aux in auxes:
             loss = loss + aux * self.config.moe_aux_weight
         return loss
 
+    def init_caches(self, batch_size: int):
+        """Empty ``(k, v)`` caches ``[batch_size, 0, heads, head_dim]``
+        a layer, on the model's device and in its type."""
+        cfg = self.config
+        w = self.gpt.wte.weight
+        return [tuple(w.new_zeros(batch_size, 0, cfg.num_heads,
+                                  cfg.head_dim) for _ in range(2))
+                for _ in range(cfg.num_layers)]
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_p=None, eos_token_id=None, weight_quant=None,
+                 kv_cache_quant=None):
+        """Autoregressive decoding (:func:`.generation.generate`).
+        Returns new token ids [b, max_new_tokens]."""
+        from .generation import generate as _gen
+
+        return _gen(self, input_ids, max_new_tokens=max_new_tokens,
+                    temperature=temperature, top_p=top_p,
+                    eos_token_id=eos_token_id, weight_quant=weight_quant,
+                    kv_cache_quant=kv_cache_quant)
+
+    def beam_search(self, input_ids, max_new_tokens=32, num_beams=4,
+                    length_penalty=0.0, eos_token_id=None,
+                    weight_quant=None, kv_cache_quant=None):
+        """Beam search (:func:`.generation.beam_search`). Returns the
+        best beam's ids [b, max_new_tokens]."""
+        from .generation import beam_search as _beam
+
+        return _beam(self, input_ids, max_new_tokens=max_new_tokens,
+                     num_beams=num_beams, length_penalty=length_penalty,
+                     eos_token_id=eos_token_id, weight_quant=weight_quant,
+                     kv_cache_quant=kv_cache_quant)
+
     def decode_adapter(self):
-        """Weight-extraction protocol of the serving engine
-        (models/generation.py)."""
+        """Weight-extraction protocol of the decode engine and the
+        serving engine (models/generation.py)."""
         from .generation import GPTDecodeAdapter
 
         return GPTDecodeAdapter(self)

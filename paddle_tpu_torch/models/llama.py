@@ -11,10 +11,12 @@ kernel K7, RoPE, causal GQA attention through the flash-attention
 kernels K1-K3, the JAX package's fused route for the residual add +
 RMSNorm and the SwiGLU gate, an untied lm head and cross entropy,
 chunked when ``lm_ce_chunks > 1``; with ``recompute`` every block runs
-under ``torch.utils.checkpoint``), and serving through
-:meth:`LlamaForCausalLM.decode_adapter`. KV caches in ``forward`` and
-the ``ring`` / ``ulysses`` sequence-parallel modes are later slices
-(ROADMAP.md).
+under ``torch.utils.checkpoint``; with ``caches`` from
+:meth:`~LlamaForCausalLM.init_caches`, the incremental form, RoPE at each
+token's absolute position), and decoding through
+:meth:`LlamaForCausalLM.decode_adapter` (:meth:`~LlamaForCausalLM.generate`,
+:meth:`~LlamaForCausalLM.beam_search`, the serving engine). The ``ring`` /
+``ulysses`` sequence-parallel modes are a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -109,18 +111,32 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, config.num_kv_heads * hd, False, **factory)
         self.o_proj = Linear(config.num_heads * hd, h, False, **factory)
 
-    def forward(self, x, position_ids=None):
+    def forward(self, x, position_ids=None, cache=None):
         cfg = self.config
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
         k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        past = 0 if cache is None else cache[0].shape[1]
+        if position_ids is None and past:
+            # incremental decode: rotate by absolute position, not 0 (one
+            # row of positions for the batch, as without a cache: its
+            # tables broadcast, and q / k keep the layout K1 takes)
+            position_ids = torch.arange(past, past + s,
+                                        device=x.device)[None]
         q, k, _ = fused_rotary_position_embedding(
             q, k, None, position_ids=position_ids,
             rotary_emb_base=cfg.rope_base)
+        if cache is not None:
+            k = torch.cat([cache[0], k], 1)
+            v = torch.cat([cache[1], v], 1)
+            cache = (k, v)
+        # causal is bottom-right aligned: with a cache of `past` keys,
+        # query t sees keys <= past + t (the JAX _offset_causal_mask)
         out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
                                            training=self.training)
-        return self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        out = self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        return out if cache is None else (out, cache)
 
 
 class LlamaMLP(nn.Module):
@@ -151,13 +167,18 @@ class LlamaBlock(nn.Module):
         self.mlp = LlamaMLP(config, **factory)
         self.recompute = bool(config.recompute)
 
-    def _body(self, x, position_ids=None):
-        a = self.self_attn(self.input_layernorm(x), position_ids)
+    def _body(self, x, position_ids=None, cache=None):
+        a = self.self_attn(self.input_layernorm(x), position_ids, cache)
+        a, cache = (a, None) if cache is None else a
         ln = self.post_attention_layernorm
         h, x = add_rms_norm(a, x, ln.weight, ln.eps)
-        return x + self.mlp(h)
+        x = x + self.mlp(h)
+        return x if cache is None else (x, cache)
 
-    def forward(self, x, position_ids=None):
+    def forward(self, x, position_ids=None, cache=None):
+        """``x``; with a ``cache``, ``(x, cache)``."""
+        if cache is not None:
+            return self._body(x, position_ids, cache)
         if self.recompute and self.training:
             # non-reentrant: TrainStep takes its grads with
             # torch.autograd.grad, which the reentrant form refuses. K1/K2
@@ -184,11 +205,20 @@ class LlamaModel(nn.Module):
                                      for _ in range(config.num_layers)])
         self.norm = RMSNorm(h, config.rms_norm_eps, **factory)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_ids=None, caches=None):
+        """Final hidden states; with ``caches`` (a ``(k, v)`` pair a
+        layer) also the caches with this call's keys and values
+        appended."""
         x = self.embed_tokens(input_ids)
-        for block in self.layers:
-            x = block(x, position_ids)
-        return self.norm(x)
+        if caches is None:
+            for block in self.layers:
+                x = block(x, position_ids)
+            return self.norm(x)
+        new_caches = []
+        for block, cache in zip(self.layers, caches):
+            x, cache = block(x, position_ids, cache)
+            new_caches.append(cache)
+        return self.norm(x), new_caches
 
 
 def cross_entropy(logits, labels, ignore_index: int = -100):
@@ -252,16 +282,17 @@ class LlamaForCausalLM(nn.Module):
         mean token cross entropy, else the logits [b, s, vocab]. With
         ``lm_ce_chunks > 1`` (and b*s divisible by it) the loss is the
         chunked lm head + cross entropy, whose logits never exist in
-        full."""
-        if caches is not None:
-            raise NotImplementedError(
-                "forward with KV caches is not ported; serve through "
-                "decode_adapter() / serving.ServingEngine (ROADMAP.md)")
+        full. With ``caches`` (:meth:`init_caches`, or the caches a
+        previous call returned) the tokens continue the cached ones and,
+        without labels, ``(logits, caches)`` comes back."""
         if self.config.sequence_parallel_mode != "gspmd":
             raise NotImplementedError(
                 "sequence_parallel_mode=%r is not ported yet: see "
                 "ROADMAP.md" % self.config.sequence_parallel_mode)
-        x = self.llama(input_ids, position_ids)
+        if caches is None:
+            x = self.llama(input_ids, position_ids)
+        else:
+            x, caches = self.llama(input_ids, position_ids, caches)
         tied = self.lm_head is None
         w = self.llama.embed_tokens.weight if tied else self.lm_head.weight
         chunks = int(self.config.lm_ce_chunks or 0)
@@ -271,12 +302,45 @@ class LlamaForCausalLM(nn.Module):
                                       transpose_weight=tied)
         logits = x @ w.t() if tied else x @ w
         if labels is None:
-            return logits
+            return logits if caches is None else (logits, caches)
         return cross_entropy(logits.reshape(-1, logits.shape[-1]), labels)
 
+    def init_caches(self, batch_size: int):
+        """Empty ``(k, v)`` caches ``[batch_size, 0, kv_heads, head_dim]``
+        a layer, on the model's device and in its type."""
+        cfg = self.config
+        w = self.llama.embed_tokens.weight
+        return [tuple(w.new_zeros(batch_size, 0, cfg.num_kv_heads,
+                                  cfg.head_dim) for _ in range(2))
+                for _ in range(cfg.num_layers)]
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_p=None, eos_token_id=None, weight_quant=None,
+                 kv_cache_quant=None):
+        """Autoregressive decoding (:func:`.generation.generate`).
+        Returns new token ids [b, max_new_tokens]."""
+        from .generation import generate as _gen
+
+        return _gen(self, input_ids, max_new_tokens=max_new_tokens,
+                    temperature=temperature, top_p=top_p,
+                    eos_token_id=eos_token_id, weight_quant=weight_quant,
+                    kv_cache_quant=kv_cache_quant)
+
+    def beam_search(self, input_ids, max_new_tokens=32, num_beams=4,
+                    length_penalty=0.0, eos_token_id=None,
+                    weight_quant=None, kv_cache_quant=None):
+        """Beam search (:func:`.generation.beam_search`). Returns the
+        best beam's ids [b, max_new_tokens]."""
+        from .generation import beam_search as _beam
+
+        return _beam(self, input_ids, max_new_tokens=max_new_tokens,
+                     num_beams=num_beams, length_penalty=length_penalty,
+                     eos_token_id=eos_token_id, weight_quant=weight_quant,
+                     kv_cache_quant=kv_cache_quant)
+
     def decode_adapter(self):
-        """Weight-extraction protocol of the serving engine
-        (models/generation.py)."""
+        """Weight-extraction protocol of the decode engine and the
+        serving engine (models/generation.py)."""
         from .generation import LlamaDecodeAdapter
 
         return LlamaDecodeAdapter(self)

@@ -294,9 +294,14 @@ def test_the_other_options_still_raise():
     ids = torch.zeros(1, 8, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tm(ids)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GPTForCausalLM(_config(), device="cpu")(ids, caches=[])
-    q = torch.zeros(1, 8, 2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8),
-                                     dropout_p=P)
+    # KV caches and a masked SDPA with dropout are ported: they run, in
+    # training too, and the masked SDPA draws its dropout
+    tm = GPTForCausalLM(_config(), device="cpu")
+    logits, caches = tm(ids, caches=tm.init_caches(1))
+    assert logits.shape == (1, 8, tm.config.vocab_size)
+    assert caches[0][0].shape[1] == 8
+    q = torch.ones(1, 8, 2, 4)
+    out = scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8),
+                                       dropout_p=P)
+    kept = scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8))
+    assert out.shape == q.shape and not torch.equal(out, kept)

@@ -174,12 +174,17 @@ def test_functional_cpu_path_is_the_xla_composition(causal):
 
 
 def test_functional_refuses_what_is_not_ported():
-    """An explicit ``attn_mask`` is not ported and raises. Attention
-    dropout is: it drops the attention output, as the JAX package does
-    (``tests/test_torch_dropout.py`` holds it against the JAX model)."""
-    q = torch.zeros(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scaled_dot_product_attention(q, q, q, attn_mask=torch.ones(8, 8))
+    """An explicit ``attn_mask`` takes the masked composition
+    (``tests/test_torch_generation.py`` holds it against the JAX
+    package): a mask that allows every key gives the unmasked
+    attention. Attention dropout drops the attention output, as the JAX
+    package does (``tests/test_torch_dropout.py`` holds it against the
+    JAX model)."""
+    q = torch.randn(1, 8, 2, 32, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(
+        scaled_dot_product_attention(q, q, q,
+                                     attn_mask=torch.ones(8, 8).bool()),
+        flash_attention_ref(q, q, q), atol=1e-5, rtol=0)
     x = torch.randn(3, 1, 8, 2, 32,
                     generator=torch.Generator().manual_seed(0))
     plain = flash_attention_ref(x[0], x[1], x[2], causal=True)

@@ -201,12 +201,14 @@ def test_entry_points_refuse_cpu_fallback(models):
         ServingEngine(tm)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GPTForCausalLM(gpt_tiny())
-    # the full-sequence forward runs on the CPU model (plain attention);
-    # KV caches stay with the serving engine
+    # the full-sequence forward runs on the CPU model (plain attention),
+    # and so does its KV-cache form
     assert tm(torch.zeros(1, 4, dtype=torch.long)).shape == \
         (1, 4, tm.config.vocab_size)
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 4, dtype=torch.long), caches=[])
+    logits, caches = tm(torch.zeros(1, 4, dtype=torch.long),
+                        caches=tm.init_caches(1))
+    assert logits.shape == (1, 4, tm.config.vocab_size)
+    assert len(caches) == tm.config.num_layers
     assert tpa.ragged_paged_attention.launches == 0
 
 

@@ -2090,3 +2090,62 @@ def test_q8_quantize_on_the_card_matches_the_cpu(signed):
             assert torch.equal(a, b_.cpu())
         back = _q8_dequantize(*card, (n,), signed)
         assert torch.equal(back.cpu(), _q8_dequantize(*cpu, (n,), signed))
+
+
+# name -> (sq, sk, heads, causal, dtype)
+DECODE_FLASH_SHAPES = {
+    "sq1": (1, 132, 4, False, torch.bfloat16),
+    "sq4_sk132": (4, 132, 4, True, torch.bfloat16),
+    "sq1_f32_sk157_h16": (1, 157, 16, False, torch.float32),
+    "sq1_f32_sk129_h32": (1, 129, 32, False, torch.float32),
+    "sq1_f32_sk160_h32": (1, 160, 32, False, torch.float32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(DECODE_FLASH_SHAPES))
+def test_flash_fwd_at_the_decode_shapes(shape):
+    """K1 where decoding calls it, at d 128: one query a row over a
+    cache of 132 keys (``forward(caches=...)``'s token: full attention),
+    and 4 queries over 132 keys causal (a chunk after a cache of 128:
+    the bottom-right mask is the JAX ``_offset_causal_mask``), in bf16;
+    one query a row in f32 over 129-160 keys (the cached forward loop of
+    a 2-layer f32 model, 16 or 32 heads, ragged against the key tiles).
+    Against the plain version row by row."""
+    _need_hopper()
+    sq, sk, h, causal, dtype = DECODE_FLASH_SHAPES[shape]
+    q, k, v, _ = _flash_inputs(3, sq, sk, h, 128, dtype, seed=5)
+    scale = 128 ** -0.5
+    before = fa.flash_fwd.launches
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd.launches == before + 1
+    want_out, want_lse = _ref_fwd(q, k, v, causal, scale)
+    _assert_close(out, want_out, FLASH_TOL[str(dtype).split(".")[1]],
+                  "out " + shape)
+    _assert_lse_close(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4", "int4_ragged", "kv"])
+def test_decode_quantizers_on_the_card_match_the_cpu(kind):
+    """The decode path's weight and KV quantizers on the card equal the
+    CPU's (which equal the JAX package's, tests/test_torch_generation.py)
+    bit for bit: the divisions by 127 and 7 are true divisions there too."""
+    _need_hopper()
+    from paddle_tpu_torch.models import generation as gen
+
+    rng = np.random.RandomState(6)
+    shape = {"int8": (512, 96), "int4": (512, 96), "int4_ragged": (200, 256),
+             "kv": (8, 4, 40, 128)}[kind]
+    x = (rng.randn(*shape) * 10.0 ** rng.uniform(-3, 0, shape)) \
+        .astype(np.float32)
+    fn = {"int8": gen._quantize_w, "int4": gen._quantize_w4,
+          "int4_ragged": gen._quantize_w4, "kv": gen._quantize_kv}[kind]
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.from_numpy(x).to(dtype)
+        cpu, card = fn(t), fn(t.cuda())
+        assert set(cpu) == set(card)
+        for key in cpu:
+            assert card[key].dtype == cpu[key].dtype
+            assert torch.equal(card[key].cpu(), cpu[key]), (dtype, key)

@@ -74,10 +74,14 @@ def test_params_carry_over(models):
 
 def test_forward_is_not_ported(models):
     """The full-sequence forward trains since Llama training was ported;
-    its KV-cache form is not (serving goes through the engine)."""
+    its KV-cache form runs too: GQA caches of num_kv_heads panels grow by
+    each call's tokens."""
     _, tm = models
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 4, dtype=torch.long), caches=[])
+    logits, caches = tm(torch.zeros(1, 4, dtype=torch.long),
+                        caches=tm.init_caches(1))
+    assert logits.shape == (1, 4, tm.config.vocab_size)
+    assert caches[0][0].shape == (1, 4, tm.config.num_kv_heads,
+                                  tm.config.head_dim)
 
 
 def test_rope_matches_jax():

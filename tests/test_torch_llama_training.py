@@ -222,9 +222,10 @@ def test_unported_options_raise():
     ids = torch.zeros(1, 8, dtype=torch.long)
     with pytest.raises(NotImplementedError):
         tm(ids)
+    # KV caches are ported: the cached form runs
     tm = LlamaForCausalLM(llama_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm(ids, caches=[])
+    logits, _ = tm(ids, caches=tm.init_caches(1))
+    assert logits.shape == (1, 8, tm.config.vocab_size)
 
 
 def test_training_needs_a_gpu_unless_asked_for_the_cpu():
