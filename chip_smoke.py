@@ -6,6 +6,12 @@ toolkit (``nvcc``)::
 
     python3 chip_smoke.py                 # every phase, on one card
     python3 chip_smoke.py --phases ring   # phases 1, 2 (ring.cu), 4d, 9b, 9c
+    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e
+
+Phase 9e (sharded training) spawns one process a card, four at most:
+its full-width runs need four cards (``--phases mesh`` on four cards
+runs them alone); on fewer it runs its f32 checks only (mp 2 on two or
+three cards, a one-rank mesh on one) and says so.
 
 The ring phases (4d, 9b, 9c) put rank r of a ring on card r % n (n
 cards) when every pair of ring neighbours has peer access, else every
@@ -220,11 +226,29 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    steps whose loss must fall, K10 launched S (M+S-1) + S (M+S-2) times a
    step; tokens/s, ``bench.py``'s MFU formula against 67 TFLOP/s f32,
    peak memory a card;
+9e. (after 9c) sharded training, ``TrainStep(mesh=..., fsdp_axis="dp")``
+   one process a card (``distributed.spawn``, NCCL): on four cards,
+   Llama-2 7B (BASELINE #5: dp 2 x mp 2, recompute, bf16, AdamW bf16 m
+   and factored v, clip 1.0, 4 x 4096 tokens, 4 steps) against one card
+   (rank 0 alone first, the same weights and batch: the first loss within
+   MESH_LOSS_RTOL, each later one within MESH_LATER_LOSS_RTOL of the
+   card's, the parameters within MESH_PARAM_RTOL in relative L2 and their
+   difference within MESH_UPDATE_RTOL of the card's update), and GPT-3
+   13B (mp 2 x dp 2, recompute, bf16, 8 x 2048, 4 steps: finite,
+   falling losses); before them, 2-layer f32 copies of both at full width, 3 steps on a
+   new batch each, on each run's mesh against one card (losses and every
+   gathered weight, m, vr and vc within MESH_EXACT_RTOL, biases within
+   MESH_BIAS_RTOL, the qkv bias's key third within 3 lr). Each rank's K1
+   / K2 (and Llama's K7) launches must equal ``step_launches``; printed
+   beside the card: tokens/s, median step, MFU (6N + 6 L h s flops a
+   token against 989 TFLOP/s times the cards), every card's peak memory,
+   NCCL's share of rank 0's device time over one more profiled step;
 9. one JSON line with the six training paths' numbers, one with the
    MoE numbers, one with the serving numbers, one with the decode
-   numbers, one with the TP and pipeline numbers, then one listing
-   every ported kernel with its numbers (``--phases ring``: the last two
-   only);
+   numbers, one with the mesh numbers, one with the TP and pipeline
+   numbers, then one listing every ported kernel with its numbers
+   (``--phases ring``: the last two only; ``--phases mesh``: the mesh
+   line only);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -233,6 +257,8 @@ import argparse
 import dataclasses
 import itertools
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2110,9 +2136,9 @@ def stream_phase(card, path, model):
     used = []
     update = step.optimizer.update
 
-    def recording(params, grads, state, lr=None):
+    def recording(params, grads, state, lr=None, **kw):
         used.append(lr)
-        return update(params, grads, state, lr=lr)
+        return update(params, grads, state, lr=lr, **kw)
 
     step.optimizer.update = recording
     try:
@@ -4646,6 +4672,416 @@ def pipeline_phase(card):
     return res
 
 
+# ------------------------------------------------------------ phase 9e
+# Sharded training over a mesh: one process a card (spawn, NCCL), each
+# running TrainStep(mesh=..., fsdp_axis="dp") on its shards. The full
+# widths need four cards: Llama-2 7B (BASELINE #5: dp 2 x mp 2, FSDP over
+# dp, recompute, bf16, AdamW with bf16 m and factored v, clip 1.0, 4 x
+# 4096 tokens) held against one card (rank 0 alone, before the mesh run)
+# on the same weights and batch, and GPT-3 13B (the north star's model:
+# mp 2 x dp 2, FSDP over dp, recompute, bf16, 8 x 2048), whose losses
+# must be finite and fall. The exact checks: 2-layer f32 copies of both at
+# full width (f32 m), 3 steps on the mesh against one card, each on a new
+# batch of 4 x 512 tokens (on one batch repeated the 2-layer models learn
+# it in two steps, to a loss of ~2e-4, whose relative difference then
+# reads rounding): every step's loss and every gathered parameter, m, vr and vc
+# within MESH_EXACT_RTOL in relative L2 a tensor, but for GPT's biases:
+# they start at zero, so after 3 steps they are Adam's updates alone,
+# normalised gradients whose relative error is their gradient's, a sum
+# over every token that cancels (a bias and its m and v within
+# MESH_BIAS_RTOL; one rank read 2.2e-4 on gpt.h.1.ln_1.bias against one
+# card, the row-parallel bias added after its GEMM instead of in its
+# epilogue), and the key third of the qkv bias, whose gradient is zero in
+# exact arithmetic so that Adam normalises rounding noise there, within
+# 3 lr.
+MESH_PATHS = {
+    "llama2_7B": ("LlamaForCausalLM", "llama2_7B",
+                  dict(recompute=True, lm_ce_chunks=8),
+                  ((2, 2), ("dp", "mp")), (4, 4096)),
+    "gpt3_13B": ("GPTForCausalLM", "gpt3_13B",
+                 dict(recompute=True, lm_ce_chunks=8),
+                 ((2, 2), ("mp", "dp")), (8, 2048)),
+}
+MESH_STEPS = 4
+MESH_EXACT_STEPS = 3
+MESH_EXACT_BATCH = (4, 512)
+MESH_LR = 1e-4
+MESH_EXACT_RTOL = 1e-4
+MESH_BIAS_RTOL = 1e-2
+MESH_TIMEOUT_S = 300
+# Llama-2 7B bf16, dp 2 x mp 2 against one card, 4 steps at lr 1e-4 on
+# one batch: the first step's loss (the same weights: bf16 rounding
+# only) within MESH_LOSS_RTOL of the card's, every later one within
+# MESH_LATER_LOSS_RTOL of the card's loss at that step, every parameter
+# together within MESH_PARAM_RTOL (relative L2), and the parameters'
+# difference within MESH_UPDATE_RTOL of the card's update (relative L2
+# of the difference against the card's change over the 4 steps: a run
+# that never updates reads 1, one that updates a quarter off reads about
+# 0.25 more than the rounding). The mesh rounds its partial sums (the
+# row-parallel all-reduce, the FSDP reduce-scatter) in bf16 where one
+# card sums inside one GEMM, and an update of lr is about one bf16 step
+# of a weight of 0.02, so the runs' weights part by a bf16 step here and
+# there. The bounds are set from two four-card runs: the losses read
+# 3.57e-5, 1.74e-3, 3.13e-3 and 1.50e-2 of the card's (the other run
+# 0.0181 at most), the parameters 2.67e-3 together and 0.207 of the
+# update.
+MESH_LOSS_RTOL = 1e-3
+MESH_LATER_LOSS_RTOL = 5e-2
+MESH_PARAM_RTOL = 1e-2
+MESH_UPDATE_RTOL = 0.4
+
+
+def mesh_jobs(cards):
+    """The mesh runs for ``cards`` cards: (jobs, ranks). Four or more:
+    the exact checks on each full run's mesh, then the full runs; two
+    or three: the exact checks on mp 2; one: on a one-rank mesh (the
+    sharded code with groups of size 1)."""
+    if cards >= 4:
+        ranks, meshes = 4, {k: v[3] for k, v in MESH_PATHS.items()}
+    elif cards >= 2:
+        ranks, meshes = 2, {k: ((2,), ("mp",)) for k in MESH_PATHS}
+    else:
+        ranks, meshes = 1, {k: ((1, 1), ("dp", "mp")) for k in MESH_PATHS}
+    jobs = []
+    for path, (cls, factory, kw, _, _) in MESH_PATHS.items():
+        jobs.append(dict(name=path + "_f32_2layer", model=(cls, factory, kw),
+                         layers=2, exact=True, mesh=meshes[path],
+                         batch=MESH_EXACT_BATCH, steps=MESH_EXACT_STEPS,
+                         reference=True))
+    if cards >= 4:
+        for path, (cls, factory, kw, mesh, batch) in MESH_PATHS.items():
+            jobs.append(dict(name=path, model=(cls, factory, kw),
+                             layers=None, exact=False, mesh=mesh,
+                             batch=batch, steps=MESH_STEPS,
+                             reference=path == "llama2_7B"))
+    return jobs, ranks
+
+
+def mesh_model(job):
+    """The job's model on this rank's card, whole, weights from a
+    generator seeded 0 (the same on every card)."""
+    from paddle_tpu_torch import models
+
+    return getattr(models, job["model"][0])(
+        mesh_config(job),
+        dtype=torch.float32 if job["exact"] else torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+
+
+def mesh_optimizer(job):
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return AdamW(learning_rate=MESH_LR, weight_decay=0.01,
+                 moment_dtype="float32" if job["exact"] else "bfloat16",
+                 factored_v=True)
+
+
+def mesh_batches(job):
+    """The job's batches, the same on every rank: a new one a step for
+    the exact checks, one repeated for the full runs."""
+    b, s = job["batch"]
+    rng = np.random.default_rng(0)
+    vocab = mesh_config(job).vocab_size
+    n = job["steps"] if job["exact"] else 1
+    out = [(rng.integers(0, vocab, (b, s)), rng.integers(0, vocab, (b, s)))
+           for _ in range(n)]
+    return [out[min(i, n - 1)] for i in range(job["steps"])]
+
+
+def mesh_reference(job, batches):
+    """Rank 0 alone: the job's steps on one card. Returns the losses,
+    the final parameters (and for the exact checks m / vr / vc; on the
+    host for the full runs) and each parameter's squared update."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    model = mesh_model(job)
+    keep = "cuda" if job["exact"] else "cpu"
+    init = {n: p.detach().to(keep, copy=True)
+            for n, p in model.named_parameters()}
+    step = TrainStep(model, mesh_optimizer(job), grad_clip_norm=1.0)
+    losses = [step(*batch).item() for batch in batches]
+    ref = {"losses": losses, "params": {}, "update_sq": {}}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            ref["update_sq"][n] = float(
+                (p.float() - init.pop(n).cuda().float()).square().sum())
+            ref["params"][n] = p.detach().to(keep, copy=True)
+    if job["exact"]:
+        ref["state"] = {k: [e.clone() for e in step.opt_state[k]]
+                        for k in ("m", "vr", "vc")}
+    del model, step
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm() /
+                 want.float().norm().clamp_min(1e-30))
+
+
+def mesh_compare(step, ref, exact):
+    """Every parameter (and for the exact checks m / vr / vc) gathered
+    whole, a collective of every rank; on rank 0 against ``ref``: the
+    largest relative L2 a tensor, the parameters' relative L2 together
+    and against their updates, the qkv bias's key third."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.convert import state_layout
+
+    out = dict(worst=0.0, worst_name=None, worst_bias=0.0,
+               worst_bias_name=None, key_bias=0.0)
+    sq = dict(diff=0.0, ref=0.0, update=0.0)
+    rank0 = dist.get_rank() == 0
+    for i, (name, p) in enumerate(step.model.named_parameters()):
+        pairs = [(name, p.dist_layout.gather(p.detach()),
+                  ref["params"][name] if rank0 else None)]
+        if exact:
+            for key in ("m", "vr", "vc"):
+                e = step.opt_state[key][i]
+                lay = state_layout(key, p, e)
+                if e.numel():
+                    pairs.append(("%s of %s" % (key, name),
+                                  e if lay is None else lay.gather(e),
+                                  ref["state"][key][i] if rank0 else None))
+        if not rank0:
+            continue
+        for what, got, want in pairs:
+            want = want.to(got.device)
+            if what.endswith("attn.qkv_proj.bias"):
+                h = got.shape[0] // 3
+                out["key_bias"] = max(out["key_bias"], float(
+                    (got[h:2 * h] - want[h:2 * h]).abs().max()))
+                got = torch.cat([got[:h], got[2 * h:]])
+                want = torch.cat([want[:h], want[2 * h:]])
+            rel = _rel(got, want)
+            kind = "worst_bias" if name.endswith(".bias") else "worst"
+            if rel > out[kind]:
+                out[kind], out[kind + "_name"] = rel, what
+            if what == name:
+                sq["diff"] += float((got.float() - want.float()).square()
+                                    .sum())
+                sq["ref"] += float(want.float().square().sum())
+                sq["update"] += ref["update_sq"][name]
+    if rank0:
+        out["params_rel_l2"] = math.sqrt(sq["diff"] / sq["ref"])
+        out["update_rel_l2"] = math.sqrt(sq["diff"] / max(sq["update"],
+                                                          1e-30))
+    return out
+
+
+def nccl_share(step, batch):
+    """One more step, profiled on rank 0: the share of its device time
+    in NCCL kernels (None when the profiler saw no device time)."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    if dist.get_rank() != 0:
+        step(*batch)
+        torch.cuda.synchronize()
+        return None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels)
+    nccl = sum(e.self_device_time_total for e in kernels
+               if "nccl" in e.key.lower())
+    return dict(busy_ms=busy / 1e3, nccl_ms=nccl / 1e3,
+                share=nccl / busy) if busy else None
+
+
+def mesh_job(job):
+    """One mesh run on every rank: the one-card reference (rank 0), the
+    sharded model, its steps between zeroed and read kernel counts, the
+    comparison and a profiled step. Returns every rank's readings (on
+    rank 0)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.jit import TrainStep
+
+    rank = dist.get_rank()
+    shape, names = job["mesh"]
+    mesh = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), names)
+    b, s = job["batch"]
+    batches = mesh_batches(job)
+    ref = mesh_reference(job, batches) \
+        if job["reference"] and rank == 0 else None
+    dist.barrier()
+    t0 = time.perf_counter()
+    model = mesh_model(job)
+    step = TrainStep(model, mesh_optimizer(job), mesh=mesh, fsdp_axis="dp",
+                     grad_clip_norm=1.0)
+    n_params = sum(math.prod(p.dist_layout.shape)
+                   for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    read = zero_counts()
+    feed = iter(batches)
+    losses, secs = timed_calls(lambda: step(*next(feed)), job["steps"])
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: job["steps"] * n for k, n in step_launches(model).items()}
+    cmp = mesh_compare(step, ref, job["exact"]) if job["reference"] else {}
+    share = nccl_share(step, batches[-1])
+    mine = dict(rank=rank, launches=launches, peak_gb=peak / 1e9,
+                device=torch.cuda.current_device())
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    del model, step
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    cfg = mesh_config(job)
+    cards = dist.get_world_size()
+    tail = secs[1:] or secs
+    tokens_s = b * s * len(tail) / sum(tail)
+    flops = 6 * n_params + 6 * cfg.num_layers * cfg.hidden_size * s
+    return dict(mesh=dict(zip(names, shape)), cards=cards, batch=[b, s],
+                layers=cfg.num_layers, dtype="float32" if job["exact"]
+                else "bfloat16", losses=losses, step_ms=[1e3 * x for x in
+                                                         secs],
+                median_step_ms=1e3 * statistics.median(tail),
+                tokens_s=tokens_s, params=n_params, flops_per_token=flops,
+                mfu=tokens_s * flops / (BF16_FLOPS_PER_S * cards),
+                setup_s=setup_s, ranks=ranks, want=want,
+                reference_losses=None if ref is None else ref["losses"],
+                compare=cmp, nccl=share, exact=job["exact"])
+
+
+def mesh_config(job):
+    from paddle_tpu_torch import models
+
+    _, factory, kw = job["model"]
+    cfg = getattr(models, factory)(**kw)
+    return cfg if not job["layers"] else dataclasses.replace(
+        cfg, num_layers=job["layers"])
+
+
+def mesh_worker(out, jobs):
+    """A rank of the mesh phase (spawned, one a card): every job in
+    order; rank 0 writes the readings to ``out``."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32: exact checks
+    torch.backends.cudnn.allow_tf32 = False
+    # a collective that waits this long means a rank is lost: fail
+    # (rank 0's one-card Llama-2 7B run, ~1 min, is the longest wait)
+    init_parallel_env(timeout=MESH_TIMEOUT_S)
+    res = {}
+    for job in jobs:
+        res[job["name"]] = mesh_job(job)
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(res, f)
+
+
+def mesh_phase(card):
+    """Phase 9e: spawn one rank a card (four at most) over the jobs of
+    :func:`mesh_jobs`, then check and print each run's readings."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed import spawn
+
+    cards = torch.cuda.device_count()
+    jobs, ranks = mesh_jobs(cards)
+    if cards < 4:
+        print("mesh: the full-width runs (Llama-2 7B on dp 2 x mp 2, GPT-3 "
+              "13B on mp 2 x dp 2, FSDP over dp) need four cards; %d here: "
+              "the 2-layer f32 checks only, on %s [%s]"
+              % (cards, jobs[0]["mesh"], card), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        t0 = time.perf_counter()
+        spawn(mesh_worker, (out, jobs), nprocs=ranks)
+        with open(out) as f:
+            res = json.load(f)
+    finally:
+        os.unlink(out)
+    print("mesh: %d ranks, one a card, %.1f s in all [%s]"
+          % (ranks, time.perf_counter() - t0, card), flush=True)
+    for job in jobs:
+        mesh_check(job, res[job["name"]], card)
+    return res
+
+
+def mesh_check(job, r, card):
+    """One mesh run's printed readings, then its checks."""
+    name = job["name"]
+    losses, ref, c = r["losses"], r["reference_losses"], r["compare"]
+    loss_rel = None if ref is None else [abs(a - b) / abs(b)
+                                         for a, b in zip(losses, ref)]
+    r["loss_rel"] = loss_rel
+    nccl = r["nccl"]
+    print("mesh %s: %s, %d layers %s, %d x %d tokens, %d steps; losses %s"
+          "%s; %.1f tokens/s, median step %.2f ms, MFU %.4f (tokens/s x "
+          "(6N + 6 L h s) / (989 TFLOP/s x %d cards), N = %d), setup %.1f "
+          "s; peak memory %s GB; launches a rank %s; NCCL share of rank "
+          "0's device time %s [%s]" % (
+              name, r["mesh"], r["layers"], r["dtype"], r["batch"][0],
+              r["batch"][1], len(losses), ["%.5f" % x for x in losses],
+              "" if ref is None else ", one card %s (relative differences "
+              "%s)" % (["%.5f" % x for x in ref],
+                       ["%.3g" % x for x in loss_rel]),
+              r["tokens_s"], r["median_step_ms"], r["mfu"], r["cards"],
+              r["params"], r["setup_s"],
+              ["%.2f" % rk["peak_gb"] for rk in r["ranks"]],
+              r["ranks"][0]["launches"],
+              "not measured" if nccl is None else "%.4f (%.2f of %.2f ms)"
+              % (nccl["share"], nccl["nccl_ms"], nccl["busy_ms"]), card),
+          flush=True)
+    if c:
+        print("mesh %s: against one card: largest relative L2 a tensor "
+              "%.3g (%s), a bias %.3g (%s), parameters %.3g together, %.3g "
+              "of their updates; qkv key-bias third %.3g [%s]" % (
+                  name, c["worst"], c["worst_name"], c["worst_bias"],
+                  c["worst_bias_name"],
+                  c.get("params_rel_l2", float("nan")),
+                  c.get("update_rel_l2", float("nan")), c["key_bias"],
+                  card), flush=True)
+    check(all(np.isfinite(losses)), "mesh %s: losses %s" % (name, losses))
+    for rk in r["ranks"]:
+        got = rk["launches"]
+        check(got == r["want"] and got["K1"] > 0 and got["K2"] > 0,
+              "mesh %s: rank %d launched %s, want %s"
+              % (name, rk["rank"], got, r["want"]))
+        if "llama" in name:
+            check(got["K7 rms_norm"] > 0, "mesh %s: no K7" % name)
+    if job["exact"]:
+        check(max(loss_rel) <= MESH_EXACT_RTOL
+              and c["worst"] <= MESH_EXACT_RTOL
+              and c["worst_bias"] <= MESH_BIAS_RTOL
+              and c["key_bias"] <= 3 * MESH_LR,
+              "mesh %s: against one card beyond the bounds %g (losses, "
+              "tensors), %g (biases), %g (key third)"
+              % (name, MESH_EXACT_RTOL, MESH_BIAS_RTOL, 3 * MESH_LR))
+    elif ref is not None:
+        later = max(loss_rel[1:] or [0.0])
+        check(loss_rel[0] <= MESH_LOSS_RTOL and
+              later <= MESH_LATER_LOSS_RTOL and
+              c["params_rel_l2"] <= MESH_PARAM_RTOL and
+              c["update_rel_l2"] <= MESH_UPDATE_RTOL,
+              "mesh %s: against one card, first loss %.3g (bound %g), later"
+              " losses %.3g (bound %g), params relative L2 %.3g (bound %g),"
+              " %.3g of the update (bound %g)" % (
+                  name, loss_rel[0], MESH_LOSS_RTOL, later,
+                  MESH_LATER_LOSS_RTOL, c["params_rel_l2"],
+                  MESH_PARAM_RTOL, c["update_rel_l2"], MESH_UPDATE_RTOL))
+    else:
+        check(losses[-1] < losses[0], "mesh %s: loss did not fall: %s"
+              % (name, losses))
+
+
 def main_path_phases(card, stamp):
     """Phases 3 to 9a, with 4d, and 9d: every kernel phase, training,
     serving in both layouts, the profiles, the MoE path and the decode
@@ -4881,12 +5317,29 @@ def ring_rows(ring, tp, pp):
     return rows
 
 
+def mesh_rows(kernels, mesh):
+    """The mesh path's launches a rank (rank 0's, every rank's being
+    checked equal) beside the other paths' in K1's, K2's and K7 RMSNorm's
+    rows."""
+    for row in kernels:
+        key = {"flash_fwd": "K1", "flash_bwd_fused": "K2",
+               "rms_norm": "K7 rms_norm"}.get(row["name"])
+        if key is None:
+            continue
+        paths = row.setdefault("launches_by_path", {})
+        for name, r in mesh.items():
+            if key != "K7 rms_norm" or "llama" in name:
+                paths["mesh %s %s, a rank" % (name, r["mesh"])] = \
+                    r["ranks"][0]["launches"][key]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phases", choices=("all", "ring"), default="all",
+        "--phases", choices=("all", "ring", "mesh"), default="all",
         help="all: every phase (the default); ring: only the card, the "
-             "ring kernels' build and phases 4d, 9b and 9c")
+             "ring kernels' build and phases 4d, 9b and 9c; mesh: only the "
+             "card, K1-K3's and K7's build and phase 9e")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -4909,7 +5362,8 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    sources = _build.SOURCES if args.phases == "all" else ("ring",)
+    sources = {"all": _build.SOURCES, "ring": ("ring",),
+               "mesh": ("flash_attn", "norms")}[args.phases]
     secs = _build.build_all(sources)
     print("build: %s in %.2f s" % (", ".join(sources), secs))
     for name in sources:
@@ -4920,22 +5374,32 @@ def main(argv=None):
                 print("ptxas %s: %s" % (name, line.strip()))
     sys.stdout.flush()
 
-    if args.phases == "all":
-        kernels, lines, ring = main_path_phases(card, stamp)
+    if args.phases == "mesh":
+        mesh = mesh_phase(card)
+        stamp("the mesh path")
+        print(json.dumps({"mesh": mesh}))
     else:
-        kernels, lines = [], []
-        ring = ring_kernel_phase(card)
-        torch.cuda.empty_cache()
-        stamp("the build and the ring kernel phase")
-    tp = tp_phase(card)
-    stamp("the TP path")
-    pp = pipeline_phase(card)
-    stamp("the pipeline")
-    kernels += ring_rows(ring, tp, pp)
-    for line in lines:
-        print(line)
-    print(json.dumps({"tp": tp, "pipeline": pp}))
-    print(json.dumps({"kernels": kernels}))
+        if args.phases == "all":
+            kernels, lines, ring = main_path_phases(card, stamp)
+        else:
+            kernels, lines = [], []
+            ring = ring_kernel_phase(card)
+            torch.cuda.empty_cache()
+            stamp("the build and the ring kernel phase")
+        tp = tp_phase(card)
+        stamp("the TP path")
+        pp = pipeline_phase(card)
+        stamp("the pipeline")
+        kernels += ring_rows(ring, tp, pp)
+        if args.phases == "all":
+            mesh = mesh_phase(card)
+            stamp("the mesh path")
+            mesh_rows(kernels, mesh)
+            lines.append(json.dumps({"mesh": mesh}))
+        for line in lines:
+            print(line)
+        print(json.dumps({"tp": tp, "pipeline": pp}))
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -30,10 +30,36 @@ Dropout draws from the step's own ``torch.Generator`` (seeded by
 ``seed``), installed for the duration of each step
 (:func:`paddle_tpu_torch.core.random.rng_guard`, the JAX ``rng_guard``).
 
-A mesh and FSDP are later slices (ROADMAP.md).
+On a mesh (``mesh=ProcessMesh(...)`` over the axes ``dp`` and ``mp``,
+``fsdp_axis="dp"`` optional, ``batch_specs`` as in the JAX step) the
+step is one process a rank (:func:`paddle_tpu_torch.distributed.spawn`,
+:func:`~paddle_tpu_torch.distributed.init_parallel_env`), each running
+this code on its shards, the counterpart of the JAX step's one SPMD
+program:
+
+  the model's parameters are sliced to this rank's pieces
+  (:func:`..distributed.sharding.shard_model`: tensor-parallel layers
+  over ``mp``, FSDP units over ``dp``);
+  every rank is given the global batch and takes its ``dp`` part (with
+  ``accumulate_steps = k`` the global batch's k micro-batches, each
+  split over ``dp``, as the JAX step splits them);
+  the loss is the global mean over every ``dp`` rank's tokens;
+  gradients of parameters the ``dp`` ranks replicate are summed over
+  ``dp`` (FSDP ones arrive reduce-scattered);
+  the clip norm is global (:func:`..observability.health.grad_health`
+  over the shards' groups), and AdamW's factored statistics are the
+  whole matrix's (``AdamW.update(..., shards=...)``).
+
+``opt_state`` then holds this rank's pieces, and the model keeps its
+local shards; :func:`paddle_tpu_torch.convert.gather_params` and
+:func:`~paddle_tpu_torch.convert.gather_opt_state` gather them whole.
+A mesh axis other than ``dp`` / ``mp``, an FSDP axis other than ``dp``,
+MoE, dropout, 8-bit moments, ``run_steps_stream`` and the TP overlap
+raise on a mesh (ROADMAP.md).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import queue
 import threading
@@ -41,9 +67,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..config import knobs
 from ..core import random as _random
 from ..device import DeviceLike, resolve_device
+from ..distributed import collective
+from ..distributed.auto_parallel.constraint import filtered_spec
+from ..distributed.auto_parallel.process_mesh import ProcessMesh
+from ..distributed.sharding import shard_model
 from ..observability import health
 from ..optimizer.lr import LRScheduler
 
@@ -140,6 +172,18 @@ class ChunkPrefetcher:
         return item
 
 
+_MESH_AXES = ("dp", "mp")
+_UNPORTED_AXES = {
+    "sp": "sequence parallelism (the ring / ulysses modes)",
+    "ep": "the expert-parallel axis",
+    "pp": "pipeline x tensor-parallel hybrids"}
+
+
+def _unported(what: str):
+    return NotImplementedError("%s on a mesh is not ported yet: see "
+                               "ROADMAP.md" % what)
+
+
 class TrainStep:
     """``step = TrainStep(model, opt, grad_clip_norm=1.0)``;
     ``loss = step(input_ids, labels)``.
@@ -150,17 +194,18 @@ class TrainStep:
     batch entry goes to the model as ``labels`` (CausalLM models return
     the loss when given labels). ``accumulate_steps = k > 1`` splits
     each batch along dim 0 into k micro-batches (gradient merge).
-    ``seed`` seeds the step's dropout generator."""
+    ``seed`` seeds the step's dropout generator. ``mesh``, ``fsdp_axis``
+    and ``batch_specs``: sharded training (the module note); the model
+    is sliced to this rank's shards when the step is built. On a mesh a
+    ``loss_fn`` must return the global loss as the models do (its
+    gradient this rank's share, see :mod:`..fusion.chunked`)."""
 
     def __init__(self, model: torch.nn.Module, optimizer, mesh=None,
                  loss_fn: Optional[Callable] = None,
                  grad_clip_norm: Optional[float] = None,
                  fsdp_axis: Optional[str] = None, accumulate_steps: int = 1,
-                 device: DeviceLike = None, seed: int = 0):
-        if mesh is not None or fsdp_axis is not None:
-            raise NotImplementedError(
-                "sharded training (mesh, fsdp_axis) is not ported yet: see "
-                "ROADMAP.md")
+                 device: DeviceLike = None, seed: int = 0,
+                 batch_specs=None):
         self.device = resolve_device(device)
         self.model = model
         self.optimizer = optimizer
@@ -176,13 +221,89 @@ class TrainStep:
                 raise ValueError("parameter %s is on %s, the step on %s"
                                  % (name, p.device, self.device))
             self._params.append(p)
+        self.mesh = mesh
+        self._root = self._norm_groups = self._adam_shards = None
+        if mesh is not None:
+            self._setup_mesh(mesh, fsdp_axis, batch_specs)
         self.opt_state = optimizer.init_state(self._params)
         self._generator = torch.Generator(device=self.device).manual_seed(
             int(seed))
         self._step_count = 0
 
+    # ----------------------------------------------------------------- mesh
+    def _setup_mesh(self, mesh, fsdp_axis, batch_specs) -> None:
+        """Check what the mesh path supports, shard the model and note
+        each parameter's groups."""
+        if not isinstance(mesh, ProcessMesh):
+            raise _unported("a mesh other than paddle_tpu_torch.distributed."
+                            "ProcessMesh (%s)" % type(mesh).__name__)
+        for name in mesh.dim_names:
+            if name not in _MESH_AXES:
+                raise _unported(_UNPORTED_AXES.get(
+                    name, "a mesh axis %r" % name))
+        if fsdp_axis in mesh.dim_names and fsdp_axis != "dp":
+            raise _unported("FSDP over %r (a model axis)" % fsdp_axis)
+        if knobs.get_str("PADDLE_TPU_TP_OVERLAP").strip().lower() in (
+                "on", "pallas"):
+            raise _unported("the TP overlap (overlap_linear, K9)")
+        if getattr(self.optimizer, "_moment_quant", None):
+            raise _unported("8-bit moments")
+        cfg = getattr(self.model, "config", None)
+        if getattr(cfg, "moe_num_experts", 0):
+            raise _unported("MoE GPT")
+        if getattr(cfg, "dropout", 0.0) or getattr(
+                cfg, "attention_dropout", 0.0):
+            raise _unported("dropout")
+        mp = mesh.axis_size("mp")
+        for key in ("num_heads", "num_kv_heads"):
+            if getattr(cfg, key, 0) % mp:
+                raise ValueError("%s=%d does not divide by mp=%d"
+                                 % (key, getattr(cfg, key), mp))
+        if not dist.is_initialized():
+            raise RuntimeError("a mesh needs the process group: call "
+                               "paddle_tpu_torch.distributed."
+                               "init_parallel_env() in every rank first")
+        self._root = shard_model(self.model, mesh, fsdp_axis)
+        self._norm_groups, self._adam_shards, self._dp_reduce = [], [], []
+        for i, p in enumerate(self._params):
+            spec = p.dist_layout.spec
+            self._norm_groups.append(mesh.group_of(spec))
+            self._adam_shards.append((mesh.group_of(spec[:1]),
+                                      mesh.group_of(spec[1:])))
+            if "dp" in mesh.dim_names and "dp" not in spec:
+                self._dp_reduce.append(i)
+        self._dp = mesh.group("dp") if "dp" in mesh.dim_names else None
+        self._dp_size, self._dp_rank = mesh.axis_size("dp"), mesh.coord("dp")
+        self._batch_specs = None if batch_specs is None else [
+            filtered_spec(b, mesh) for b in batch_specs]
+        for spec in self._batch_specs or ():
+            if "dp" in spec[1:]:
+                raise _unported("a batch split over dp past its dim 0")
+
+    def _dp_part(self, a: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's ``dp`` rows of a global batch array: with k
+        micro-batches, its part of each, as the JAX step splits them."""
+        split = a.dim() > 0 if spec is None else bool(spec) and \
+            spec[0] == "dp"
+        if not split:
+            return a
+        k, n = self.accumulate_steps, self._dp_size
+        if a.shape[0] % (k * n):
+            raise ValueError("batch dim %d does not split into %d "
+                             "micro-batches over dp=%d"
+                             % (a.shape[0], k, n))
+        m = a.shape[0] // (k * n)
+        r = self._dp_rank
+        return a.reshape((k, n * m) + tuple(a.shape[1:]))[
+            :, r * m:(r + 1) * m].reshape((k * m,) + tuple(a.shape[1:]))
+
     # ----------------------------------------------------------- one step
     def _loss(self, batch) -> torch.Tensor:
+        with (self._root.gathered() if self._root is not None
+              else contextlib.nullcontext()):
+            return self._model_loss(batch)
+
+    def _model_loss(self, batch) -> torch.Tensor:
         if self.loss_fn is not None:
             return self.loss_fn(self.model, *batch)
         if len(batch) >= 2:
@@ -218,9 +339,12 @@ class TrainStep:
         None without clipping or health."""
         with _random.rng_guard(self._generator):
             loss, grads = self._loss_and_grads(batch)
+        if self.mesh is not None:
+            for i in self._dp_reduce:
+                collective.all_reduce(grads[i], group=self._dp)
         gnorm = seen = None
         if self.grad_clip_norm is not None or self._health_on:
-            gnorm = seen = health.grad_health(grads)
+            gnorm = seen = health.grad_health(grads, self._norm_groups)
         if self._health == "skip":
             seen = gnorm.item()
             if not math.isfinite(seen):
@@ -230,7 +354,8 @@ class TrainStep:
                                 max=1.0)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
-        self.optimizer.update(self._params, grads, self.opt_state, lr=lr)
+        self.optimizer.update(self._params, grads, self.opt_state, lr=lr,
+                              shards=self._adam_shards)
         return loss, seen
 
     def _run(self, n: int, batch_of, lrs):
@@ -284,8 +409,13 @@ class TrainStep:
         return arrays
 
     def _batch(self, batch):
-        return self._check_batch(tuple(
-            torch.as_tensor(b, device=self.device) for b in batch))
+        if self.mesh is None:
+            return self._check_batch(tuple(
+                torch.as_tensor(b, device=self.device) for b in batch))
+        arrays = self._check_batch(tuple(torch.as_tensor(b) for b in batch))
+        specs = self._batch_specs or [None] * len(arrays)
+        return tuple(self._dp_part(a, s).to(self.device)
+                     for a, s in zip(arrays, specs))
 
     def _stacked(self, stacked, n: int):
         """Per-step slices of ``[n, ...]`` stacked inputs, each copied to
@@ -345,6 +475,8 @@ class TrainStep:
         fails). Returns the last step's loss."""
         if n <= 0:
             raise ValueError(f"run_steps_stream needs n >= 1, got {n}")
+        if self.mesh is not None:
+            raise _unported("run_steps_stream")
         batch_of = self._stacked(stacked, n)
         if lrs is not None:
             lrs = np.asarray(_host(lrs), np.float32)
@@ -367,7 +499,9 @@ class TrainStep:
 
     def sync_params_to_model(self) -> None:
         """Kept for the JAX API: the step updates the model's own
-        parameters in place, so there is nothing to write back."""
+        parameters in place, so there is nothing to write back (on a
+        mesh they stay this rank's shards:
+        :func:`paddle_tpu_torch.convert.gather_params` gathers them)."""
 
     def restore_state(self, opt_state=None) -> None:
         """Resume: the step already works on the model's parameters (so

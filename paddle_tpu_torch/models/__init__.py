@@ -6,11 +6,11 @@ pure-function GPT for the compiled pipeline."""
 from .generation import (GPTDecodeAdapter, LlamaDecodeAdapter, beam_search,
                          generate, speculative_generate)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
-                  gpt3_125M, gpt3_1p3B, gpt_tiny)
+                  gpt3_125M, gpt3_13B, gpt3_1p3B, gpt3_6p7B, gpt_tiny)
 from .llama import LlamaConfig, LlamaForCausalLM, llama2_7B, llama_tiny
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTDecodeAdapter",
-           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B",
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B", "gpt3_6p7B", "gpt3_13B",
            "LlamaConfig", "LlamaForCausalLM", "LlamaDecodeAdapter",
            "llama_tiny", "llama2_7B", "generate", "beam_search",
            "speculative_generate"]

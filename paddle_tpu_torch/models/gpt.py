@@ -21,6 +21,16 @@ embeddings' sum and each block's two residual branches
 (as in the JAX package); the masks come from the random streams of
 :mod:`paddle_tpu_torch.core.random` and a recomputed block replays its
 forward's. Sequence parallelism is a later slice (ROADMAP.md).
+
+On a mesh (``jit.TrainStep(..., mesh=...)``, which slices the
+parameters by their annotations, those of the JAX model) the layers are
+tensor-parallel over ``mp``: ``qkv_proj`` and ``fc1`` column-parallel
+(``qkv_proj`` split head by head in each of q, k and v), ``out_proj`` and
+``fc2`` row-parallel (an all-reduce, then the bias once), ``wte``
+vocab-parallel (a masked lookup and an all-reduce; the tied head gives
+logits split over the vocabulary, and the loss is
+:func:`..fusion.lm_head_chunked_ce` over them). Head counts and widths
+come from the local weights' shapes.
 """
 from __future__ import annotations
 
@@ -35,6 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import random as _random
 from ..device import DeviceLike, resolve_device
+from ..distributed.auto_parallel.constraint import annotate_param
+from ..distributed.sharding import (copy_to, reduce_from,
+                                    vocab_parallel_embedding)
 from ..fusion.chunked import lm_head_chunked_ce
 from ..fusion.epilogues import dropout_add
 from ..fusion.moe import fused_moe_mlp
@@ -42,7 +55,8 @@ from ..incubate.nn.functional import scaled_dot_product_attention
 from ..nn.functional import dropout
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTMoEMLP",
-           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B"]
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B",
+           "gpt3_6p7B", "gpt3_13B"]
 
 
 @dataclass
@@ -100,17 +114,34 @@ def gpt3_1p3B(**kw) -> GPTConfig:
     return GPTConfig(hidden_size=2048, num_layers=24, num_heads=16, **kw)
 
 
+def gpt3_6p7B(**kw) -> GPTConfig:
+    return GPTConfig(hidden_size=4096, num_layers=32, num_heads=32, **kw)
+
+
+def gpt3_13B(**kw) -> GPTConfig:
+    return GPTConfig(hidden_size=5120, num_layers=40, num_heads=40, **kw)
+
+
 class Linear(nn.Module):
     """``y = x @ weight + bias`` with Paddle's ``[in, out]`` weight (one
-    GEMM with the bias in its epilogue)."""
+    GEMM with the bias in its epilogue). A ``row_parallel`` linear whose
+    ``mp_group`` is set (on a mesh) holds rows of the weight: its
+    products are summed over the group, then the bias is added once."""
 
-    def __init__(self, d_in: int, d_out: int, bias: bool, **factory):
+    mp_group = None
+
+    def __init__(self, d_in: int, d_out: int, bias: bool,
+                 row_parallel: bool = False, **factory):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(d_in, d_out, **factory))
         self.bias = nn.Parameter(torch.zeros(d_out, **factory)) \
             if bias else None
+        self.row_parallel = row_parallel
 
     def forward(self, x):
+        if self.row_parallel and self.mp_group is not None:
+            y = reduce_from(F.linear(x, self.weight.t()), self.mp_group)
+            return y if self.bias is None else y + self.bias
         return F.linear(x, self.weight.t(), self.bias)
 
 
@@ -120,17 +151,29 @@ class GPTAttention(nn.Module):
     a ``cache`` ``(k, v)`` of ``[b, past, heads, head_dim]`` the call's
     keys and values are appended to it and returned with the output."""
 
+    mp_group = None
+
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
         self.config = config
         h = config.hidden_size
         self.qkv_proj = Linear(h, 3 * h, config.use_bias, **factory)
-        self.out_proj = Linear(h, h, config.use_bias, **factory)
+        self.out_proj = Linear(h, h, config.use_bias, row_parallel=True,
+                               **factory)
+        # the JAX annotations; qkv's columns are [q | k | v], each split
+        # on its own so that a rank holds whole heads of each
+        annotate_param(self.qkv_proj.weight, (None, "mp"), parts=(1, 3))
+        annotate_param(self.out_proj.weight, ("mp", None))
+        if config.use_bias:
+            annotate_param(self.qkv_proj.bias, ("mp",), parts=(3,))
+            annotate_param(self.out_proj.bias, (None,))
 
     def forward(self, x, cache=None):
         cfg = self.config
         b, s = x.shape[0], x.shape[1]
-        qkv = self.qkv_proj(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+        x = copy_to(x, self.mp_group)
+        heads = self.qkv_proj.weight.shape[1] // (3 * cfg.head_dim)
+        qkv = self.qkv_proj(x).reshape(b, s, 3, heads, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cache is not None:
             k = torch.cat([cache[0], k], 1)
@@ -142,7 +185,7 @@ class GPTAttention(nn.Module):
         out = scaled_dot_product_attention(
             q, k, v, is_causal=s > 1, dropout_p=cfg.attention_dropout
             if self.training else 0.0, training=self.training)
-        out = self.out_proj(out.reshape(b, s, cfg.hidden_size))
+        out = self.out_proj(out.reshape(b, s, heads * cfg.head_dim))
         return out if cache is None else (out, cache)
 
 
@@ -150,13 +193,22 @@ class GPTMLP(nn.Module):
     """fc1 + bias + tanh-approximate gelu (the JAX ``linear_gelu``,
     approximate=True), then fc2."""
 
+    mp_group = None
+
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
         self.fc1 = Linear(h, ffn, config.use_bias, **factory)
-        self.fc2 = Linear(ffn, h, config.use_bias, **factory)
+        self.fc2 = Linear(ffn, h, config.use_bias, row_parallel=True,
+                          **factory)
+        annotate_param(self.fc1.weight, (None, "mp"))
+        annotate_param(self.fc2.weight, ("mp", None))
+        if config.use_bias:
+            annotate_param(self.fc1.bias, ("mp",))
+            annotate_param(self.fc2.bias, (None,))
 
     def forward(self, x):
+        x = copy_to(x, self.mp_group)
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
@@ -200,7 +252,10 @@ def _recomputes(config: GPTConfig, layer_idx: int) -> bool:
 class GPTBlock(nn.Module):
     """Pre-LN block: x + dropout(attn(ln_1(x))), then + dropout(mlp(ln_2(
     .))). ``forward`` returns ``(x, aux)``, aux the MoE aux loss (None
-    for a dense MLP)."""
+    for a dense MLP). On a mesh with FSDP, ``fsdp`` is the block's
+    :class:`~..distributed.sharding.FSDPUnit`."""
+
+    fsdp = None
 
     def __init__(self, config: GPTConfig, layer_idx: int = 0, **factory):
         super().__init__()
@@ -258,6 +313,10 @@ class GPTBlock(nn.Module):
         """``(x, aux)``; with a ``cache``, ``(x, aux, cache)``."""
         if cache is not None:
             return self._body(x, cache)
+        body = self._body
+        if self.fsdp is not None:
+            # gathers inside the checkpoint: a recompute gathers again
+            body = self.fsdp.wrap(body)
         if self.recompute and self.training:
             # non-reentrant: TrainStep takes its grads with
             # torch.autograd.grad, which the reentrant form refuses. The
@@ -265,13 +324,16 @@ class GPTBlock(nn.Module):
             # flash kernels run inside it (the JAX package sends
             # attention in a rematerialised block to its XLA composition,
             # a limit of Pallas under jax.checkpoint that does not apply)
-            body = self._replaying(x.device) if self.draws else self._body
+            if self.draws:
+                body = self._replaying(x.device)
             return checkpoint(body, x, use_reentrant=False)
-        return self._body(x)
+        return body(x)
 
 
 class GPTModel(nn.Module):
     """Embeddings + N blocks + final LN."""
+
+    mp_group = None
 
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -289,6 +351,8 @@ class GPTModel(nn.Module):
                                 for i in range(config.num_layers)])
         self.ln_f = nn.LayerNorm(h, config.layer_norm_eps, **factory)
         self.dropout = config.dropout
+        annotate_param(self.wte.weight, ("mp", None))
+        annotate_param(self.wpe.weight, (None, None))
 
     def forward(self, input_ids, position_ids=None):
         return self.hidden_and_aux(input_ids, position_ids)[0]
@@ -302,8 +366,9 @@ class GPTModel(nn.Module):
         if position_ids is None:
             position_ids = torch.arange(past, past + input_ids.shape[1],
                                         device=input_ids.device)[None]
-        x = dropout(self.wte(input_ids) + self.wpe(position_ids),
-                    self.dropout, training=self.training)
+        x = dropout(vocab_parallel_embedding(
+            input_ids, self.wte.weight, self.mp_group)
+            + self.wpe(position_ids), self.dropout, training=self.training)
         auxes, new_caches = [], []
         for i, block in enumerate(self.h):
             if caches is None:
@@ -329,6 +394,8 @@ class GPTForCausalLM(nn.Module):
     ``gate_weight`` and ``w1`` at initializer_range); biases zero,
     LayerNorm weights one."""
 
+    mp_group = dp_group = None
+
     def __init__(self, config: GPTConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
@@ -340,6 +407,8 @@ class GPTForCausalLM(nn.Module):
         self.gpt = GPTModel(config, **factory)
         self.lm_head = None if config.tie_word_embeddings else \
             Linear(config.hidden_size, config.vocab_size, False, **factory)
+        if self.lm_head is not None:
+            annotate_param(self.lm_head.weight, (None, "mp"))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         self._init_weights(generator)
@@ -391,11 +460,12 @@ class GPTForCausalLM(nn.Module):
                 input_ids, position_ids, caches)
         tied = self.lm_head is None
         w = self.gpt.wte.weight if tied else self.lm_head.weight
-        chunks = int(self.config.lm_ce_chunks or 0)
-        if labels is not None and chunks > 1 \
-                and x.shape[0] * x.shape[1] % chunks == 0:
-            loss = lm_head_chunked_ce(x, w, labels, chunks,
-                                      transpose_weight=tied)
+        chunks = head_chunks(self, x, labels)
+        if chunks:
+            loss = lm_head_chunked_ce(
+                copy_to(x, self.mp_group), w, labels, chunks,
+                transpose_weight=tied, mp_group=self.mp_group,
+                dp_group=self.dp_group)
         else:
             logits = x @ w.t() if tied else x @ w
             if labels is None:
@@ -444,6 +514,24 @@ class GPTForCausalLM(nn.Module):
         from .generation import GPTDecodeAdapter
 
         return GPTDecodeAdapter(self)
+
+
+def head_chunks(model, x, labels):
+    """The chunk count of the chunked lm head + CE for this forward, or
+    0 for the plain head: ``lm_ce_chunks`` where it is above 1 and
+    divides the tokens. On a mesh (the logits split over ``mp``) the
+    loss always takes the chunked head, in one chunk where the count
+    does not divide; a mesh model trains, its logits are not
+    gathered."""
+    chunks = int(model.config.lm_ce_chunks or 0)
+    if chunks < 1 or x.shape[0] * x.shape[1] % chunks:
+        chunks = 1
+    if model.mp_group is None and model.dp_group is None:
+        return chunks if labels is not None and chunks > 1 else 0
+    if labels is None:
+        raise NotImplementedError(
+            "logits and decoding on a mesh are not ported: see ROADMAP.md")
+    return chunks
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -17,6 +17,14 @@ token's absolute position), and decoding through
 :meth:`LlamaForCausalLM.decode_adapter` (:meth:`~LlamaForCausalLM.generate`,
 :meth:`~LlamaForCausalLM.beam_search`, the serving engine). The ``ring`` /
 ``ulysses`` sequence-parallel modes are a later slice (ROADMAP.md).
+
+On a mesh (``jit.TrainStep(..., mesh=...)``) the layers are
+tensor-parallel over ``mp``, to the JAX annotations: ``q/k/v`` and
+``gate/up`` column-parallel, ``o_proj`` and ``down_proj`` row-parallel
+(an all-reduce), ``embed_tokens`` vocab-parallel and the untied
+``lm_head`` column-parallel over the vocabulary (the loss over logits
+split over it, as GPT's). ``num_heads`` and ``num_kv_heads`` must divide
+by ``mp``; head counts come from the local weights' shapes.
 """
 from __future__ import annotations
 
@@ -29,11 +37,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.auto_parallel.constraint import annotate_param
+from ..distributed.sharding import copy_to, vocab_parallel_embedding
 from ..fusion.chunked import lm_head_chunked_ce
 from ..fusion.epilogues import add_rms_norm, swiglu_linear
 from ..incubate.nn.functional import (fused_rotary_position_embedding,
                                       rms_norm, scaled_dot_product_attention)
-from .gpt import Linear
+from .gpt import Linear, head_chunks
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "cross_entropy", "llama_tiny",
            "llama2_7B"]
@@ -102,6 +112,8 @@ class LlamaAttention(nn.Module):
     attention; k and v have ``num_kv_heads`` heads, repeated over each
     group of query heads inside the attention (GQA)."""
 
+    mp_group = None
+
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
         self.config = config
@@ -109,14 +121,20 @@ class LlamaAttention(nn.Module):
         self.q_proj = Linear(h, config.num_heads * hd, False, **factory)
         self.k_proj = Linear(h, config.num_kv_heads * hd, False, **factory)
         self.v_proj = Linear(h, config.num_kv_heads * hd, False, **factory)
-        self.o_proj = Linear(config.num_heads * hd, h, False, **factory)
+        self.o_proj = Linear(config.num_heads * hd, h, False,
+                             row_parallel=True, **factory)
+        for lin in (self.q_proj, self.k_proj, self.v_proj):
+            annotate_param(lin.weight, (None, "mp"))
+        annotate_param(self.o_proj.weight, ("mp", None))
 
     def forward(self, x, position_ids=None, cache=None):
         cfg = self.config
-        b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(b, s, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+        b, s, d = x.shape[0], x.shape[1], cfg.head_dim
+        x = copy_to(x, self.mp_group)
+        heads = self.q_proj.weight.shape[1] // d
+        q = self.q_proj(x).reshape(b, s, heads, d)
+        k = self.k_proj(x).reshape(b, s, -1, d)
+        v = self.v_proj(x).reshape(b, s, -1, d)
         past = 0 if cache is None else cache[0].shape[1]
         if position_ids is None and past:
             # incremental decode: rotate by absolute position, not 0 (one
@@ -135,28 +153,38 @@ class LlamaAttention(nn.Module):
         # query t sees keys <= past + t (the JAX _offset_causal_mask)
         out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
                                            training=self.training)
-        out = self.o_proj(out.reshape(b, s, cfg.num_heads * cfg.head_dim))
+        out = self.o_proj(out.reshape(b, s, heads * d))
         return out if cache is None else (out, cache)
 
 
 class LlamaMLP(nn.Module):
     """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
 
+    mp_group = None
+
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
         self.gate_proj = Linear(h, ffn, False, **factory)
         self.up_proj = Linear(h, ffn, False, **factory)
-        self.down_proj = Linear(ffn, h, False, **factory)
+        self.down_proj = Linear(ffn, h, False, row_parallel=True, **factory)
+        annotate_param(self.gate_proj.weight, (None, "mp"))
+        annotate_param(self.up_proj.weight, (None, "mp"))
+        annotate_param(self.down_proj.weight, ("mp", None))
 
     def forward(self, x):
+        x = copy_to(x, self.mp_group)
         return self.down_proj(swiglu_linear(x, self.gate_proj.weight,
                                             self.up_proj.weight))
 
 
 class LlamaBlock(nn.Module):
     """x + attn(input_layernorm(x)), then the residual add and the
-    post-attention RMSNorm as one region, then + mlp(.)."""
+    post-attention RMSNorm as one region, then + mlp(.). On a mesh with
+    FSDP, ``fsdp`` is the block's
+    :class:`~..distributed.sharding.FSDPUnit`."""
+
+    fsdp = None
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -179,19 +207,24 @@ class LlamaBlock(nn.Module):
         """``x``; with a ``cache``, ``(x, cache)``."""
         if cache is not None:
             return self._body(x, position_ids, cache)
+        body = self._body
+        if self.fsdp is not None:
+            # gathers inside the checkpoint: a recompute gathers again
+            body = self.fsdp.wrap(body)
         if self.recompute and self.training:
             # non-reentrant: TrainStep takes its grads with
             # torch.autograd.grad, which the reentrant form refuses. K1/K2
             # and K7 run inside the checkpoint (the JAX package sends
             # attention in a rematerialised block to its XLA composition,
             # a limit of Pallas under jax.checkpoint that does not apply)
-            return checkpoint(self._body, x, position_ids,
-                              use_reentrant=False)
-        return self._body(x, position_ids)
+            return checkpoint(body, x, position_ids, use_reentrant=False)
+        return body(x, position_ids)
 
 
 class LlamaModel(nn.Module):
     """Embedding + N blocks + final RMSNorm."""
+
+    mp_group = None
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -204,12 +237,14 @@ class LlamaModel(nn.Module):
         self.layers = nn.ModuleList([LlamaBlock(config, **factory)
                                      for _ in range(config.num_layers)])
         self.norm = RMSNorm(h, config.rms_norm_eps, **factory)
+        annotate_param(self.embed_tokens.weight, ("mp", None))
 
     def forward(self, input_ids, position_ids=None, caches=None):
         """Final hidden states; with ``caches`` (a ``(k, v)`` pair a
         layer) also the caches with this call's keys and values
         appended."""
-        x = self.embed_tokens(input_ids)
+        x = vocab_parallel_embedding(input_ids, self.embed_tokens.weight,
+                                     self.mp_group)
         if caches is None:
             for block in self.layers:
                 x = block(x, position_ids)
@@ -244,6 +279,8 @@ class LlamaForCausalLM(nn.Module):
     the residual-branch outputs ``o_proj`` and ``down_proj``; RMSNorm
     weights one."""
 
+    mp_group = dp_group = None
+
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None,
@@ -255,6 +292,8 @@ class LlamaForCausalLM(nn.Module):
         self.llama = LlamaModel(config, **factory)
         self.lm_head = None if config.tie_word_embeddings else \
             Linear(config.hidden_size, config.vocab_size, False, **factory)
+        if self.lm_head is not None:
+            annotate_param(self.lm_head.weight, (None, "mp"))
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(seed)
         self._init_weights(generator)
@@ -295,11 +334,12 @@ class LlamaForCausalLM(nn.Module):
             x, caches = self.llama(input_ids, position_ids, caches)
         tied = self.lm_head is None
         w = self.llama.embed_tokens.weight if tied else self.lm_head.weight
-        chunks = int(self.config.lm_ce_chunks or 0)
-        if labels is not None and chunks > 1 \
-                and x.shape[0] * x.shape[1] % chunks == 0:
-            return lm_head_chunked_ce(x, w, labels, chunks,
-                                      transpose_weight=tied)
+        chunks = head_chunks(self, x, labels)
+        if chunks:
+            return lm_head_chunked_ce(
+                copy_to(x, self.mp_group), w, labels, chunks,
+                transpose_weight=tied, mp_group=self.mp_group,
+                dp_group=self.dp_group)
         logits = x @ w.t() if tied else x @ w
         if labels is None:
             return logits if caches is None else (logits, caches)

@@ -3,7 +3,11 @@
 Port of ``paddle_tpu/observability/health.py``: one f32 squared-sum over
 every gradient, square-rooted once, shared by gradient clipping. A
 non-finite gradient anywhere makes the norm non-finite, so
-``torch.isfinite(norm)`` is the whole-model health bit.
+``torch.isfinite(norm)`` is the whole-model health bit. On a mesh each
+rank holds shards: a parameter's squared sum is all-reduced over the
+group of the axes that shard it, once (a parameter the ``mp`` ranks
+replicate counts once, not once a rank), so every rank reads the same
+global norm and ``skip`` / ``raise`` decide on it.
 
 The policy (``PADDLE_TPU_HEALTH=warn|skip|raise``, read once at import,
 or :func:`configure` before building the train step):
@@ -23,9 +27,10 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..config import knobs
 
@@ -69,10 +74,26 @@ def get_policy() -> str:
 policy = get_policy
 
 
-def grad_health(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+def grad_health(grads: Iterable[torch.Tensor],
+                groups: Optional[Sequence] = None) -> torch.Tensor:
     """sqrt(sum of every gradient's squares), in f32, as a 0-d tensor on
-    the gradients' device (no host sync)."""
-    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    the gradients' device (no host sync). With ``groups`` (one a
+    gradient: the process group over which it is sharded, or None) the
+    gradients are shards: each group's squared sum is all-reduced over
+    it, the groups in the order they first appear."""
+    sq = [g.float().square().sum() for g in grads]
+    if groups is None:
+        return torch.stack(sq).sum().sqrt()
+    by_group = {}
+    for s, group in zip(sq, groups):
+        by_group.setdefault(group, []).append(s)
+    total = []
+    for group, parts in by_group.items():
+        part = torch.stack(parts).sum()
+        if group is not None:
+            dist.all_reduce(part, group=group)
+        total.append(part)
+    return torch.stack(total).sum().sqrt()
 
 
 def record_step(gnorm: float, source: str = "grad",

@@ -19,6 +19,13 @@ f32; each parameter is written back in its own dtype. Weight decay is
 decoupled (``p *= 1 - lr * weight_decay``) and applies to every
 parameter, as in the JAX functional update.
 
+On a mesh each rank updates its shards, and the factored statistics
+stay those of the whole matrix: ``update(..., shards=...)`` names, for
+each parameter, the groups over which its rows (dim 0) and its columns
+(the other dims) are split. The row sums are all-reduced over the column
+group, the column sums and the total over the row group, so ``denom``
+is the JAX one at this rank's entries.
+
 Unlike the JAX version, which returns new arrays, :meth:`AdamW.update`
 updates the parameters and the state IN PLACE (under ``no_grad``), so a
 step holds one parameter's f32 temporaries at a time and never a second
@@ -50,6 +57,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from .lr import LRScheduler
 
@@ -216,8 +224,10 @@ class AdamW(_LearningRate):
     @torch.no_grad()
     def update(self, params: Sequence[torch.Tensor],
                grads: Sequence[torch.Tensor], state: State,
-               lr: Optional[float] = None) -> None:
-        """One step over every parameter, in place."""
+               lr: Optional[float] = None, shards=None) -> None:
+        """One step over every parameter, in place. ``shards`` (a mesh):
+        one ``(row_group, col_group)`` a parameter, either None where
+        that side is whole (see the module note)."""
         lr = self.get_lr() if lr is None else float(lr)
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         state["t"] += 1
@@ -233,11 +243,21 @@ class AdamW(_LearningRate):
             g32 = g.float()
             m = state["m"][i].float().mul_(b1).add_(g32, alpha=1 - b1)
             if self._factored_v and p.dim() >= 2:
+                rows, cols = shards[i] if shards is not None else (None,
+                                                                    None)
                 g2 = (g32 * g32).reshape(p.shape[0], -1) + 1e-30
-                vr = state["vr"][i].mul_(b2).add_(g2.sum(1), alpha=1 - b2)
-                vc = state["vc"][i].mul_(b2).add_(g2.sum(0), alpha=1 - b2)
+                rs, cs = g2.sum(1), g2.sum(0)
                 del g2
-                denom = (torch.outer(vr, vc) / vr.sum().clamp_min(1e-30)
+                if cols is not None:
+                    dist.all_reduce(rs, group=cols)
+                if rows is not None:
+                    dist.all_reduce(cs, group=rows)
+                vr = state["vr"][i].mul_(b2).add_(rs, alpha=1 - b2)
+                vc = state["vc"][i].mul_(b2).add_(cs, alpha=1 - b2)
+                total = vr.sum()
+                if rows is not None:
+                    dist.all_reduce(total, group=rows)
+                denom = (torch.outer(vr, vc) / total.clamp_min(1e-30)
                          ).reshape(p.shape)
             else:
                 denom = state["v"][i].mul_(b2).addcmul_(

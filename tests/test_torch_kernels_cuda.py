@@ -8,7 +8,8 @@ over them on the card: among them the training paths' K1/K2 at Llama-2
 7B's shape and at bench.py's seq-2048 shape, K1/K2 and K7 inside
 ``torch.utils.checkpoint``, the MoE FFN of MoE GPT training, dropout
 masks from a CUDA generator replayed by a recomputed block, and the
-8-bit Adam moments' encoding on the card against the CPU's. These tests need an NVIDIA Hopper GPU
+8-bit Adam moments' encoding on the card against the CPU's, and sharded
+training on an mp 2 mesh of two cards against one card. These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -146,6 +147,41 @@ def test_hopper_wrapper_raises_instead_of_falling_back():
     assert (tpa.ragged_paged_attention.launches,
             tpa.ragged_paged_attention.launches_q8, tn.rms_norm.launches,
             tn.layer_norm.launches) == counts
+
+
+@pytest.mark.cuda
+def test_mesh_mp2_training_matches_one_card(tmp_path):
+    """Sharded training on two cards (one process a card, NCCL): the
+    2-layer f32 GPT at GPT-3 1.3B's width, 3 steps on an mp 2 mesh, K1 /
+    K2 on each rank's heads, a new batch a step, against one card: every
+    loss and every gathered weight within 1e-4 in relative L2; the
+    biases, which start at zero and so are Adam's normalised updates
+    alone (their relative error is their gradient's, a sum over the
+    tokens that cancels), within 1e-2, and the key third of the qkv
+    bias, whose gradient is zero in exact arithmetic, within 3 lr."""
+    _need_hopper()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("an mp 2 mesh needs two cards")
+    import _torch_mesh_workers as W
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.incubate.nn.cuda import _build
+
+    _build.build_all(("flash_attn", "norms"))
+    spawn(W.cuda_mp2, (str(tmp_path),), nprocs=2)
+    r = dict(np.load(tmp_path / "cuda_mp2.npz"))
+    np.testing.assert_allclose(r["losses"], r["ref_losses"], rtol=1e-4)
+    assert (r["launches"] == [2 * 2 * W.STEPS, 2 * W.STEPS]).all()
+    for name in [k[4:] for k in r if k.startswith("ref:")]:
+        got, want = r[name], r["ref:" + name]
+        if name.endswith("qkv_proj.bias"):
+            h = want.shape[0] // 3
+            np.testing.assert_allclose(got[h:2 * h], want[h:2 * h],
+                                       atol=3e-4, err_msg=name)
+            got, want = np.delete(got, np.s_[h:2 * h]), \
+                np.delete(want, np.s_[h:2 * h])
+        rel = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+        assert rel <= (1e-2 if name.endswith(".bias") else 1e-4), (name,
+                                                                   rel)
 
 
 def test_kernel_wrappers_raise_on_cpu_tensors():

@@ -295,8 +295,8 @@ def test_stream_takes_the_schedule_and_restores_it_on_failure():
     step = TrainStep(tm, AdamW(sched), device="cpu")
     seen = []
     update = step.optimizer.update
-    step.optimizer.update = lambda p, g, s, lr: (seen.append(lr),
-                                                 update(p, g, s, lr=lr))
+    step.optimizer.update = lambda p, g, s, lr, **kw: (
+        seen.append(lr), update(p, g, s, lr=lr, **kw))
     stacked = [np.stack(x) for x in zip(*(_batch(1024, seed=s)
                                          for s in (5, 6, 7)))]
     step.run_steps_stream(3, *stacked)
@@ -339,8 +339,8 @@ def test_run_steps_holds_the_learning_rate():
     step = TrainStep(tm, AdamW(sched), device="cpu")
     seen = []
     update = step.optimizer.update
-    step.optimizer.update = lambda p, g, s, lr: (seen.append(lr),
-                                                 update(p, g, s, lr=lr))
+    step.optimizer.update = lambda p, g, s, lr, **kw: (
+        seen.append(lr), update(p, g, s, lr=lr, **kw))
     step.run_steps(3, *_batch(1024))
     assert seen == [sched()] * 3 and sched.last_epoch == 0
 
@@ -540,7 +540,8 @@ def test_stream_records_every_gnorm_in_order(policy, monkeypatch):
     norms = []
     grad_health = health.grad_health
     monkeypatch.setattr(health, "grad_health",
-                        lambda g: norms.append(grad_health(g)) or norms[-1])
+                        lambda g, *a: norms.append(grad_health(g, *a))
+                        or norms[-1])
     with pytest.warns(UserWarning, match="non-finite grad at step 2"):
         step.run_steps_stream(3, *(np.stack([x] * 3) for x in (ids, labels)),
                               np.stack(SCALES))
