@@ -6,12 +6,14 @@ toolkit (``nvcc``)::
 
     python3 chip_smoke.py                 # every phase, on one card
     python3 chip_smoke.py --phases ring   # phases 1, 2 (ring.cu), 4d, 9b, 9c
-    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e
+    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e, 9f
+    python3 chip_smoke.py --phases sp     # phases 1, 2 (K1-K3, K7), 5b, 9f
 
-Phase 9e (sharded training) spawns one process a card, four at most:
-its full-width runs need four cards (``--phases mesh`` on four cards
-runs them alone); on fewer it runs its f32 checks only (mp 2 on two or
-three cards, a one-rank mesh on one) and says so.
+Phases 9e (sharded training) and 9f (sequence parallelism) spawn one
+process a card, four at most, both in one spawn: their full-width runs
+need four cards (``--phases mesh`` or ``--phases sp`` on four cards runs
+them alone); on fewer they run their f32 checks only (on mp 2 / sp 2 on
+two or three cards, a one-rank mesh on one) and say so.
 
 The ring phases (4d, 9b, 9c) put rank r of a ring on card r % n (n
 cards) when every pair of ring neighbours has peer access, else every
@@ -97,6 +99,18 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    ``scaled_dot_product_attention``; backward: its aten backward op; both
    timed only) and its bound, and K3 again at the split route's shape
    (where the backward takes it) beside aten's backward and the bound;
+5b. K1, K2, K3 at the sequence-parallel shapes of phase 9f, Llama-2 7B's
+   attention (32 heads, d 128, bf16, causal) at 1 x 16384: the ring's
+   loop over 4 parts without the ring (K1 on each rank's own part,
+   causal, and on the earlier ones, merged by their lse in f32; K2 on
+   each from the merged out and lse, the gradients summed), K1, K2 and
+   K3 at the gspmd mode's sq < sk (4096 queries over 8192 and 16384
+   keys), K1 / K3 at ulysses's shape (8 heads over the whole sequence)
+   and over the whole sequence and all 32 heads (the one-card run's
+   attention), each against the plain versions (run a few heads at a
+   time) within the kernel gates; times of the ring's parts, of K1 / K3
+   over the whole sequence and at ulysses's shape, beside aten's flash
+   attention and the bound;
 6. train six paths (bf16, random weights from seed 0, full width and
    depth), one after another, each model freed before the next: GPT-3 1.3B as
    ``bench.py`` configures it (batch 8 x 1024 tokens,
@@ -243,12 +257,27 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    beside the card: tokens/s, median step, MFU (6N + 6 L h s flops a
    token against 989 TFLOP/s times the cards), every card's peak memory,
    NCCL's share of rank 0's device time over one more profiled step;
+9f. (in 9e's spawn, after it) sequence parallelism, ``TrainStep`` on
+   meshes with an ``sp`` axis: on four cards Llama-2 7B (bf16,
+   recompute, 8 CE chunks, AdamW bf16 m and factored v, clip 1.0, lr
+   1e-4) on 1 x 16384 tokens, 4 steps, in ring mode on sp 4 (K1 / K2 on
+   4096-token parts) and in ulysses mode on sp 2 x mp 2 (K1 / K3 on 8
+   heads over 16384), both against one run on one card (rank 0 alone
+   first, kept for both) within 9e's bf16 bounds; before them 2-layer
+   f32 copies at full width on 4 x 512 tokens, 3 steps, against one card
+   within MESH_EXACT_RTOL: gspmd on dp 2 x sp 2 with FSDP over dp
+   (GPT-3 1.3B), ring on sp 4 and ulysses on sp 2 x mp 2 (Llama-2 7B).
+   Every rank's K1 / K2 / K3 / K7 launches must equal its own count
+   (``mesh_step_launches``: the ring's rank r runs r + 1 parts); printed
+   as in 9e, with each rank's median step, its device time outside NCCL
+   over the profiled step, and the ranks' skew ((max - min) / max of
+   it);
 9. one JSON line with the six training paths' numbers, one with the
    MoE numbers, one with the serving numbers, one with the decode
    numbers, one with the mesh numbers, one with the TP and pipeline
    numbers, then one listing every ported kernel with its numbers
-   (``--phases ring``: the last two only; ``--phases mesh``: the mesh
-   line only);
+   (``--phases ring``: the last two only; ``--phases mesh`` / ``sp``:
+   one line with the mesh numbers, and with ``sp`` phase 5b's);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -1519,6 +1548,211 @@ def time_flash(fa, q, k, v, do, hm, out, lse, causal, scale, errs, card,
                  nbytes / 1e6, flops / 1e9, card), flush=True)
     print("library scaled_dot_product_attention forward + backward, %s "
           "shape: %.4f ms [%s]" % (name, fwd_bwd_ms, card), flush=True)
+    return res
+
+
+# ----------------------------------------------------------- phase 5b
+# The sequence-parallel shapes of K1-K3: Llama-2 7B's attention (32
+# heads, d 128, bf16, causal) at 1 x 16384 tokens, the sequence of phase
+# 9f, cut into SP_PARTS parts as the ring cuts it over sp 4.
+SP_SEQ = 16384
+SP_HEADS = 32
+SP_PARTS = 4
+# ulysses on sp 2 x mp 2: 32 heads / mp 2 / sp 2 a rank, whole sequence
+SP_ULYSSES_HEADS = 8
+# heads a plain-version call takes at 16384 keys: its [h, s, s] f32
+# scores and probabilities are 2.1 GB a head-pair
+PLAIN_HEADS = 2
+
+
+def by_heads(fn, *ts):
+    """``fn`` on PLAIN_HEADS heads at a time of head-major ``[b, h, s,
+    d]`` tensors, its outputs put together on the head axis."""
+    outs = [fn(*(t[:, i:i + PLAIN_HEADS] for t in ts))
+            for i in range(0, ts[0].shape[1], PLAIN_HEADS)]
+    return [torch.cat(x, 1) for x in zip(*outs)]
+
+
+def plain_flash(fa, q, k, v, do, causal, scale):
+    """The plain versions of K1 and K2 / K3 on ``[b, s, h, d]`` tensors,
+    a few heads at a time: (out, lse [b, h, sq], [dq, dk, dv])."""
+    hm = [x.transpose(1, 2) for x in (q, k, v, do)]
+    out, lse = by_heads(lambda *t: fa.flash_fwd_ref(*t, causal, scale),
+                        *hm[:3])
+    grads = by_heads(lambda *t: fa.flash_bwd_ref(*t, causal, scale),
+                     hm[0], hm[1], hm[2], out, lse, hm[3])
+    return (out.transpose(1, 2), lse[..., 0].contiguous(),
+            [g.transpose(1, 2) for g in grads])
+
+
+def grad_errs(got, want):
+    """(max abs error, largest of a row in units of its RMS) over dq, dk,
+    dv."""
+    pairs = [row_err(g, w) for g, w in zip(got, want)]
+    return max(e for e, _ in pairs), max(r for _, r in pairs)
+
+
+def sp_kernel_phase(card):
+    """Phase 5b: the ring's loop over K / V parts without the ring (every
+    sp rank's work, one after another on one card), K1 / K2 / K3 at the
+    gspmd mode's sq < sk, and K1 / K3 at ulysses's shape, each against
+    the plain versions; times of the ring's parts, of K1 / K3 over the
+    whole sequence (the one-card run's attention) and at ulysses's
+    shape, beside aten's flash attention and the bound."""
+    from paddle_tpu_torch.distributed.sequence_parallel import merge_parts
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, S, h, d, P = 1, SP_SEQ, SP_HEADS, 128, SP_PARTS
+    s = S // P
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(b, S, h, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    want_out, want_lse, want_grads = plain_flash(fa, q, k, v, do, True,
+                                                 scale)
+
+    def part(x, i):
+        return x[:, i * s:(i + 1) * s]
+
+    def ring_fwd():
+        """Every rank's parts: K1 on its own part (causal) and on each
+        earlier one (full), merged by their lse in f32, cast once."""
+        outs, lses = [], []
+        for r in range(P):
+            out = lse = None
+            for c in range(r + 1):
+                out, lse = merge_parts(out, lse, *fa.flash_fwd(
+                    part(q, r), part(k, c), part(v, c), c == r, scale))
+            outs.append(out.to(q.dtype))
+            lses.append(lse)
+        return torch.cat(outs, 1), torch.cat(lses, 2)
+
+    def ring_bwd(out, lse):
+        """K2 on every (rank, part) pair from the merged out and lse, the
+        parts' gradients summed in f32."""
+        grads = [torch.zeros(b, S, h, d, device="cuda") for _ in range(3)]
+        for r in range(P):
+            rows = lse[..., r * s:(r + 1) * s].contiguous()
+            for c in range(r + 1):
+                dq, dk, dv = fa.flash_bwd(part(q, r), part(k, c), part(v, c),
+                                          part(out, r), rows, part(do, r),
+                                          c == r, scale)
+                part(grads[0], r).add_(dq)
+                part(grads[1], c).add_(dk)
+                part(grads[2], c).add_(dv)
+        return grads
+
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+              fa.flash_bwd_split.launches)
+    out, lse = ring_fwd()
+    grads = ring_bwd(out, lse)
+    torch.cuda.synchronize()
+    pairs = P * (P + 1) // 2
+    check((fa.flash_fwd.launches - counts[0],
+           fa.flash_bwd_fused.launches - counts[1],
+           fa.flash_bwd_split.launches - counts[2]) == (pairs, pairs, 0),
+          "ring parts: K1 / K2 / K3 launched other than %d / %d / 0 times"
+          % (pairs, pairs))
+    res = {"ring": dict(parts=P, pairs=pairs, shape=[b, S, h, d])}
+    errs = {"K1": row_err(out, want_out), "K2": grad_errs(grads, want_grads)}
+    lse_err = (lse - want_lse).abs().max().item()
+    res["ring"].update(lse_max_abs_err=lse_err)
+    del grads
+    # gspmd on sp 4: rank r's 4096 queries over the (r + 1) 4096 keys
+    # up to its own, bottom-right causal (ranks 1 and 3); K2 called
+    # directly, K3 as the backward's route takes it
+    for r in (1, 3):
+        sk = (r + 1) * s
+        name = "sq_lt_sk %d/%d" % (s, sk)
+        qr, dor, kr, vr = part(q, r), part(do, r), k[:, :sk], v[:, :sk]
+        w_out, w_lse, w_grads = plain_flash(fa, qr, kr, vr, dor, True,
+                                            scale)
+        check(not fa.uses_fused_bwd(s, sk, d), name + ": routed to K2")
+        o, l = fa.flash_fwd(qr, kr, vr, True, scale)
+        torch.cuda.synchronize()
+        errs[name + " K1"] = row_err(o, w_out)
+        lse_err = max(lse_err, (l - w_lse).abs().max().item())
+        for kname, fn in (("K2", fa.flash_bwd_fused),
+                          ("K3", fa.flash_bwd_split)):
+            errs["%s %s" % (name, kname)] = grad_errs(
+                fn(qr, kr, vr, w_out, w_lse, dor, True, scale), w_grads)
+        del w_out, w_lse, w_grads
+    # ulysses on sp 2 x mp 2: 8 heads over the whole sequence, contiguous
+    # as the all-to-all leaves them; the plain versions are the whole
+    # run's first 8 heads
+    hu = SP_ULYSSES_HEADS
+    qu, ku, vu, dou, ou = (x[:, :, :hu].contiguous()
+                           for x in (q, k, v, do, want_out))
+    lu = want_lse[:, :hu].contiguous()
+    check(not fa.uses_fused_bwd(S, S, d), "ulysses: routed to K2")
+    o, l = fa.flash_fwd(qu, ku, vu, True, scale)
+    torch.cuda.synchronize()
+    errs["ulysses K1"] = row_err(o, ou)
+    lse_err = max(lse_err, (l - lu).abs().max().item())
+    errs["ulysses K3"] = grad_errs(fa.flash_bwd(qu, ku, vu, ou, lu, dou,
+                                                True, scale),
+                                   [g[:, :, :hu] for g in want_grads])
+    # the one-card run's attention: K1 and K3 over the whole sequence and
+    # all 32 heads (the same route check as ulysses's: s and d are equal)
+    o, l = fa.flash_fwd(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    errs["whole K1"] = row_err(o, want_out)
+    lse_err = max(lse_err, (l - want_lse).abs().max().item())
+    del o, l
+    errs["whole K3"] = grad_errs(fa.flash_bwd(q, k, v, want_out, want_lse,
+                                              do, True, scale), want_grads)
+    print("sp kernels (Llama-2 7B attention, 1 x %d, %d heads, d %d, bf16, "
+          "causal): %s; lse max_abs_err %.3g [%s]" % (
+              S, h, d, ", ".join("%s max_abs_err %.4g (%.3e of its row's "
+                                 "RMS)" % (kk, e, r)
+                                 for kk, (e, r) in errs.items()),
+              lse_err, card), flush=True)
+    check(lse_err <= FLASH_LSE_ATOL, "sp kernels: lse max abs err %.4g > %g"
+          % (lse_err, FLASH_LSE_ATOL))
+    for kname, (e, r) in errs.items():
+        check(r <= FLASH_ROW_TOL, "sp kernels %s: max abs err %.4g, %.4g of "
+              "its row's RMS > %g" % (kname, e, r, FLASH_ROW_TOL))
+    res["errors"] = {kk: dict(max_abs_err=e, row_rms=r)
+                     for kk, (e, r) in errs.items()}
+    res["lse_max_abs_err"] = lse_err
+    del want_grads
+    torch.cuda.empty_cache()
+    # times: the ring's parts, one after another (all four ranks' work);
+    # K1 / K3 at ulysses's shape and over the whole sequence, beside aten's
+    # flash attention and the bound
+    hm = [x.transpose(1, 2) for x in (q, k, v, do)]
+    hmu = [x.transpose(1, 2) for x in (qu, ku, vu, dou)]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {"ring K1 parts": cuda_ms(ring_fwd, 5),
+             "ring K2 parts": cuda_ms(lambda: ring_bwd(out, lse), 3)}
+    for where, hh, (qx, kx, vx, dox, ox, lx), hmx, reps in (
+            ("ulysses", hu, (qu, ku, vu, dou, ou, lu), hmu, (10, 5)),
+            ("whole", h, (q, k, v, do, want_out, want_lse), hm, (5, 3))):
+        rows = {}
+        for kname, n, kernel, library in (
+                ("K1", reps[0], lambda: fa.flash_fwd(qx, kx, vx, True, scale),
+                 lambda: sdpa(*hmx[:3], is_causal=True)),
+                ("K3", reps[1], lambda: fa.flash_bwd(qx, kx, vx, ox, lx, dox,
+                                                     True, scale),
+                 aten_flash_bwd(hmx, True, scale))):
+            ms, library_ms = cuda_ms(kernel, n), cuda_ms(library, n)
+            nbytes, flops = flash_work(b, S, S, hh, d, True,
+                                       backward=kname != "K1")
+            bound_ms, bound_by = bound_of(nbytes, flops)
+            rows[kname] = dict(
+                max_abs_err=errs["%s %s" % (where, kname)][0], ms=ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops, shape=[b, S, S, hh, d])
+            print("%s %s shape (b %d, s %d, %d heads, d %d): kernel=%.4f ms "
+                  "library=%.4f ms bound=%.4f ms (%s, %.1f MB, %.2f GFLOP) "
+                  "[%s]" % (kname, where, b, S, hh, d, ms, library_ms,
+                            bound_ms, bound_by, nbytes / 1e6, flops / 1e9,
+                            card), flush=True)
+        res[where] = rows
+    res["times_ms"] = times
+    print("sp times (1 x %d, %d heads): %s [%s]" % (
+        S, h, ", ".join("%s %.4f ms" % kv for kv in times.items()), card),
+        flush=True)
     return res
 
 
@@ -4731,17 +4965,89 @@ MESH_PARAM_RTOL = 1e-2
 MESH_UPDATE_RTOL = 0.4
 
 
+# Phase 9f, sequence parallelism: name -> (model class, config factory
+# and its options, mesh, batch b x s). Llama-2 7B (bf16, recompute, 8 CE
+# chunks) at 16384 tokens, in ring mode on sp 4 (the whole model on every
+# rank: ~40 GB of parameters, grads and m) and in ulysses mode on sp 2 x
+# mp 2 (half of it), both against one card (one run, the same weights
+# and batch; ring and ulysses without an sp group are the gspmd model).
+SP_LLAMA = dict(recompute=True, lm_ce_chunks=8,
+                max_position_embeddings=SP_SEQ)
+SP_PATHS = {
+    "llama2_7B_ring": ("LlamaForCausalLM", "llama2_7B",
+                       dict(SP_LLAMA, sequence_parallel_mode="ring"),
+                       ((4,), ("sp",)), (1, SP_SEQ)),
+    "llama2_7B_ulysses": ("LlamaForCausalLM", "llama2_7B",
+                          dict(SP_LLAMA, sequence_parallel_mode="ulysses"),
+                          ((2, 2), ("sp", "mp")), (1, SP_SEQ)),
+}
+# its exact checks: 2-layer f32 copies at full width on MESH_EXACT_BATCH
+SP_EXACT = {
+    "gpt3_1p3B_gspmd": ("GPTForCausalLM", "gpt3_1p3B",
+                        dict(recompute=True, lm_ce_chunks=8,
+                             sequence_parallel_mode="gspmd"),
+                        ((2, 2), ("dp", "sp"))),
+    "llama2_7B_ring": ("LlamaForCausalLM", "llama2_7B",
+                       dict(recompute=True, lm_ce_chunks=8,
+                            sequence_parallel_mode="ring"),
+                       ((4,), ("sp",))),
+    "llama2_7B_ulysses": ("LlamaForCausalLM", "llama2_7B",
+                          dict(recompute=True, lm_ce_chunks=8,
+                               sequence_parallel_mode="ulysses"),
+                          ((2, 2), ("sp", "mp"))),
+}
+
+
+def mesh_ranks(cards):
+    """The ranks of the mesh phase's spawn on ``cards`` cards."""
+    return 4 if cards >= 4 else 2 if cards >= 2 else 1
+
+
+def sp_jobs(cards):
+    """Phase 9f's runs for ``cards`` cards. Four or more: the exact
+    checks on their meshes, then the two Llama-2 7B runs, which share
+    one one-card reference (kept on rank 0 between them); two or three:
+    the exact checks on sp 2; one: on a one-rank mesh with an sp axis,
+    then Llama-2 7B at 1 x 16384 on it (3 steps: the one-card run of the
+    four-card jobs, K1 / K3 over the whole sequence; its loss must
+    fall)."""
+    if cards >= 4:
+        meshes = {k: v[3] for k, v in SP_EXACT.items()}
+    else:
+        meshes = {k: ((mesh_ranks(cards),), ("sp",)) for k in SP_EXACT}
+    jobs = [dict(name=path + "_f32_2layer", model=(cls, factory, kw),
+                 layers=2, exact=True, mesh=meshes[path],
+                 batch=MESH_EXACT_BATCH, steps=MESH_EXACT_STEPS,
+                 reference=True)
+            for path, (cls, factory, kw, _) in SP_EXACT.items()]
+    if cards >= 4:
+        for i, (path, (cls, factory, kw, mesh, batch)) in enumerate(
+                SP_PATHS.items()):
+            jobs.append(dict(name=path, model=(cls, factory, kw),
+                             layers=None, exact=False, mesh=mesh,
+                             batch=batch, steps=MESH_STEPS, reference=True,
+                             ref_key="llama2_7B 1 x %d" % SP_SEQ,
+                             keep_ref=i + 1 < len(SP_PATHS)))
+    elif cards == 1:
+        cls, factory, kw, _, batch = SP_PATHS["llama2_7B_ring"]
+        jobs.append(dict(name="llama2_7B_one_card", model=(cls, factory, kw),
+                         layers=None, exact=False, mesh=((1,), ("sp",)),
+                         batch=batch, steps=MESH_EXACT_STEPS,
+                         reference=False))
+    return jobs
+
+
 def mesh_jobs(cards):
-    """The mesh runs for ``cards`` cards: (jobs, ranks). Four or more:
-    the exact checks on each full run's mesh, then the full runs; two
-    or three: the exact checks on mp 2; one: on a one-rank mesh (the
+    """The mesh runs of phase 9e for ``cards`` cards. Four or more: the
+    exact checks on each full run's mesh, then the full runs; two or
+    three: the exact checks on mp 2; one: on a one-rank mesh (the
     sharded code with groups of size 1)."""
     if cards >= 4:
-        ranks, meshes = 4, {k: v[3] for k, v in MESH_PATHS.items()}
+        meshes = {k: v[3] for k, v in MESH_PATHS.items()}
     elif cards >= 2:
-        ranks, meshes = 2, {k: ((2,), ("mp",)) for k in MESH_PATHS}
+        meshes = {k: ((2,), ("mp",)) for k in MESH_PATHS}
     else:
-        ranks, meshes = 1, {k: ((1, 1), ("dp", "mp")) for k in MESH_PATHS}
+        meshes = {k: ((1, 1), ("dp", "mp")) for k in MESH_PATHS}
     jobs = []
     for path, (cls, factory, kw, _, _) in MESH_PATHS.items():
         jobs.append(dict(name=path + "_f32_2layer", model=(cls, factory, kw),
@@ -4754,7 +5060,7 @@ def mesh_jobs(cards):
                              layers=None, exact=False, mesh=mesh,
                              batch=batch, steps=MESH_STEPS,
                              reference=path == "llama2_7B"))
-    return jobs, ranks
+    return jobs
 
 
 def mesh_model(job):
@@ -4870,19 +5176,24 @@ def mesh_compare(step, ref, exact):
 
 
 def nccl_share(step, batch):
-    """One more step, profiled on rank 0: the share of its device time
-    in NCCL kernels (None when the profiler saw no device time)."""
+    """One more step a rank, each rank profiled in its own step while the
+    others run unprofiled, as rank 0 alone was profiled before (every
+    rank profiled in one step read Llama-2 7B dp 2 x mp 2's NCCL share
+    69.65% where rank 0 alone read 22.25%): this rank's device time, its
+    NCCL kernels' share of it and the rest (the rank's own work; None
+    when the profiler saw no device time)."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
-    if dist.get_rank() != 0:
-        step(*batch)
-        torch.cuda.synchronize()
-        return None
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(*batch)
-        torch.cuda.synchronize()
+    for turn in range(dist.get_world_size()):
+        if turn != dist.get_rank():
+            step(*batch)
+            torch.cuda.synchronize()
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*batch)
+            torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -4890,14 +5201,47 @@ def nccl_share(step, batch):
     nccl = sum(e.self_device_time_total for e in kernels
                if "nccl" in e.key.lower())
     return dict(busy_ms=busy / 1e3, nccl_ms=nccl / 1e3,
+                compute_ms=(busy - nccl) / 1e3,
                 share=nccl / busy) if busy else None
 
 
-def mesh_job(job):
+def mesh_step_launches(model, mesh, s):
+    """The launches one step of ``model`` must make on this rank of
+    ``mesh``, ``s`` its tokens a row (its sp part): ``step_launches``'
+    counts, attention taken by ``sequence_parallel_mode`` on an sp axis
+    of n > 1 ranks. Ring: rank r's forward runs K1 on r + 1 parts (its
+    own and the earlier ones), the backward K2 (or K3, by the route at s
+    x s) on each; ulysses: one K1 and one backward a layer over the whole
+    n s sequence (K3 past K2's cap); gspmd (and any mode on an sp axis of
+    one rank): one of each over the (r + 1) s keys up to the rank's own
+    (K3 at sq < sk, by the JAX package's route rule)."""
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+
+    want = step_launches(model)
+    cfg = model.config
+    blocks = model.llama.layers if hasattr(model, "llama") else model.gpt.h
+    L = len(blocks)
+    rc = sum(bool(blk.recompute) for blk in blocks)
+    n, r = mesh.axis_size("sp"), mesh.coord("sp")
+    mode = cfg.sequence_parallel_mode if n > 1 else "gspmd"
+    if mode == "ring":
+        parts, sq, sk = r + 1, s, s
+    elif mode == "ulysses":
+        parts, sq, sk = 1, n * s, n * s
+    else:
+        parts, sq, sk = 1, s, (r + 1) * s
+    fused = fa.uses_fused_bwd(sq, sk, cfg.head_dim)
+    want.update({"K1": (L + rc) * parts, "K2": L * parts if fused else 0,
+                 "K3": 0 if fused else L * parts})
+    return want
+
+
+def mesh_job(job, shared):
     """One mesh run on every rank: the one-card reference (rank 0), the
     sharded model, its steps between zeroed and read kernel counts, the
     comparison and a profiled step. Returns every rank's readings (on
-    rank 0)."""
+    rank 0). ``shared`` keeps rank 0's references that two jobs share,
+    by their ``ref_key``."""
     import torch.distributed as dist
 
     from paddle_tpu_torch.distributed import ProcessMesh
@@ -4908,8 +5252,13 @@ def mesh_job(job):
     mesh = ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), names)
     b, s = job["batch"]
     batches = mesh_batches(job)
-    ref = mesh_reference(job, batches) \
-        if job["reference"] and rank == 0 else None
+    ref = None
+    if job["reference"] and rank == 0:
+        # a reference two jobs share is run once, kept on the host
+        key = job.get("ref_key")
+        ref = shared.pop(key, None) or mesh_reference(job, batches)
+        if job.get("keep_ref"):
+            shared[key] = ref
     dist.barrier()
     t0 = time.perf_counter()
     model = mesh_model(job)
@@ -4926,11 +5275,14 @@ def mesh_job(job):
     losses, secs = timed_calls(lambda: step(*next(feed)), job["steps"])
     launches = read()
     peak = torch.cuda.max_memory_allocated()
-    want = {k: job["steps"] * n for k, n in step_launches(model).items()}
+    want = {k: job["steps"] * n for k, n in mesh_step_launches(
+        model, mesh, s // mesh.axis_size("sp")).items()}
     cmp = mesh_compare(step, ref, job["exact"]) if job["reference"] else {}
-    share = nccl_share(step, batches[-1])
-    mine = dict(rank=rank, launches=launches, peak_gb=peak / 1e9,
-                device=torch.cuda.current_device())
+    profile = nccl_share(step, batches[-1])
+    tail = secs[1:] or secs
+    mine = dict(rank=rank, launches=launches, want=want, peak_gb=peak / 1e9,
+                device=torch.cuda.current_device(), profile=profile,
+                median_step_ms=1e3 * statistics.median(tail))
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     del model, step
@@ -4939,8 +5291,8 @@ def mesh_job(job):
         return None
     cfg = mesh_config(job)
     cards = dist.get_world_size()
-    tail = secs[1:] or secs
     tokens_s = b * s * len(tail) / sum(tail)
+    work = [rk["profile"]["compute_ms"] for rk in ranks if rk["profile"]]
     flops = 6 * n_params + 6 * cfg.num_layers * cfg.hidden_size * s
     return dict(mesh=dict(zip(names, shape)), cards=cards, batch=[b, s],
                 layers=cfg.num_layers, dtype="float32" if job["exact"]
@@ -4949,9 +5301,12 @@ def mesh_job(job):
                 median_step_ms=1e3 * statistics.median(tail),
                 tokens_s=tokens_s, params=n_params, flops_per_token=flops,
                 mfu=tokens_s * flops / (BF16_FLOPS_PER_S * cards),
-                setup_s=setup_s, ranks=ranks, want=want,
+                setup_s=setup_s, ranks=ranks,
                 reference_losses=None if ref is None else ref["losses"],
-                compare=cmp, nccl=share, exact=job["exact"])
+                compare=cmp, nccl=ranks[0]["profile"],
+                skew=(max(work) - min(work)) / max(work)
+                if len(work) == len(ranks) and max(work) > 0 else None,
+                exact=job["exact"])
 
 
 def mesh_config(job):
@@ -4975,28 +5330,34 @@ def mesh_worker(out, jobs):
     # a collective that waits this long means a rank is lost: fail
     # (rank 0's one-card Llama-2 7B run, ~1 min, is the longest wait)
     init_parallel_env(timeout=MESH_TIMEOUT_S)
-    res = {}
+    res, shared = {}, {}
     for job in jobs:
-        res[job["name"]] = mesh_job(job)
+        res[job["name"]] = mesh_job(job, shared)
     if dist.get_rank() == 0:
         with open(out, "w") as f:
             json.dump(res, f)
 
 
-def mesh_phase(card):
-    """Phase 9e: spawn one rank a card (four at most) over the jobs of
-    :func:`mesh_jobs`, then check and print each run's readings."""
+def mesh_phase(card, parts=("mesh", "sp")):
+    """Phases 9e ("mesh": :func:`mesh_jobs`) and 9f ("sp":
+    :func:`sp_jobs`) in one spawn of one rank a card (four at most), then
+    each run's readings checked and printed."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
 
     cards = torch.cuda.device_count()
-    jobs, ranks = mesh_jobs(cards)
+    ranks = mesh_ranks(cards)
+    jobs = (mesh_jobs(cards) if "mesh" in parts else []) + \
+        (sp_jobs(cards) if "sp" in parts else [])
     if cards < 4:
-        print("mesh: the full-width runs (Llama-2 7B on dp 2 x mp 2, GPT-3 "
-              "13B on mp 2 x dp 2, FSDP over dp) need four cards; %d here: "
-              "the 2-layer f32 checks only, on %s [%s]"
-              % (cards, jobs[0]["mesh"], card), flush=True)
+        print("mesh: the full-width runs (9e: Llama-2 7B on dp 2 x mp 2, "
+              "GPT-3 13B on mp 2 x dp 2, FSDP over dp; 9f: Llama-2 7B at "
+              "1 x %d tokens, ring on sp 4 and ulysses on sp 2 x mp 2) "
+              "need four cards; %d here: the 2-layer f32 checks only, on "
+              "%s [%s]" % (SP_SEQ, cards, sorted({str(j["mesh"])
+                                                  for j in jobs}), card),
+              flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     fd, out = tempfile.mkstemp(suffix=".json")
@@ -5026,8 +5387,9 @@ def mesh_check(job, r, card):
     print("mesh %s: %s, %d layers %s, %d x %d tokens, %d steps; losses %s"
           "%s; %.1f tokens/s, median step %.2f ms, MFU %.4f (tokens/s x "
           "(6N + 6 L h s) / (989 TFLOP/s x %d cards), N = %d), setup %.1f "
-          "s; peak memory %s GB; launches a rank %s; NCCL share of rank "
-          "0's device time %s [%s]" % (
+          "s; peak memory %s GB; each rank's launches %s, median step %s "
+          "ms and device time outside NCCL %s ms (skew %s); NCCL share of "
+          "rank 0's device time %s [%s]" % (
               name, r["mesh"], r["layers"], r["dtype"], r["batch"][0],
               r["batch"][1], len(losses), ["%.5f" % x for x in losses],
               "" if ref is None else ", one card %s (relative differences "
@@ -5036,7 +5398,12 @@ def mesh_check(job, r, card):
               r["tokens_s"], r["median_step_ms"], r["mfu"], r["cards"],
               r["params"], r["setup_s"],
               ["%.2f" % rk["peak_gb"] for rk in r["ranks"]],
-              r["ranks"][0]["launches"],
+              [{k: n for k, n in rk["launches"].items() if n}
+               for rk in r["ranks"]],
+              ["%.2f" % rk["median_step_ms"] for rk in r["ranks"]],
+              ["not measured" if rk["profile"] is None else "%.2f"
+               % rk["profile"]["compute_ms"] for rk in r["ranks"]],
+              "not measured" if r["skew"] is None else "%.4f" % r["skew"],
               "not measured" if nccl is None else "%.4f (%.2f of %.2f ms)"
               % (nccl["share"], nccl["nccl_ms"], nccl["busy_ms"]), card),
           flush=True)
@@ -5052,9 +5419,10 @@ def mesh_check(job, r, card):
     check(all(np.isfinite(losses)), "mesh %s: losses %s" % (name, losses))
     for rk in r["ranks"]:
         got = rk["launches"]
-        check(got == r["want"] and got["K1"] > 0 and got["K2"] > 0,
+        check(got == rk["want"] and got["K1"] > 0
+              and got["K2"] + got["K3"] > 0,
               "mesh %s: rank %d launched %s, want %s"
-              % (name, rk["rank"], got, r["want"]))
+              % (name, rk["rank"], got, rk["want"]))
         if "llama" in name:
             check(got["K7 rms_norm"] > 0, "mesh %s: no K7" % name)
     if job["exact"]:
@@ -5097,6 +5465,9 @@ def main_path_phases(card, stamp):
     ring = ring_kernel_phase(card)
     torch.cuda.empty_cache()
     flash = flash_kernel_phase(card)
+    torch.cuda.empty_cache()
+    sp_kernels = sp_kernel_phase(card)
+    torch.cuda.empty_cache()
     stamp("the build and the kernel phases")
     training = {}
     for path in TRAIN_PATHS:
@@ -5230,6 +5601,12 @@ def main_path_phases(card, stamp):
                   "heads, under llama_train; bench.py's seq-2048 "
                   "sub-bench's, b 4, s 2048, 16 heads, under seq2048)",
             **({"split_route": r["split_route"]} if kname == "K3" else {}),
+            **({"ulysses_shape": sp_kernels["ulysses"][kname],
+                "whole_sequence_shape": sp_kernels["whole"][kname]}
+               if kname in sp_kernels["ulysses"] else {}),
+            **({"sp_parts": dict(sp_kernels["ring"],
+                                 times_ms=sp_kernels["times_ms"])}
+               if kname == "K1" else {}),
             **({"decode_shapes": decode["k1"]} if kname == "K1" else {})})
     for name, route, mix, prefill, line, status, off, shape in (
             ("paged_attention", "K6", "gpt_decode", "gpt_prefill", 53,
@@ -5318,28 +5695,43 @@ def ring_rows(ring, tp, pp):
 
 
 def mesh_rows(kernels, mesh):
-    """The mesh path's launches a rank (rank 0's, every rank's being
-    checked equal) beside the other paths' in K1's, K2's and K7 RMSNorm's
-    rows."""
+    """The mesh paths' launches beside the other paths' in K1's, K2's,
+    K3's and K7 RMSNorm's rows: a rank's where every rank's are equal,
+    else each rank's (the ring's rank r runs r + 1 parts). A row whose
+    training path launched nothing (K3: s·d under K2's cap there) takes
+    its launches from the mesh path that ran it most, named in
+    ``launches_from``."""
     for row in kernels:
         key = {"flash_fwd": "K1", "flash_bwd_fused": "K2",
+               "flash_bwd_split": "K3",
                "rms_norm": "K7 rms_norm"}.get(row["name"])
         if key is None:
             continue
         paths = row.setdefault("launches_by_path", {})
         for name, r in mesh.items():
+            counts = [rk["launches"][key] for rk in r["ranks"]]
             if key != "K7 rms_norm" or "llama" in name:
-                paths["mesh %s %s, a rank" % (name, r["mesh"])] = \
-                    r["ranks"][0]["launches"][key]
+                if len(set(counts)) == 1:
+                    paths["mesh %s %s, a rank" % (name, r["mesh"])] = \
+                        counts[0]
+                else:
+                    paths["mesh %s %s, each rank" % (name, r["mesh"])] = \
+                        counts
+                if not row["launches"] or row.get("launches_from") and \
+                        row["launches"] < max(counts):
+                    row["launches"] = max(counts)
+                    row["launches_from"] = "mesh %s %s, a rank" % (
+                        name, r["mesh"])
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phases", choices=("all", "ring", "mesh"), default="all",
+        "--phases", choices=("all", "ring", "mesh", "sp"), default="all",
         help="all: every phase (the default); ring: only the card, the "
              "ring kernels' build and phases 4d, 9b and 9c; mesh: only the "
-             "card, K1-K3's and K7's build and phase 9e")
+             "card, K1-K3's and K7's build and phases 9e and 9f; sp: only "
+             "the card, K1-K3's and K7's build, phase 5b and phase 9f")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5363,7 +5755,8 @@ def main(argv=None):
     print(card, flush=True)
 
     sources = {"all": _build.SOURCES, "ring": ("ring",),
-               "mesh": ("flash_attn", "norms")}[args.phases]
+               "mesh": ("flash_attn", "norms"),
+               "sp": ("flash_attn", "norms")}[args.phases]
     secs = _build.build_all(sources)
     print("build: %s in %.2f s" % (", ".join(sources), secs))
     for name in sources:
@@ -5374,10 +5767,16 @@ def main(argv=None):
                 print("ptxas %s: %s" % (name, line.strip()))
     sys.stdout.flush()
 
-    if args.phases == "mesh":
-        mesh = mesh_phase(card)
-        stamp("the mesh path")
-        print(json.dumps({"mesh": mesh}))
+    if args.phases in ("mesh", "sp"):
+        out = {}
+        if args.phases == "sp":
+            out["sp_kernels"] = sp_kernel_phase(card)
+            torch.cuda.empty_cache()
+            stamp("the sp kernel phase")
+        out["mesh"] = mesh_phase(card, ("mesh", "sp") if args.phases ==
+                                 "mesh" else ("sp",))
+        stamp("the mesh paths")
+        print(json.dumps(out))
     else:
         if args.phases == "all":
             kernels, lines, ring = main_path_phases(card, stamp)

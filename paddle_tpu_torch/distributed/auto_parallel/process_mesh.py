@@ -7,10 +7,13 @@ process group (:func:`..parallel_env.init_parallel_env`), one process a
 device. On first use of :meth:`ProcessMesh.group` the mesh makes one
 process group for every line of ranks along every axis (every rank
 makes all of them, in the same order, as ``new_group`` requires) and
-keeps the ones that hold this rank.
+keeps the ones that hold this rank; a group over several axes (the
+``dp`` x ``sp`` ranks that hold one batch's tokens) is made the same way
+on its first use, which every rank must reach in the same order.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, FrozenSet, List, Optional, Sequence
 
 import numpy as np
@@ -40,6 +43,7 @@ class ProcessMesh:
                              % (len(dim_names), arr.ndim))
         self._dim_names = list(dim_names)
         self._groups: Optional[Dict[str, object]] = None
+        self._multi: Dict[tuple, object] = {}
 
     @property
     def shape(self) -> List[int]:
@@ -84,18 +88,30 @@ class ProcessMesh:
 
     def group_of(self, axes) -> Optional[object]:
         """The group of the ranks that share this rank's coordinates on
-        every axis but ``axes``: one axis's line, every rank for all of
-        them, None for none."""
-        axes: FrozenSet[str] = frozenset(a for a in axes if a is not None)
+        every axis but ``axes`` (names the mesh lacks are left out): one
+        axis's line, every rank for all of them, None for none."""
+        axes: FrozenSet[str] = frozenset(
+            a for a in axes if a is not None and a in self._dim_names)
         if not axes:
             return None
         if len(axes) == 1:
             return self.group(next(iter(axes)))
+        self.group(self._dim_names[0])        # the mesh's groups first
         if axes == frozenset(self._dim_names):
-            self.group(self._dim_names[0])    # the mesh's groups first
             return dist.group.WORLD
-        raise NotImplementedError(
-            "a group over %s of a %s mesh" % (sorted(axes), self._dim_names))
+        key = tuple(n for n in self._dim_names if n in axes)
+        if key not in self._multi:
+            idx = [self._dim_names.index(n) for n in key]
+            me, group = dist.get_rank(), None
+            blocks = np.moveaxis(self._mesh, idx, list(range(-len(idx), 0)))
+            for block in blocks.reshape(-1, math.prod(
+                    self._mesh.shape[i] for i in idx)):
+                members = sorted(map(int, block))
+                g = new_group(members)
+                if me in members:
+                    group = g
+            self._multi[key] = group
+        return self._multi[key]
 
     def _build_groups(self) -> None:
         if not dist.is_initialized():

@@ -17,9 +17,13 @@ port runs one process a rank and places them itself:
   ``group=None``.
 - :func:`shard_model`: slices every parameter of a model to this rank's
   piece, in place (the same ``Parameter`` objects), records its
-  :class:`Layout` as ``p.dist_layout``, hands the modules their ``mp`` /
-  ``dp`` groups, and gives each block an :class:`FSDPUnit` over its
-  parameters that the FSDP axis shards.
+  :class:`Layout` as ``p.dist_layout``, hands the modules their ``mp``
+  and ``sp`` groups (no ``sp`` group where that axis has one rank) and
+  the loss its ``dp`` x ``sp`` group (the ranks
+  that hold the global batch's other tokens), and gives each block an
+  :class:`FSDPUnit` over its parameters that the FSDP axis shards. No
+  parameter is split over ``sp``: sequence parallelism splits the
+  activations only.
 
 FSDP (the JAX ``_add_fsdp``): a parameter is sharded over the FSDP axis
 on its first dim that no axis shards yet and that the axis divides
@@ -342,7 +346,9 @@ def shard_model(model: torch.nn.Module, mesh, fsdp_axis: Optional[str]
     root unit (the FSDP-sharded parameters outside the blocks), None
     without FSDP."""
     mp = mesh.group("mp") if "mp" in mesh.dim_names else None
-    dp = mesh.group("dp") if "dp" in mesh.dim_names else None
+    sp = (mesh.group("sp") if "sp" in mesh.dim_names
+          and mesh.axis_size("sp") > 1 else None)
+    batch = mesh.group_of(("dp", "sp"))
     fsdp = fsdp_axis if fsdp_axis in mesh.dim_names else None
     blocks = [(name, m) for name, m in model.named_modules()
               if hasattr(m, "fsdp")]
@@ -364,8 +370,10 @@ def shard_model(model: torch.nn.Module, mesh, fsdp_axis: Optional[str]
     for m in model.modules():
         if hasattr(m, "mp_group"):
             m.mp_group = mp
-        if hasattr(m, "dp_group"):
-            m.dp_group = dp
+        if hasattr(m, "sp_group"):
+            m.sp_group = sp
+        if hasattr(m, "batch_group"):
+            m.batch_group = batch
     group = mesh.group(fsdp) if fsdp is not None else None
     for name, m in blocks:
         m.fsdp = FSDPUnit(units[name], group) if units[name] else None

@@ -10,11 +10,13 @@ from f32 logits, and the mean divides the one global sum by the count of
 non-ignored tokens, so the loss does not depend on the chunk count.
 
 On a mesh the weight holds this rank's slice of the vocabulary (``[V /
-mp, h]`` tied, ``[h, V / mp]`` untied) and the tokens are this ``dp``
-rank's: each chunk's max, sum of exponentials and target logit are
-all-reduced over ``mp_group``, the count of non-ignored tokens over
-``dp_group``, and the loss is the global mean (this rank's share,
-summed over ``dp`` forward; its gradient is the share's).
+mp, h]`` tied, ``[h, V / mp]`` untied) and the tokens are this rank's
+part of the global batch (its ``dp`` rows, and on a sequence-parallel
+mesh its ``sp`` part of each row): each chunk's max, sum of exponentials
+and target logit are all-reduced over ``mp_group``, the count of
+non-ignored tokens over ``batch_group`` (the ``dp`` x ``sp`` ranks), and
+the loss is the global mean (this rank's share, summed over
+``batch_group`` forward; its gradient is the share's).
 """
 from __future__ import annotations
 
@@ -32,13 +34,13 @@ def _logits(x, w, transpose_weight):
 
 class _ChunkedLMHeadCE(torch.autograd.Function):
     """This rank's share of the global mean: its tokens' sum over the
-    count of every ``dp`` rank's non-ignored tokens. Without groups
-    (``mp`` / ``dp`` None) the weight is the whole vocabulary and the
-    share is the mean."""
+    count of every ``batch_group`` rank's non-ignored tokens. Without
+    groups (``mp`` / ``batch`` None) the weight is the whole vocabulary
+    and the share is the mean."""
 
     @staticmethod
     def forward(ctx, x, w, labels, chunks, transpose_weight, ignore_index,
-                mp, dp):
+                mp, batch):
         n = x.shape[0] // chunks
         vl = w.shape[0] if transpose_weight else w.shape[1]
         start = dist.get_rank(mp) * vl if mp is not None else 0
@@ -47,8 +49,8 @@ class _ChunkedLMHeadCE(torch.autograd.Function):
         inside = valid & (local >= 0) & (local < vl)
         safe = torch.where(inside, local, 0)
         count = valid.sum().float()
-        if dp is not None:
-            dist.all_reduce(count, group=dp)
+        if batch is not None:
+            dist.all_reduce(count, group=batch)
         count = count.clamp_min(1)
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         lse = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
@@ -99,15 +101,15 @@ class _ChunkedLMHeadCE(torch.autograd.Function):
 
 def lm_head_chunked_ce(x, weight, labels, chunks: int,
                        transpose_weight: bool, ignore_index: int = -100,
-                       mp_group=None, dp_group=None):
+                       mp_group=None, batch_group=None):
     """Mean token cross entropy of ``x @ weight.T`` (tied embeddings,
     ``weight [vocab, h]``, ``transpose_weight=True``) or ``x @ weight``
     (``[h, vocab]``) against ``labels``, in ``chunks`` equal token
     chunks. ``x`` is ``[..., h]`` and ``labels`` has its leading shape;
     tokens labelled ``ignore_index`` do not count. ``chunks`` must divide
-    the token count. With ``mp_group`` / ``dp_group`` (a mesh) the
+    the token count. With ``mp_group`` / ``batch_group`` (a mesh) the
     weight is this rank's vocabulary slice and the mean is over every
-    ``dp`` rank's tokens (see the module note)."""
+    ``batch_group`` rank's tokens (see the module note)."""
     h = x.shape[-1]
     xt = x.reshape(-1, h)
     lab = labels.reshape(-1).to(device=x.device, dtype=torch.long)
@@ -116,5 +118,5 @@ def lm_head_chunked_ce(x, weight, labels, chunks: int,
                          % (xt.shape[0], chunks))
     share = _ChunkedLMHeadCE.apply(xt, weight, lab, int(chunks),
                                    bool(transpose_weight), int(ignore_index),
-                                   mp_group, dp_group)
-    return reduce_from(share, dp_group)
+                                   mp_group, batch_group)
+    return reduce_from(share, batch_group)

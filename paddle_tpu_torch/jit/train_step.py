@@ -30,8 +30,8 @@ Dropout draws from the step's own ``torch.Generator`` (seeded by
 ``seed``), installed for the duration of each step
 (:func:`paddle_tpu_torch.core.random.rng_guard`, the JAX ``rng_guard``).
 
-On a mesh (``mesh=ProcessMesh(...)`` over the axes ``dp`` and ``mp``,
-``fsdp_axis="dp"`` optional, ``batch_specs`` as in the JAX step) the
+On a mesh (``mesh=ProcessMesh(...)`` over the axes ``dp``, ``sp`` and
+``mp``, ``fsdp_axis="dp"`` optional, ``batch_specs`` as in the JAX step) the
 step is one process a rank (:func:`paddle_tpu_torch.distributed.spawn`,
 :func:`~paddle_tpu_torch.distributed.init_parallel_env`), each running
 this code on its shards, the counterpart of the JAX step's one SPMD
@@ -42,10 +42,14 @@ program:
   over ``mp``, FSDP units over ``dp``);
   every rank is given the global batch and takes its ``dp`` part (with
   ``accumulate_steps = k`` the global batch's k micro-batches, each
-  split over ``dp``, as the JAX step splits them);
-  the loss is the global mean over every ``dp`` rank's tokens;
-  gradients of parameters the ``dp`` ranks replicate are summed over
-  ``dp`` (FSDP ones arrive reduce-scattered);
+  split over ``dp``, as the JAX step splits them) and of each row its
+  ``sp`` part along dim 1 (whether or not ``batch_specs`` names ``sp``:
+  the JAX model moves its activations onto ``sp`` either way), which the
+  model's attention joins by ``sequence_parallel_mode``;
+  the loss is the global mean over every ``dp`` and ``sp`` rank's tokens;
+  gradients are summed over the ``dp`` and ``sp`` ranks that replicate
+  the parameter, in one all-reduce over both (FSDP ones arrive
+  reduce-scattered over ``dp``; no parameter is split over ``sp``);
   the clip norm is global (:func:`..observability.health.grad_health`
   over the shards' groups), and AdamW's factored statistics are the
   whole matrix's (``AdamW.update(..., shards=...)``).
@@ -53,9 +57,9 @@ program:
 ``opt_state`` then holds this rank's pieces, and the model keeps its
 local shards; :func:`paddle_tpu_torch.convert.gather_params` and
 :func:`~paddle_tpu_torch.convert.gather_opt_state` gather them whole.
-A mesh axis other than ``dp`` / ``mp``, an FSDP axis other than ``dp``,
-MoE, dropout, 8-bit moments, ``run_steps_stream`` and the TP overlap
-raise on a mesh (ROADMAP.md).
+A mesh axis other than ``dp`` / ``sp`` / ``mp``, an FSDP axis other than
+``dp``, MoE, dropout, 8-bit moments, ``run_steps_stream`` and the TP
+overlap raise on a mesh (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -172,9 +176,8 @@ class ChunkPrefetcher:
         return item
 
 
-_MESH_AXES = ("dp", "mp")
+_MESH_AXES = ("dp", "sp", "mp")
 _UNPORTED_AXES = {
-    "sp": "sequence parallelism (the ring / ulysses modes)",
     "ep": "the expert-parallel axis",
     "pp": "pipeline x tensor-parallel hybrids"}
 
@@ -242,7 +245,7 @@ class TrainStep:
                 raise _unported(_UNPORTED_AXES.get(
                     name, "a mesh axis %r" % name))
         if fsdp_axis in mesh.dim_names and fsdp_axis != "dp":
-            raise _unported("FSDP over %r (a model axis)" % fsdp_axis)
+            raise _unported("FSDP over %r (only dp is ported)" % fsdp_axis)
         if knobs.get_str("PADDLE_TPU_TP_OVERLAP").strip().lower() in (
                 "on", "pallas"):
             raise _unported("the TP overlap (overlap_linear, K9)")
@@ -254,26 +257,33 @@ class TrainStep:
         if getattr(cfg, "dropout", 0.0) or getattr(
                 cfg, "attention_dropout", 0.0):
             raise _unported("dropout")
-        mp = mesh.axis_size("mp")
+        mp, sp = mesh.axis_size("mp"), mesh.axis_size("sp")
         for key in ("num_heads", "num_kv_heads"):
             if getattr(cfg, key, 0) % mp:
                 raise ValueError("%s=%d does not divide by mp=%d"
                                  % (key, getattr(cfg, key), mp))
+        if getattr(cfg, "sequence_parallel_mode", "gspmd") == "ulysses" \
+                and (cfg.num_heads // mp) % sp:
+            raise ValueError("ulysses: num_heads / mp = %d does not divide "
+                             "by sp=%d" % (cfg.num_heads // mp, sp))
         if not dist.is_initialized():
             raise RuntimeError("a mesh needs the process group: call "
                                "paddle_tpu_torch.distributed."
                                "init_parallel_env() in every rank first")
         self._root = shard_model(self.model, mesh, fsdp_axis)
-        self._norm_groups, self._adam_shards, self._dp_reduce = [], [], []
+        self._norm_groups, self._adam_shards = [], []
+        self._grad_reduce = []      # (parameter index, group)
         for i, p in enumerate(self._params):
             spec = p.dist_layout.spec
             self._norm_groups.append(mesh.group_of(spec))
             self._adam_shards.append((mesh.group_of(spec[:1]),
                                       mesh.group_of(spec[1:])))
-            if "dp" in mesh.dim_names and "dp" not in spec:
-                self._dp_reduce.append(i)
-        self._dp = mesh.group("dp") if "dp" in mesh.dim_names else None
+            # the batch axes that replicate p: one all-reduce over both
+            group = mesh.group_of(a for a in ("dp", "sp") if a not in spec)
+            if group is not None:
+                self._grad_reduce.append((i, group))
         self._dp_size, self._dp_rank = mesh.axis_size("dp"), mesh.coord("dp")
+        self._sp_size, self._sp_rank = sp, mesh.coord("sp")
         self._batch_specs = None if batch_specs is None else [
             filtered_spec(b, mesh) for b in batch_specs]
         for spec in self._batch_specs or ():
@@ -296,6 +306,18 @@ class TrainStep:
         r = self._dp_rank
         return a.reshape((k, n * m) + tuple(a.shape[1:]))[
             :, r * m:(r + 1) * m].reshape((k * m,) + tuple(a.shape[1:]))
+
+    def _sp_part(self, a: torch.Tensor) -> torch.Tensor:
+        """This rank's ``sp`` part of dim 1 (each row's sequence) of a
+        batch array."""
+        n = self._sp_size
+        if n == 1 or a.dim() < 2:
+            return a
+        if a.shape[1] % n:
+            raise ValueError("sequence dim %d does not split over sp=%d"
+                             % (a.shape[1], n))
+        s = a.shape[1] // n
+        return a[:, self._sp_rank * s:(self._sp_rank + 1) * s].contiguous()
 
     # ----------------------------------------------------------- one step
     def _loss(self, batch) -> torch.Tensor:
@@ -340,8 +362,8 @@ class TrainStep:
         with _random.rng_guard(self._generator):
             loss, grads = self._loss_and_grads(batch)
         if self.mesh is not None:
-            for i in self._dp_reduce:
-                collective.all_reduce(grads[i], group=self._dp)
+            for i, group in self._grad_reduce:
+                collective.all_reduce(grads[i], group=group)
         gnorm = seen = None
         if self.grad_clip_norm is not None or self._health_on:
             gnorm = seen = health.grad_health(grads, self._norm_groups)
@@ -414,7 +436,7 @@ class TrainStep:
                 torch.as_tensor(b, device=self.device) for b in batch))
         arrays = self._check_batch(tuple(torch.as_tensor(b) for b in batch))
         specs = self._batch_specs or [None] * len(arrays)
-        return tuple(self._dp_part(a, s).to(self.device)
+        return tuple(self._sp_part(self._dp_part(a, s)).to(self.device)
                      for a, s in zip(arrays, specs))
 
     def _stacked(self, stacked, n: int):

@@ -20,7 +20,7 @@ embeddings' sum and each block's two residual branches
 (``fusion.dropout_add``), ``attention_dropout`` the attention output
 (as in the JAX package); the masks come from the random streams of
 :mod:`paddle_tpu_torch.core.random` and a recomputed block replays its
-forward's. Sequence parallelism is a later slice (ROADMAP.md).
+forward's.
 
 On a mesh (``jit.TrainStep(..., mesh=...)``, which slices the
 parameters by their annotations, those of the JAX model) the layers are
@@ -30,7 +30,13 @@ tensor-parallel over ``mp``: ``qkv_proj`` and ``fc1`` column-parallel
 vocab-parallel (a masked lookup and an all-reduce; the tied head gives
 logits split over the vocabulary, and the loss is
 :func:`..fusion.lm_head_chunked_ce` over them). Head counts and widths
-come from the local weights' shapes.
+come from the local weights' shapes. On a mesh with an ``sp`` axis each
+rank holds one contiguous part of every sequence: positions are global
+(``wpe`` sees ``r s / sp ...`` on sp rank r), attention follows
+``sequence_parallel_mode`` (:mod:`._sp_attention`: the gspmd gather of
+K and V, or ring / ulysses), and the loss is the mean over every ``dp``
+and ``sp`` rank's tokens. Without an ``sp`` group the ring and ulysses
+modes are the gspmd model, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from ..fusion.epilogues import dropout_add
 from ..fusion.moe import fused_moe_mlp
 from ..incubate.nn.functional import scaled_dot_product_attention
 from ..nn.functional import dropout
+from ._sp_attention import on_sp, sp_positions
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTMoEMLP",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt3_125M", "gpt3_1p3B",
@@ -83,7 +90,8 @@ class GPTConfig:
     # > 1: the lm head + cross entropy run in this many token chunks, so
     # the [tokens, vocab] logits never exist in full (fusion/chunked.py)
     lm_ce_chunks: int = 0
-    # only "gspmd" is ported ("ring" / "ulysses" raise)
+    # "gspmd" | "ring" | "ulysses": attention over a mesh's sp axis
+    # (models/_sp_attention.py)
     sequence_parallel_mode: str = "gspmd"
     # > 0: every block's MLP is a top-2 GShard mixture of this many
     # experts, each holding capacity_factor * tokens * 2 / E slots; the
@@ -149,9 +157,10 @@ class GPTAttention(nn.Module):
     """Causal self-attention: fused qkv projection, flash attention on
     the ``[b, s, heads, head_dim]`` slices of it, output projection. With
     a ``cache`` ``(k, v)`` of ``[b, past, heads, head_dim]`` the call's
-    keys and values are appended to it and returned with the output."""
+    keys and values are appended to it and returned with the output.
+    ``sp_group`` (on a mesh with an ``sp`` axis): see the module note."""
 
-    mp_group = None
+    mp_group = sp_group = None
 
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -179,12 +188,19 @@ class GPTAttention(nn.Module):
             k = torch.cat([cache[0], k], 1)
             v = torch.cat([cache[1], v], 1)
             cache = (k, v)
-        # causal is bottom-right aligned: with a cache of `past` keys,
-        # query t sees keys <= past + t, the JAX package's
-        # _offset_causal_mask(s, past) (one token sees every key)
-        out = scaled_dot_product_attention(
-            q, k, v, is_causal=s > 1, dropout_p=cfg.attention_dropout
-            if self.training else 0.0, training=self.training)
+        dropout_p = cfg.attention_dropout if self.training else 0.0
+        out = None
+        if cache is None and s > 1 and self.sp_group is not None:
+            out, k, v = on_sp(q, k, v, cfg.sequence_parallel_mode,
+                              self.sp_group)
+        if out is None:
+            # causal is bottom-right aligned: with a cache of `past` keys
+            # (or the sp ranks' keys before this one's), query t sees keys
+            # <= past + t, the JAX package's _offset_causal_mask(s, past)
+            # (one token sees every key)
+            out = scaled_dot_product_attention(
+                q, k, v, is_causal=s > 1, dropout_p=dropout_p,
+                training=self.training)
         out = self.out_proj(out.reshape(b, s, heads * cfg.head_dim))
         return out if cache is None else (out, cache)
 
@@ -333,7 +349,7 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     """Embeddings + N blocks + final LN."""
 
-    mp_group = None
+    mp_group = sp_group = None
 
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -361,8 +377,12 @@ class GPTModel(nn.Module):
         """``(final hidden states, [each MoE block's aux loss])``; with
         ``caches`` (a ``(k, v)`` pair a layer) also the caches with this
         call's keys and values appended, and positions by default from
-        the cache's length on."""
+        the cache's length on (on an sp mesh, from this rank's part's
+        start)."""
         past = 0 if caches is None else caches[0][0].shape[1]
+        if position_ids is None and caches is None:
+            position_ids = sp_positions(self.sp_group, input_ids.shape[1],
+                                        input_ids.device)
         if position_ids is None:
             position_ids = torch.arange(past, past + input_ids.shape[1],
                                         device=input_ids.device)[None]
@@ -394,7 +414,7 @@ class GPTForCausalLM(nn.Module):
     ``gate_weight`` and ``w1`` at initializer_range); biases zero,
     LayerNorm weights one."""
 
-    mp_group = dp_group = None
+    mp_group = batch_group = None
 
     def __init__(self, config: GPTConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
@@ -433,13 +453,6 @@ class GPTForCausalLM(nn.Module):
         if self.lm_head is not None:
             self.lm_head.weight.normal_(0.0, std, generator=g)
 
-    def _check_supported(self) -> None:
-        cfg = self.config
-        if cfg.sequence_parallel_mode != "gspmd":
-            raise NotImplementedError(
-                "sequence_parallel_mode=%r is not ported yet: see "
-                "ROADMAP.md" % cfg.sequence_parallel_mode)
-
     def forward(self, input_ids, position_ids=None, labels=None,
                 caches=None):
         """Full-sequence forward. ``input_ids`` [b, s] (int); with
@@ -452,7 +465,6 @@ class GPTForCausalLM(nn.Module):
         previous call returned) the tokens continue the cached ones and,
         without labels, ``(logits, caches)`` comes back, each layer's
         cache grown by this call's keys and values."""
-        self._check_supported()
         if caches is None:
             x, auxes = self.gpt.hidden_and_aux(input_ids, position_ids)
         else:
@@ -465,7 +477,7 @@ class GPTForCausalLM(nn.Module):
             loss = lm_head_chunked_ce(
                 copy_to(x, self.mp_group), w, labels, chunks,
                 transpose_weight=tied, mp_group=self.mp_group,
-                dp_group=self.dp_group)
+                batch_group=self.batch_group)
         else:
             logits = x @ w.t() if tied else x @ w
             if labels is None:
@@ -526,7 +538,7 @@ def head_chunks(model, x, labels):
     chunks = int(model.config.lm_ce_chunks or 0)
     if chunks < 1 or x.shape[0] * x.shape[1] % chunks:
         chunks = 1
-    if model.mp_group is None and model.dp_group is None:
+    if model.mp_group is None and model.batch_group is None:
         return chunks if labels is not None and chunks > 1 else 0
     if labels is None:
         raise NotImplementedError(

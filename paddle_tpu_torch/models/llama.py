@@ -15,8 +15,7 @@ under ``torch.utils.checkpoint``; with ``caches`` from
 :meth:`~LlamaForCausalLM.init_caches`, the incremental form, RoPE at each
 token's absolute position), and decoding through
 :meth:`LlamaForCausalLM.decode_adapter` (:meth:`~LlamaForCausalLM.generate`,
-:meth:`~LlamaForCausalLM.beam_search`, the serving engine). The ``ring`` /
-``ulysses`` sequence-parallel modes are a later slice (ROADMAP.md).
+:meth:`~LlamaForCausalLM.beam_search`, the serving engine).
 
 On a mesh (``jit.TrainStep(..., mesh=...)``) the layers are
 tensor-parallel over ``mp``, to the JAX annotations: ``q/k/v`` and
@@ -24,7 +23,12 @@ tensor-parallel over ``mp``, to the JAX annotations: ``q/k/v`` and
 (an all-reduce), ``embed_tokens`` vocab-parallel and the untied
 ``lm_head`` column-parallel over the vocabulary (the loss over logits
 split over it, as GPT's). ``num_heads`` and ``num_kv_heads`` must divide
-by ``mp``; head counts come from the local weights' shapes.
+by ``mp``; head counts come from the local weights' shapes. On a mesh
+with an ``sp`` axis, as GPT's: RoPE at global positions, attention by
+``sequence_parallel_mode`` (ring and ulysses on K / V repeated to the
+query heads first, as the JAX model repeats them; the gspmd gather on
+the unrepeated ones), the loss over every ``dp`` and ``sp`` rank's
+tokens.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from ..fusion.chunked import lm_head_chunked_ce
 from ..fusion.epilogues import add_rms_norm, swiglu_linear
 from ..incubate.nn.functional import (fused_rotary_position_embedding,
                                       rms_norm, scaled_dot_product_attention)
+from ._sp_attention import on_sp, sp_positions
 from .gpt import Linear, head_chunks
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "cross_entropy", "llama_tiny",
@@ -68,7 +73,8 @@ class LlamaConfig:
     # > 1: the lm head + cross entropy run in this many token chunks
     # (fusion/chunked.py)
     lm_ce_chunks: int = 0
-    # only "gspmd" is ported ("ring" / "ulysses" raise)
+    # "gspmd" | "ring" | "ulysses": attention over a mesh's sp axis
+    # (models/_sp_attention.py)
     sequence_parallel_mode: str = "gspmd"
 
     def __post_init__(self):
@@ -110,9 +116,10 @@ class RMSNorm(nn.Module):
 class LlamaAttention(nn.Module):
     """The q/k/v/o projections (no biases), RoPE on q and k, causal
     attention; k and v have ``num_kv_heads`` heads, repeated over each
-    group of query heads inside the attention (GQA)."""
+    group of query heads inside the attention (GQA). ``sp_group`` (on a
+    mesh with an ``sp`` axis): see the module note."""
 
-    mp_group = None
+    mp_group = sp_group = None
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -149,10 +156,16 @@ class LlamaAttention(nn.Module):
             k = torch.cat([cache[0], k], 1)
             v = torch.cat([cache[1], v], 1)
             cache = (k, v)
-        # causal is bottom-right aligned: with a cache of `past` keys,
-        # query t sees keys <= past + t (the JAX _offset_causal_mask)
-        out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
-                                           training=self.training)
+        out = None
+        if cache is None and s > 1 and self.sp_group is not None:
+            out, k, v = on_sp(q, k, v, cfg.sequence_parallel_mode,
+                              self.sp_group)
+        if out is None:
+            # causal is bottom-right aligned: with a cache of `past` keys
+            # (or the sp ranks' keys before this one's), query t sees keys
+            # <= past + t (the JAX _offset_causal_mask)
+            out = scaled_dot_product_attention(q, k, v, is_causal=s > 1,
+                                               training=self.training)
         out = self.o_proj(out.reshape(b, s, heads * d))
         return out if cache is None else (out, cache)
 
@@ -224,7 +237,7 @@ class LlamaBlock(nn.Module):
 class LlamaModel(nn.Module):
     """Embedding + N blocks + final RMSNorm."""
 
-    mp_group = None
+    mp_group = sp_group = None
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -246,6 +259,9 @@ class LlamaModel(nn.Module):
         x = vocab_parallel_embedding(input_ids, self.embed_tokens.weight,
                                      self.mp_group)
         if caches is None:
+            if position_ids is None:
+                position_ids = sp_positions(self.sp_group, input_ids.shape[1],
+                                            input_ids.device)
             for block in self.layers:
                 x = block(x, position_ids)
             return self.norm(x)
@@ -279,7 +295,7 @@ class LlamaForCausalLM(nn.Module):
     the residual-branch outputs ``o_proj`` and ``down_proj``; RMSNorm
     weights one."""
 
-    mp_group = dp_group = None
+    mp_group = batch_group = None
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.float32,
@@ -324,10 +340,6 @@ class LlamaForCausalLM(nn.Module):
         full. With ``caches`` (:meth:`init_caches`, or the caches a
         previous call returned) the tokens continue the cached ones and,
         without labels, ``(logits, caches)`` comes back."""
-        if self.config.sequence_parallel_mode != "gspmd":
-            raise NotImplementedError(
-                "sequence_parallel_mode=%r is not ported yet: see "
-                "ROADMAP.md" % self.config.sequence_parallel_mode)
         if caches is None:
             x = self.llama(input_ids, position_ids)
         else:
@@ -339,7 +351,7 @@ class LlamaForCausalLM(nn.Module):
             return lm_head_chunked_ce(
                 copy_to(x, self.mp_group), w, labels, chunks,
                 transpose_weight=tied, mp_group=self.mp_group,
-                dp_group=self.dp_group)
+                batch_group=self.batch_group)
         logits = x @ w.t() if tied else x @ w
         if labels is None:
             return logits if caches is None else (logits, caches)

@@ -47,13 +47,15 @@ def make_mesh(name):
     return ProcessMesh(np.arange(int(np.prod(shape))).reshape(shape), names)
 
 
-def port_model(kind, weights=None):
+def port_model(kind, weights=None, **config):
+    """``gpt_tiny`` / ``llama_tiny`` with recompute and 4 CE chunks (and
+    ``config``'s options), the JAX model's ``weights`` loaded."""
     if kind == "gpt":
-        m = GPTForCausalLM(gpt_tiny(recompute=True, lm_ce_chunks=4),
-                           device="cpu")
+        m = GPTForCausalLM(gpt_tiny(recompute=True, lm_ce_chunks=4,
+                                    **config), device="cpu")
     else:
-        m = LlamaForCausalLM(llama_tiny(recompute=True, lm_ce_chunks=4),
-                             device="cpu")
+        m = LlamaForCausalLM(llama_tiny(recompute=True, lm_ce_chunks=4,
+                                        **config), device="cpu")
     if weights is not None:
         m.load_state_dict({k: torch.from_numpy(v) for k, v in
                            weights.items()})
@@ -90,7 +92,39 @@ def flat_state(state):
     return out
 
 
-def _save(out, name, **arrays):
+def key_third(name, v):
+    """(the bias's key third, the rest) for GPT's qkv bias, else
+    (None, v)."""
+    if not name.endswith("attn.qkv_proj.bias"):
+        return None, v
+    h = v.shape[0] // 3
+    return v[h:2 * h], np.delete(v, np.s_[h:2 * h])
+
+
+def assert_run_close(got, want, names):
+    """Losses, parameters, m, vr and vc of two runs within the bounds of
+    ``tests/test_torch_mesh_training.py``'s note."""
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    for i, name in enumerate(names):
+        g_key, g = key_third(name, got[name])
+        w_key, w = key_third(name, want[name])
+        np.testing.assert_allclose(g, w, atol=5e-5, err_msg=name)
+        if g_key is not None:
+            np.testing.assert_allclose(g_key, w_key, atol=3 * LR,
+                                       err_msg=name + " (key third)")
+        gm, wm = key_third(name, got["m:%d" % i])[1], \
+            key_third(name, want["m:%d" % i])[1]
+        np.testing.assert_allclose(gm, wm, atol=2.0 ** -7 * np.abs(wm).max(),
+                                   err_msg="m of " + name)
+        for key in ("vr", "vc"):
+            w = want["%s:%d" % (key, i)]
+            if w.size:
+                np.testing.assert_allclose(
+                    got["%s:%d" % (key, i)], w, rtol=1e-4,
+                    atol=1e-6 * np.abs(w).max(), err_msg=key + " " + name)
+
+
+def save(out, name, **arrays):
     if dist.get_rank() == 0:
         np.savez(os.path.join(out, name + ".npz"), **arrays)
 
@@ -121,7 +155,7 @@ def unit_vocab_parallel(mesh):
     ws = wl.local(w).requires_grad_()
     loss = lm_head_chunked_ce(copy_to(xs, mp), ws, labels[rows], 2,
                               transpose_weight=True, mp_group=mp,
-                              dp_group=dp)
+                              batch_group=dp)
     loss.backward()
     emb = vocab_parallel_embedding(ids[rows], ws, mp)
     xf, wf = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -291,7 +325,7 @@ def run_ranks(out, world):
         for kind in MODELS:
             losses, m, step = train(kind, weights[kind], batch,
                                     make_mesh(name), fsdp)
-            _save(out, "%s_%s" % (name, kind), losses=np.array(losses),
+            save(out, "%s_%s" % (name, kind), losses=np.array(losses),
                   **gather_params(m), **flat_state(gather_opt_state(step)))
     if world == 4:
         mesh = make_mesh("dp2mp2")
@@ -299,11 +333,11 @@ def run_ranks(out, world):
             # run_steps and gradient merge on the mesh
             losses, m, _ = train(kind, weights[kind], batch, mesh, "dp",
                                  chained=True)
-            _save(out, "chained_%s" % kind, losses=np.array(losses),
+            save(out, "chained_%s" % kind, losses=np.array(losses),
                   **gather_params(m))
             losses, m, _ = train(kind, weights[kind], batch, mesh, "dp",
                                  accumulate=2)
-            _save(out, "accumulate_%s" % kind, losses=np.array(losses),
+            save(out, "accumulate_%s" % kind, losses=np.array(losses),
                   **gather_params(m))
         units = {}
         for fn in (unit_vocab_parallel, unit_factored_and_norm,
@@ -311,9 +345,9 @@ def run_ranks(out, world):
             units.update(fn(mesh))
         units.update(unit_convert(mesh, weights["gpt"]))
         units.update(unit_collectives())
-        _save(out, "units4", **units)
+        save(out, "units4", **units)
     if world == 2:
-        _save(out, "units2", **unit_qkv_and_bias(make_mesh("mp2")))
+        save(out, "units2", **unit_qkv_and_bias(make_mesh("mp2")))
     if dist.get_rank() == 0:
         with open(os.path.join(out, "done_%d.json" % world), "w") as f:
             json.dump({"world": world}, f)
@@ -363,4 +397,4 @@ def cuda_mp2(out):
     saved["launches"] = np.array([fa.flash_fwd.launches,
                                   fa.flash_bwd_fused.launches])
     saved.update(gather_params(m))
-    _save(out, "cuda_mp2", **saved)
+    save(out, "cuda_mp2", **saved)

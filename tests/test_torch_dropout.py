@@ -290,10 +290,15 @@ def test_train_step_draws_from_its_own_generator(jax_run):
 
 
 def test_the_other_options_still_raise():
-    tm = GPTForCausalLM(_config(sequence_parallel_mode="ring"), device="cpu")
-    ids = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm(ids)
+    # without an sp mesh the ring and ulysses modes are the gspmd model,
+    # as in the JAX package (its sp_attention returns None there)
+    ids = torch.arange(8, dtype=torch.int64)[None]
+    logits = []
+    for mode in ("gspmd", "ring", "ulysses"):
+        tm = GPTForCausalLM(_config(sequence_parallel_mode=mode),
+                            device="cpu").eval()
+        logits.append(tm(ids))
+    assert all(torch.equal(x, logits[0]) for x in logits[1:])
     # KV caches and a masked SDPA with dropout are ported: they run, in
     # training too, and the masked SDPA draws its dropout
     tm = GPTForCausalLM(_config(), device="cpu")

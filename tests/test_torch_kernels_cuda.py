@@ -8,8 +8,12 @@ over them on the card: among them the training paths' K1/K2 at Llama-2
 7B's shape and at bench.py's seq-2048 shape, K1/K2 and K7 inside
 ``torch.utils.checkpoint``, the MoE FFN of MoE GPT training, dropout
 masks from a CUDA generator replayed by a recomputed block, and the
-8-bit Adam moments' encoding on the card against the CPU's, and sharded
-training on an mp 2 mesh of two cards against one card. These tests need an NVIDIA Hopper GPU
+8-bit Adam moments' encoding on the card against the CPU's, sharded
+training on an mp 2 mesh of two cards against one card, the ring
+attention's K1 parts merged by their lse and K2 from the merged lse,
+K1 / K2 / K3 at sq < sk (the gspmd sequence-parallel shape), and Llama
+training on an sp 2 mesh of two cards in ring and ulysses mode against
+one card. These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -182,6 +186,128 @@ def test_mesh_mp2_training_matches_one_card(tmp_path):
         rel = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
         assert rel <= (1e-2 if name.endswith(".bias") else 1e-4), (name,
                                                                    rel)
+
+
+@pytest.mark.cuda
+def test_mesh_sp2_training_matches_one_card(tmp_path):
+    """Sequence parallelism on two cards (one process a card, NCCL): the
+    2-layer f32 Llama at Llama-2 7B's width, 3 steps on 2 x 512 tokens on
+    an sp 2 mesh in ring mode (rank r: K1 on r + 1 parts of 256 tokens,
+    K2 on each) and in ulysses mode (K1 / K2 on 16 heads over the 512),
+    against one card: every loss and every gathered weight within 1e-4
+    in relative L2, each rank's launches as the mode runs them."""
+    _need_hopper()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("an sp 2 mesh needs two cards")
+    import _torch_sp_workers as S
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.incubate.nn.cuda import _build
+
+    _build.build_all(("flash_attn", "norms"))
+    spawn(S.cuda_sp2, (str(tmp_path),), nprocs=2)
+    r = dict(np.load(tmp_path / "cuda_sp2.npz"))
+    steps, layers = S.W.STEPS, 2
+    # recompute: two forwards a layer; rank 0 (written) one ring part
+    want = {"ring": [2 * layers * steps, layers * steps, 0],
+            "ulysses": [2 * layers * steps, layers * steps, 0]}
+    for mode in ("ring", "ulysses"):
+        np.testing.assert_allclose(r[mode + "_losses"], r["ref_losses"],
+                                   rtol=1e-4, err_msg=mode)
+        assert list(r[mode + "_launches"]) == want[mode], mode
+        for name in [k[4:] for k in r if k.startswith("ref:")]:
+            got, ref = r["%s:%s" % (mode, name)], r["ref:" + name]
+            rel = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
+            assert rel <= 1e-4, (mode, name, rel)
+
+
+# ring attention: q, k, v cut into SP_PARTS parts of the sequence, as
+# ranks of an sp axis hold them: (b, s, h, d)
+SP_RING_SHAPE = (1, 1024, 4, 128)
+SP_PARTS = 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ring_parts_merged_by_lse(dtype):
+    """The ring's work on one card: K1 on each rank's own part (causal)
+    and on the earlier ones (full), merged by their lse in f32
+    (``sequence_parallel.merge_parts``), against the plain attention
+    over the whole sequence; K2 on every (rank, part) pair from the
+    MERGED out and lse, the gradients summed, against the plain
+    gradients."""
+    _need_hopper()
+    from paddle_tpu_torch.distributed.sequence_parallel import merge_parts
+
+    b, S, h, d = SP_RING_SHAPE
+    n = S // SP_PARTS
+    dt = getattr(torch, dtype)
+    q, k, v, do = _flash_inputs(b, S, S, h, d, dt, seed=11)
+    scale = d ** -0.5
+    want_out, want_lse = _ref_fwd(q, k, v, True, scale)
+    want = _ref_bwd(q, k, v, want_out, want_lse, do, True, scale)
+
+    def part(x, i):
+        return x[:, i * n:(i + 1) * n]
+
+    outs, lses = [], []
+    for r in range(SP_PARTS):
+        out = lse = None
+        for c in range(r + 1):
+            out, lse = merge_parts(out, lse, *fa.flash_fwd(
+                part(q, r), part(k, c), part(v, c), c == r, scale))
+        outs.append(out.to(dt))
+        lses.append(lse)
+    out, lse = torch.cat(outs, 1), torch.cat(lses, 2)
+    grads = [torch.zeros(b, S, h, d, device="cuda") for _ in range(3)]
+    before = fa.flash_bwd_fused.launches
+    for r in range(SP_PARTS):
+        rows = lse[..., r * n:(r + 1) * n].contiguous()
+        for c in range(r + 1):
+            dq, dk, dv = fa.flash_bwd(part(q, r), part(k, c), part(v, c),
+                                      part(out, r), rows, part(do, r),
+                                      c == r, scale)
+            part(grads[0], r).add_(dq)
+            part(grads[1], c).add_(dk)
+            part(grads[2], c).add_(dv)
+    torch.cuda.synchronize()
+    pairs = SP_PARTS * (SP_PARTS + 1) // 2
+    assert fa.flash_bwd_fused.launches == before + pairs
+    _assert_close(out, want_out, FLASH_TOL[dtype], "merged out")
+    _assert_lse_close(lse, want_lse)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        _assert_close(g, w, FLASH_TOL[dtype], "summed " + name)
+
+
+# gspmd on an sp axis: rank r's queries over the keys up to its own part
+# (bottom-right causal): (b, sq, sk, h)
+SP_GSPMD_SHAPES = {"r1_of_2": (1, 512, 1024, 4), "r3_of_4": (1, 256, 1024, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused", "split"])
+@pytest.mark.parametrize("shape", sorted(SP_GSPMD_SHAPES))
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_at_sq_lt_sk_of_an_sp_rank(d, shape, kernel):
+    """K1 and the backward at the gspmd mode's shape: the last sq queries
+    of a causal sequence over all sk keys, K2 (called directly) and K3
+    (the backward's route at sq < sk), against the plain versions, bf16,
+    the queries taken from the whole sequence's own rows."""
+    _need_hopper()
+    b, sq, sk, h = SP_GSPMD_SHAPES[shape]
+    q, k, v, do = _flash_inputs(b, sk, sk, h, d, torch.bfloat16, seed=d)
+    q, do = q[:, sk - sq:], do[:, sk - sq:]
+    scale = d ** -0.5
+    assert not fa.uses_fused_bwd(sq, sk, d)
+    out, lse = fa.flash_fwd(q, k, v, True, scale)
+    want_out, want_lse = _ref_fwd(q, k, v, True, scale)
+    _assert_close(out, want_out, FLASH_TOL["bfloat16"], "out")
+    _assert_lse_close(lse, want_lse)
+    fn = fa.flash_bwd_fused if kernel == "fused" else fa.flash_bwd_split
+    got = fn(q, k, v, want_out, want_lse, do, True, scale)
+    torch.cuda.synchronize()
+    want = _ref_bwd(q, k, v, want_out, want_lse, do, True, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_close(g, w, FLASH_TOL["bfloat16"], "%s %s" % (kernel, name))
 
 
 def test_kernel_wrappers_raise_on_cpu_tensors():

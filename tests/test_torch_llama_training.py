@@ -217,11 +217,13 @@ def test_train_steps_match_jax(kind):
 
 
 def test_unported_options_raise():
-    tm = LlamaForCausalLM(llama_tiny(sequence_parallel_mode="ring"),
-                          device="cpu")
-    ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError):
-        tm(ids)
+    # without an sp mesh the ring and ulysses modes are the gspmd model,
+    # as in the JAX package (its sp_attention returns None there)
+    ids = torch.arange(8, dtype=torch.long)[None]
+    logits = [LlamaForCausalLM(llama_tiny(sequence_parallel_mode=mode),
+                               device="cpu")(ids)
+              for mode in ("gspmd", "ring", "ulysses")]
+    assert all(torch.equal(x, logits[0]) for x in logits[1:])
     # KV caches are ported: the cached form runs
     tm = LlamaForCausalLM(llama_tiny(), device="cpu")
     logits, _ = tm(ids, caches=tm.init_caches(1))

@@ -132,47 +132,17 @@ def runs(tmp_path_factory):
     return res
 
 
-def _key_third(name, v):
-    """(the bias's key third, the rest) for GPT's qkv bias, else
-    (None, v)."""
-    if not name.endswith("attn.qkv_proj.bias"):
-        return None, v
-    h = v.shape[0] // 3
-    return v[h:2 * h], np.delete(v, np.s_[h:2 * h])
-
-
-def _assert_run_close(got, want, names):
-    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
-    for i, name in enumerate(names):
-        g_key, g = _key_third(name, got[name])
-        w_key, w = _key_third(name, want[name])
-        np.testing.assert_allclose(g, w, atol=5e-5, err_msg=name)
-        if g_key is not None:
-            np.testing.assert_allclose(g_key, w_key, atol=3 * W.LR,
-                                       err_msg=name + " (key third)")
-        gm, wm = _key_third(name, got["m:%d" % i])[1], \
-            _key_third(name, want["m:%d" % i])[1]
-        np.testing.assert_allclose(gm, wm, atol=2.0 ** -7 * np.abs(wm).max(),
-                                   err_msg="m of " + name)
-        for key in ("vr", "vc"):
-            w = want["%s:%d" % (key, i)]
-            if w.size:
-                np.testing.assert_allclose(
-                    got["%s:%d" % (key, i)], w, rtol=1e-4,
-                    atol=1e-6 * np.abs(w).max(), err_msg=key + " " + name)
-
-
 @pytest.mark.parametrize("mesh,kind", CASES)
 def test_mesh_step_matches_jax_on_the_same_mesh(runs, mesh, kind):
     got = runs["files"]["%s_%s" % (mesh, kind)]
     want = runs["jax"][(mesh, kind)]
-    _assert_run_close(got, want, list(runs["weights"][kind]))
+    W.assert_run_close(got, want, list(runs["weights"][kind]))
     assert got["losses"][-1] < got["losses"][0]
 
 
 @pytest.mark.parametrize("mesh,kind", CASES)
 def test_mesh_step_matches_one_process(runs, mesh, kind):
-    _assert_run_close(runs["files"]["%s_%s" % (mesh, kind)],
+    W.assert_run_close(runs["files"]["%s_%s" % (mesh, kind)],
                       runs["one"][kind], list(runs["weights"][kind]))
 
 
@@ -198,8 +168,8 @@ def test_gradient_merge_on_a_mesh(runs, kind):
     got = runs["files"]["accumulate_" + kind]
     np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
     for name, p in m.state_dict().items():
-        g = _key_third(name, got[name])[1]
-        w = _key_third(name, p.numpy())[1]
+        g = W.key_third(name, got[name])[1]
+        w = W.key_third(name, p.numpy())[1]
         np.testing.assert_allclose(g, w, atol=5e-5, err_msg=name)
 
 
@@ -280,8 +250,9 @@ def _mesh(shape, names):
 
 
 UNPORTED = {
-    "sp axis": lambda: (GPTForCausalLM(gpt_tiny(), device="cpu"),
-                        dict(mesh=_mesh((2, 2), ["dp", "sp"]))),
+    "fsdp over sp": lambda: (GPTForCausalLM(gpt_tiny(), device="cpu"),
+                             dict(mesh=_mesh((2, 2), ["dp", "sp"]),
+                                  fsdp_axis="sp")),
     "ep axis": lambda: (GPTForCausalLM(gpt_tiny(), device="cpu"),
                         dict(mesh=_mesh((2, 2), ["ep", "mp"]))),
     "pp x mp": lambda: (GPTForCausalLM(gpt_tiny(), device="cpu"),
