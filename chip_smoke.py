@@ -6,14 +6,16 @@ toolkit (``nvcc``)::
 
     python3 chip_smoke.py                 # every phase, on one card
     python3 chip_smoke.py --phases ring   # phases 1, 2 (ring.cu), 4d, 9b, 9c
-    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e, 9f
+    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e-9g
     python3 chip_smoke.py --phases sp     # phases 1, 2 (K1-K3, K7), 5b, 9f
+    python3 chip_smoke.py --phases pp     # phases 1, 2 (K1-K3), 9g
 
-Phases 9e (sharded training) and 9f (sequence parallelism) spawn one
-process a card, four at most, both in one spawn: their full-width runs
-need four cards (``--phases mesh`` or ``--phases sp`` on four cards runs
-them alone); on fewer they run their f32 checks only (on mp 2 / sp 2 on
-two or three cards, a one-rank mesh on one) and say so.
+Phases 9e (sharded training), 9f (sequence parallelism) and 9g (the
+fleet pipeline) spawn one process a card, four at most, all in one
+spawn: their full-width runs need four cards (``--phases mesh``, ``sp``
+or ``pp`` on four cards runs them alone; ``pp`` runs 9e's GPT-3 13B run
+first, 9g's yardstick); on fewer they run their f32 checks only (on mp 2
+/ sp 2 / pp 2 on two or three cards, one rank on one) and say so.
 
 The ring phases (4d, 9b, 9c) put rank r of a ring on card r % n (n
 cards) when every pair of ring neighbours has peer access, else every
@@ -272,12 +274,32 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    as in 9e, with each rank's median step, its device time outside NCCL
    over the profiled step, and the ranks' skew ((max - min) / max of
    it);
+9g. (in 9e's spawn, after 9f) the fleet hybrid-parallel leg: GPT-3 13B
+   as a fleet user builds it (``PipelineLayer`` of ``LayerDesc``s: the
+   vocabulary-parallel embedding and the position table, 40 Megatron
+   blocks of column / row-parallel layers with attention on the rank's
+   heads through K1 / K2, a head of column-parallel logits and
+   ``ParallelCrossEntropy``) on pp 2 x mp 2 through ``PipelineParallel``
+   (1F1B over NCCL p2p), bf16, ``recompute_interval`` 1, 8 x 2048 tokens
+   in 8 micro-batches, AdamW as 9e's (bf16 m, factored v) through
+   ``HybridParallelOptimizer`` with ``ClipGradByGlobalNorm(1.0)``, 4
+   steps, from 9e's GPT-3 13B weights (``convert.fleet_params``): its
+   first loss within MESH_LOSS_RTOL of 9e's first loss on the same
+   batch, each later one within MESH_LATER_LOSS_RTOL of 9e's; before
+   it, a 2-layer f32 copy at full width (3 steps, 4 x 512 tokens in 4
+   micro-batches) against the same modules on one rank (losses,
+   parameters, m, vr and vc by 9e's f32 bounds) and the interleaved
+   (VPP 2, 4 blocks) and zero-bubble schedules' gradients against
+   1F1B's within PP_GRAD_RTOL. Every rank's K1 / K2 launches must equal
+   ``pp_want``; printed: median step, tokens/s, MFU, peak memory, p2p
+   bytes a step, each rank's NCCL share and device time outside NCCL
+   (one profiled step each);
 9. one JSON line with the six training paths' numbers, one with the
    MoE numbers, one with the serving numbers, one with the decode
    numbers, one with the mesh numbers, one with the TP and pipeline
    numbers, then one listing every ported kernel with its numbers
-   (``--phases ring``: the last two only; ``--phases mesh`` / ``sp``:
-   one line with the mesh numbers, and with ``sp`` phase 5b's);
+   (``--phases ring``: the last two only; ``--phases mesh`` / ``sp`` /
+   ``pp``: one line with the mesh numbers, and with ``sp`` phase 5b's);
 10. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -5177,7 +5199,8 @@ def mesh_compare(step, ref, exact):
 
 def nccl_share(step, batch):
     """One more step a rank, each rank profiled in its own step while the
-    others run unprofiled, as rank 0 alone was profiled before (every
+    others run unprofiled (all of them waiting for its trace before the
+    next), as rank 0 alone was profiled before (every
     rank profiled in one step read Llama-2 7B dp 2 x mp 2's NCCL share
     69.65% where rank 0 alone read 22.25%): this rank's device time, its
     NCCL kernels' share of it and the rest (the rank's own work; None
@@ -5189,11 +5212,16 @@ def nccl_share(step, batch):
         if turn != dist.get_rank():
             step(*batch)
             torch.cuda.synchronize()
-            continue
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(*batch)
-            torch.cuda.synchronize()
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(*batch)
+                torch.cuda.synchronize()
+        # the next step starts once the profiled rank has collected its
+        # trace (seconds of host work): else its partners' collectives
+        # wait in the next rank's profiled step (9g's first four-card run
+        # read 69-80% NCCL on the mp ranks profiled after a partner)
+        dist.barrier()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -5332,32 +5360,47 @@ def mesh_worker(out, jobs):
     init_parallel_env(timeout=MESH_TIMEOUT_S)
     res, shared = {}, {}
     for job in jobs:
-        res[job["name"]] = mesh_job(job, shared)
+        # the last of these lines says where a rank stopped, should a
+        # collective wait past MESH_TIMEOUT_S and fail
+        t0 = time.perf_counter()
+        print("mesh rank %d: %s" % (dist.get_rank(), job["name"]),
+              flush=True)
+        res[job["name"]] = (pp_job if job.get("pp") else mesh_job)(
+            job, shared)
+        print("mesh rank %d: %s done in %.1f s" % (
+            dist.get_rank(), job["name"], time.perf_counter() - t0),
+            flush=True)
     if dist.get_rank() == 0:
         with open(out, "w") as f:
             json.dump(res, f)
 
 
-def mesh_phase(card, parts=("mesh", "sp")):
-    """Phases 9e ("mesh": :func:`mesh_jobs`) and 9f ("sp":
-    :func:`sp_jobs`) in one spawn of one rank a card (four at most), then
-    each run's readings checked and printed."""
+def mesh_phase(card, parts=("mesh", "sp", "pp")):
+    """Phases 9e ("mesh": :func:`mesh_jobs`), 9f ("sp": :func:`sp_jobs`)
+    and 9g ("pp": :func:`pp_jobs`, after 9e's GPT-3 13B run, its
+    yardstick, which runs alone where 9e does not) in one spawn of one
+    rank a card (four at most), then each run's readings checked and
+    printed."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
 
     cards = torch.cuda.device_count()
     ranks = mesh_ranks(cards)
-    jobs = (mesh_jobs(cards) if "mesh" in parts else []) + \
-        (sp_jobs(cards) if "sp" in parts else [])
+    jobs = (mesh_jobs(cards) if "mesh" in parts else
+            [j for j in mesh_jobs(cards) if j["name"] == "gpt3_13B"]
+            if "pp" in parts else []) + \
+        (sp_jobs(cards) if "sp" in parts else []) + \
+        (pp_jobs(cards) if "pp" in parts else [])
     if cards < 4:
         print("mesh: the full-width runs (9e: Llama-2 7B on dp 2 x mp 2, "
               "GPT-3 13B on mp 2 x dp 2, FSDP over dp; 9f: Llama-2 7B at "
-              "1 x %d tokens, ring on sp 4 and ulysses on sp 2 x mp 2) "
-              "need four cards; %d here: the 2-layer f32 checks only, on "
-              "%s [%s]" % (SP_SEQ, cards, sorted({str(j["mesh"])
-                                                  for j in jobs}), card),
-              flush=True)
+              "1 x %d tokens, ring on sp 4 and ulysses on sp 2 x mp 2; 9g: "
+              "GPT-3 13B on pp 2 x mp 2) need four cards; %d here: the "
+              "f32 checks only, on %s (9g: pp 2 on two cards, one rank on "
+              "one; NCCL refuses two ranks on one card) [%s]" % (
+                  SP_SEQ, cards, sorted({str(j["mesh"]) for j in jobs}),
+                  card), flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     fd, out = tempfile.mkstemp(suffix=".json")
@@ -5372,7 +5415,10 @@ def mesh_phase(card, parts=("mesh", "sp")):
     print("mesh: %d ranks, one a card, %.1f s in all [%s]"
           % (ranks, time.perf_counter() - t0, card), flush=True)
     for job in jobs:
-        mesh_check(job, res[job["name"]], card)
+        if job.get("pp"):
+            pp_check(job, res[job["name"]], card, res)
+        else:
+            mesh_check(job, res[job["name"]], card)
     return res
 
 
@@ -5448,6 +5494,595 @@ def mesh_check(job, r, card):
     else:
         check(losses[-1] < losses[0], "mesh %s: loss did not fall: %s"
               % (name, losses))
+
+
+# ------------------------------------------------------------ phase 9g
+# The fleet hybrid-parallel leg (BASELINE.md #4 on the north star's
+# model): GPT-3 13B as a fleet user builds it, a PipelineLayer of
+# LayerDescs (an embedding stage, 40 Megatron blocks of mp layers, a
+# head), on pp 2 x mp 2 through PipelineParallel's 1F1B over NCCL p2p,
+# bf16, recompute_interval 1, global batch 8 x 2048 in 8 micro-batches,
+# AdamW as 9e configures it through HybridParallelOptimizer (clip 1.0),
+# 4 steps; the weights are 9e's GPT-3 13B's (GPTForCausalLM from a
+# generator seeded 0), carried over by convert.fleet_params, the head
+# from the tied table. Its first loss is held to 9e's first loss on the
+# same weights and batch within MESH_LOSS_RTOL, each later one within
+# MESH_LATER_LOSS_RTOL of 9e's at that step (9e ties the head to the
+# table, the pipeline does not: they part a little after step 1).
+PP_PATH = ("GPTForCausalLM", "gpt3_13B", dict(recompute=True,
+                                              lm_ce_chunks=8))
+PP_MESH = dict(dp=1, pp=2, mp=2)
+PP_BATCH = (8, 2048)
+PP_ACCUMULATE = 8
+PP_EXACT_ACCUMULATE = 4         # micro-batches of 1 x 512
+PP_VPP_BLOCKS = 4
+PP_GRAD_RTOL = 1e-5
+PP_QKV_PARTS = {"attn.qkv_proj.weight": 3, "attn.qkv_proj.bias": 3}
+PP_SCHEDULES = ("1f1b", "interleave", "zb")
+
+
+class PPEmbed(torch.nn.Module):
+    """The embedding stage: the vocabulary-parallel table plus the
+    position table (replicated on the mp ranks)."""
+
+    def __init__(self, vocab, hidden, max_pos, dtype):
+        from paddle_tpu_torch.distributed.fleet import VocabParallelEmbedding
+
+        super().__init__()
+        self.wte = VocabParallelEmbedding(vocab, hidden, dtype=dtype)
+        self.wpe = torch.nn.Embedding(max_pos, hidden, device="cuda",
+                                      dtype=dtype)
+
+    def forward(self, ids):
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        return self.wte(ids) + self.wpe(pos)[None]
+
+
+class PPAttention(torch.nn.Module):
+    def __init__(self, hidden, heads, dtype):
+        from paddle_tpu_torch.distributed.fleet import (ColumnParallelLinear,
+                                                        RowParallelLinear)
+
+        super().__init__()
+        self.head_dim = hidden // heads
+        self.qkv_proj = ColumnParallelLinear(hidden, 3 * hidden,
+                                             has_bias=True,
+                                             gather_output=False, dtype=dtype)
+        self.out_proj = RowParallelLinear(hidden, hidden, has_bias=True,
+                                          input_is_parallel=True, dtype=dtype)
+
+    def forward(self, x):
+        from paddle_tpu_torch.incubate.nn.functional import \
+            scaled_dot_product_attention
+
+        b, s = x.shape[:2]
+        qkv = self.qkv_proj(x).reshape(b, s, 3, -1, self.head_dim)
+        out = scaled_dot_product_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                           qkv[:, :, 2], is_causal=True)
+        return self.out_proj(out.reshape(b, s, -1))
+
+
+class PPMLP(torch.nn.Module):
+    def __init__(self, hidden, ffn, dtype):
+        from paddle_tpu_torch.distributed.fleet import (ColumnParallelLinear,
+                                                        RowParallelLinear)
+
+        super().__init__()
+        self.fc1 = ColumnParallelLinear(hidden, ffn, has_bias=True,
+                                        gather_output=False, dtype=dtype)
+        self.fc2 = RowParallelLinear(ffn, hidden, has_bias=True,
+                                     input_is_parallel=True, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(torch.nn.functional.gelu(self.fc1(x),
+                                                 approximate="tanh"))
+
+
+class PPBlock(torch.nn.Module):
+    """A Megatron block: LayerNorm, column-parallel qkv, attention on the
+    rank's heads (the port's SDPA: K1, K2 in the backward), row-parallel
+    out, LayerNorm, column-parallel fc1, gelu, row-parallel fc2; the
+    parameter names are GPTBlock's."""
+
+    def __init__(self, hidden, heads, ffn, eps, dtype):
+        super().__init__()
+        kw = dict(device="cuda", dtype=dtype)
+        self.ln_1 = torch.nn.LayerNorm(hidden, eps, **kw)
+        self.attn = PPAttention(hidden, heads, dtype)
+        self.ln_2 = torch.nn.LayerNorm(hidden, eps, **kw)
+        self.mlp = PPMLP(hidden, ffn, dtype)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
+
+class PPHead(torch.nn.Module):
+    """The final LayerNorm and the column-parallel logits; the loss is
+    :func:`pp_loss_fn` (ParallelCrossEntropy)."""
+
+    def __init__(self, hidden, vocab, eps, dtype):
+        from paddle_tpu_torch.distributed.fleet import ColumnParallelLinear
+
+        super().__init__()
+        self.ln_f = torch.nn.LayerNorm(hidden, eps, device="cuda",
+                                       dtype=dtype)
+        self.proj = ColumnParallelLinear(hidden, vocab, has_bias=False,
+                                         gather_output=False, dtype=dtype)
+
+    def forward(self, x):
+        return self.proj(self.ln_f(x))
+
+
+def pp_loss_fn():
+    """The loss of the head's logits: ParallelCrossEntropy's mean. The
+    layer takes the fleet's mp group when it is made: make it where the
+    stages are made."""
+    from paddle_tpu_torch.distributed.fleet import ParallelCrossEntropy
+
+    ce = ParallelCrossEntropy()
+    return lambda logits, labels: ce(logits, labels).mean()
+
+
+def pp_descs(cfg, dtype):
+    from paddle_tpu_torch.distributed.fleet import LayerDesc
+
+    h, eps = cfg.hidden_size, cfg.layer_norm_eps
+    return ([LayerDesc(PPEmbed, cfg.vocab_size, h,
+                       cfg.max_position_embeddings, dtype)]
+            + [LayerDesc(PPBlock, h, cfg.num_heads, cfg.intermediate_size,
+                         eps, dtype) for _ in range(cfg.num_layers)]
+            + [LayerDesc(PPHead, h, cfg.vocab_size, eps, dtype)])
+
+
+def pp_state_from_gpt(gpt):
+    """GPTForCausalLM's parameters keyed as the pipeline's layers
+    (``run_function.{i}.{name}``, i in the whole model; views, no copy):
+    the tables into the embedding stage, block l into layer l + 1, the
+    final norm and the tied table's transpose into the head."""
+    sd = dict(gpt.named_parameters())
+    L = gpt.config.num_layers
+    out = {"run_function.0.wte.weight": sd["gpt.wte.weight"],
+           "run_function.0.wpe.weight": sd["gpt.wpe.weight"],
+           "run_function.%d.ln_f.weight" % (L + 1): sd["gpt.ln_f.weight"],
+           "run_function.%d.ln_f.bias" % (L + 1): sd["gpt.ln_f.bias"],
+           "run_function.%d.proj.weight" % (L + 1): sd["gpt.wte.weight"].t()}
+    for name, p in sd.items():
+        if name.startswith("gpt.h."):
+            layer, rest = name[len("gpt.h."):].split(".", 1)
+            out["run_function.%d.%s" % (int(layer) + 1, rest)] = p
+    return {k: v.detach() for k, v in out.items()}
+
+
+def pp_jobs(cards):
+    """Phase 9g's runs for ``cards`` cards. Four or more: the 2-layer f32
+    copy at full width on pp 2 x mp 2 against the same modules on one
+    rank, the schedules' gradients on a 4-block copy, then GPT-3 13B;
+    two or three: the same checks on pp 2 (mp 1); one: on one rank (pp
+    1: the 1F1B engine without p2p; zero-bubble against 1F1B; VPP needs
+    two stages)."""
+    if cards >= 4:
+        mesh = PP_MESH
+    elif cards >= 2:
+        mesh = dict(dp=1, pp=2, mp=1)
+    else:
+        mesh = dict(dp=1, pp=1, mp=1)
+    schedules = PP_SCHEDULES if mesh["pp"] > 1 else ("1f1b", "zb")
+    jobs = [dict(name="gpt3_13B_pp_f32_2layer", pp=True, kind="exact",
+                 model=PP_PATH, layers=2, exact=True, mesh=mesh,
+                 batch=MESH_EXACT_BATCH, steps=MESH_EXACT_STEPS,
+                 accumulate=PP_EXACT_ACCUMULATE),
+            dict(name="gpt3_13B_pp_schedules_f32", pp=True,
+                 kind="schedules", model=PP_PATH, layers=PP_VPP_BLOCKS,
+                 exact=True, mesh=mesh, batch=MESH_EXACT_BATCH, steps=1,
+                 accumulate=PP_EXACT_ACCUMULATE, schedules=schedules)]
+    if cards >= 4:
+        jobs.append(dict(name="gpt3_13B_pp", pp=True, kind="full",
+                         model=PP_PATH, layers=None, exact=False,
+                         mesh=PP_MESH, batch=PP_BATCH, steps=MESH_STEPS,
+                         accumulate=PP_ACCUMULATE))
+    return jobs
+
+
+def pp_strategy(job):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    m = job["mesh"]
+    s.hybrid_configs = {"dp_degree": m["dp"], "mp_degree": m["mp"],
+                        "pp_degree": m["pp"]}
+    s.pipeline_configs = {"accumulate_steps": job["accumulate"]}
+    return s
+
+
+def pp_optimizer(job, params):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    return AdamW(learning_rate=MESH_LR, weight_decay=0.01,
+                 moment_dtype="float32" if job["exact"] else "bfloat16",
+                 factored_v=True, parameters=params,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def pp_build(job, state, schedule="1f1b", one_rank=False):
+    """The job's pipeline on this rank from the whole ``state``: (the
+    PipelineLayer, its engine or None with ``one_rank``). ``one_rank``
+    builds every layer with no group (the fleet's group set aside), the
+    reference of the exact checks."""
+    from paddle_tpu_torch.convert import fleet_params
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import (
+        PipelineLayer, PipelineParallel, PipelineParallelWithInterleave,
+        PipelineParallelZeroBubble)
+    from paddle_tpu_torch.distributed.fleet import fleet as fleet_mod
+
+    cfg = mesh_config(job)
+    dtype = torch.float32 if job["exact"] else torch.bfloat16
+    hcg = fleet.get_hybrid_communicate_group()
+    if one_rank:
+        fleet_mod._hcg = None
+    try:
+        pipe = PipelineLayer(
+            pp_descs(cfg, dtype), loss_fn=pp_loss_fn(), recompute_interval=1,
+            num_stages=1 if one_rank else None,
+            num_virtual_pipeline_stages=2 if schedule == "interleave"
+            else None)
+    finally:
+        fleet_mod._hcg = hcg
+    pipe.load_state_dict(fleet_params(state, pipe, PP_QKV_PARTS))
+    if one_rank:
+        return pipe, None
+    cls = {"1f1b": PipelineParallel,
+           "interleave": PipelineParallelWithInterleave,
+           "zb": PipelineParallelZeroBubble}[schedule]
+    return pipe, cls(pipe, hcg, pp_strategy(job))
+
+
+def pp_whole_state(job):
+    """The job's GPT weights (9e's model: GPTForCausalLM from a generator
+    seeded 0), keyed as the pipeline's layers, on this rank's card."""
+    gpt = mesh_model(job)
+    return gpt, pp_state_from_gpt(gpt)
+
+
+
+
+def pp_names(pipe):
+    """The whole model's key of each of ``pipe``'s parameters, in
+    ``parameters()`` order."""
+    return ["run_function.%d.%s" % (i, name)
+            for j, i in enumerate(pipe.layer_indices)
+            for name, _ in pipe.run_function[j].named_parameters()]
+
+
+def pp_piece(full, p, key, what, hcg):
+    """This rank's piece of ``full``: the one-rank tensor of parameter
+    ``p`` (``what`` "p"), of its m or dense v (the same), or of its
+    factored ``vr`` (rows) / ``vc`` (the other dims)."""
+    from paddle_tpu_torch.distributed.fleet.mp_layers import is_distributed
+    from paddle_tpu_torch.distributed.sharding import _take
+
+    if not is_distributed(p):
+        return full
+    axis, parts = p.split_axis, PP_QKV_PARTS.get(key.split(".", 2)[2], 1)
+    if what in ("vr", "vc"):
+        if (axis == 0) != (what == "vr"):
+            return full             # the whole rows' / columns' statistics
+        axis = 0
+    return _take(full, axis, hcg.get_model_parallel_world_size(), parts,
+                 hcg.get_model_parallel_rank())
+
+
+def pp_one_rank(job, state, batches):
+    """The same modules with no group on this rank, driven by a plain
+    loop (each micro-batch's loss over their count, gradients into f32
+    main_grad, clip 1.0, AdamW): (losses, {key: parameter}, {(state key,
+    key): entry})."""
+    pipe, _ = pp_build(job, state, one_rank=True)
+    params = list(pipe.parameters())
+    opt = pp_optimizer(job, params)
+    k = job["accumulate"]
+    losses = []
+    for ids, labels in batches:
+        total = 0.0
+        for x, y in zip(torch.as_tensor(ids).cuda().chunk(k),
+                        torch.as_tensor(labels).cuda().chunk(k)):
+            loss = pipe._loss_fn(pipe(x), y) / k
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    if getattr(p, "main_grad", None) is None:
+                        p.main_grad = g.float().clone()
+                    else:
+                        p.main_grad.add_(g)
+            total += loss.item()
+        opt.step()
+        opt.clear_grad()
+        losses.append(total)
+    names = pp_names(pipe)
+    return (losses, dict(zip(names, (p.detach() for p in params))),
+            {(key, names[i]): e for key in ("m", "v", "vr", "vc")
+             for i, e in enumerate(opt._state[key]) if e.numel()})
+
+
+def pp_exact_compare(pipe, opt, ref, hcg):
+    """This rank's parameters, m, v, vr and vc against the pieces of the
+    one-rank run's: the largest relative L2 of a tensor (biases apart)
+    and the qkv bias's key third's largest difference."""
+    _, ref_params, ref_state = ref
+    names = pp_names(pipe)
+    out = dict(worst=0.0, worst_name=None, worst_bias=0.0,
+               worst_bias_name=None, key_bias=0.0)
+    pairs = []
+    for i, p in enumerate(pipe.parameters()):
+        pairs.append((names[i], names[i], p, "p", p.detach()))
+        for key in ("m", "v", "vr", "vc"):
+            e = opt._state[key][i]
+            if e.numel():
+                pairs.append(("%s of %s" % (key, names[i]), names[i], p, key,
+                              e))
+    for what, name, p, key, got in pairs:
+        want = pp_piece(ref_params[name] if key == "p" else
+                        ref_state[(key, name)], p, name, key, hcg)
+        if what.endswith("attn.qkv_proj.bias"):
+            h = got.shape[0] // 3
+            out["key_bias"] = max(out["key_bias"], float(
+                (got[h:2 * h] - want[h:2 * h]).abs().max()))
+            got = torch.cat([got[:h], got[2 * h:]])
+            want = torch.cat([want[:h], want[2 * h:]])
+        rel = _rel(got, want)
+        kind = "worst_bias" if name.endswith(".bias") else "worst"
+        if rel > out[kind]:
+            out[kind], out[kind + "_name"] = rel, what
+    return out
+
+
+def pp_schedule_grads(job, state, batch, schedule, hcg):
+    """One pass of ``schedule`` over the batch's micro-batches: this
+    rank's gradients (main_grad) by whole-model key."""
+    pipe, model = pp_build(job, state, schedule)
+    model.forward_backward_pipeline(batch)
+    grads = {name: p.main_grad for name, p in
+             zip(pp_names(pipe), pipe.parameters())}
+    del pipe, model
+    return grads
+
+
+def pp_grad_rel(grads, base, hcg):
+    """Each whole-model key's gradient against the base schedule's, the
+    stages holding them apart: over the pipeline group, the sum of (base
+    - this) and of base, each rank adding the pieces it holds (its mp
+    rank's). Returns the largest relative L2 and its key."""
+    import torch.distributed as dist
+
+    shapes = [None] * dist.get_world_size()
+    dist.all_gather_object(shapes, {k: tuple(g.shape)
+                                    for k, g in base.items()})
+    keys = sorted({(k, s) for d in shapes for k, s in d.items()})
+    group = hcg.get_pipe_parallel_group()
+    worst, worst_key = 0.0, None
+    for key, shape in keys:
+        diff = torch.zeros(shape, device="cuda")
+        ref = torch.zeros(shape, device="cuda")
+        if key in base and tuple(base[key].shape) == shape:
+            diff += base[key]
+            ref += base[key]
+        if key in grads and tuple(grads[key].shape) == shape:
+            diff -= grads[key]
+        if group is not None:
+            dist.all_reduce(diff, group=group)
+            dist.all_reduce(ref, group=group)
+        rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_key = rel, key
+    return worst, worst_key
+
+
+def pp_want(pipe, job):
+    """The K1 / K2 / K3 launches the job's steps must make on this
+    rank: every block of its stage, under recompute_interval 1, runs K1
+    twice a micro-batch (the forward and its recompute) and K2 (or K3 by
+    the route) once."""
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+
+    blocks = sum(isinstance(m, PPBlock) for m in pipe.run_function)
+    s = job["batch"][1]
+    n = job["steps"] * job["accumulate"] * blocks
+    fused = fa.uses_fused_bwd(s, s, mesh_config(job).head_dim)
+    want = {k: 0 for k in training_kernels()}
+    want.update({"K1": 2 * n, "K2": n if fused else 0,
+                 "K3": 0 if fused else n})
+    return want
+
+
+def pp_job(job, shared):
+    """One 9g run on every rank (see :func:`pp_jobs`); returns every
+    rank's readings on rank 0."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import fleet
+
+    rank = dist.get_rank()
+    fleet.init(is_collective=True, strategy=pp_strategy(job))
+    hcg = fleet.get_hybrid_communicate_group()
+    batches = mesh_batches(job)
+    t0 = time.perf_counter()
+    gpt, state = pp_whole_state(job)
+    n_params = sum(t.numel() for t in state.values())
+    mine = dict(rank=rank, stage=hcg.get_stage_id(),
+                mp_rank=hcg.get_model_parallel_rank(),
+                device=torch.cuda.current_device())
+    if job["kind"] == "schedules":
+        ids, labels = batches[0]
+        grads = {s: pp_schedule_grads(job, state, (ids, labels), s, hcg)
+                 for s in job["schedules"]}
+        del gpt, state
+        mine["grad_rel"] = {s: pp_grad_rel(grads[s], grads["1f1b"], hcg)
+                            for s in job["schedules"] if s != "1f1b"}
+        del grads
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, mine)
+        torch.cuda.empty_cache()
+        return None if rank else dict(
+            mesh=job["mesh"], cards=dist.get_world_size(), ranks=ranks,
+            layers=job["layers"], schedules=list(job["schedules"]),
+            batch=list(job["batch"]), accumulate=job["accumulate"],
+            exact=True)
+    pipe, model = pp_build(job, state)
+    opt = fleet.distributed_optimizer(pp_optimizer(job,
+                                                   list(pipe.parameters())))
+    ref = pp_one_rank(job, state, batches) if job["kind"] == "exact" \
+        else None
+    del gpt, state
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    read = zero_counts()
+    sent = model.p2p_bytes
+    losses, secs = [], []
+    for ids, labels in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = model.train_batch((ids, labels), opt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(None if loss is None else loss.item())
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    mine.update(launches=launches, want=pp_want(pipe, job),
+                peak_gb=peak / 1e9,
+                p2p_bytes_step=(model.p2p_bytes - sent) / len(batches),
+                losses=losses if losses[0] is not None else None)
+    tail = secs[1:] or secs
+    mine["median_step_ms"] = 1e3 * statistics.median(tail)
+    if ref is not None:
+        mine["compare"] = pp_exact_compare(pipe, opt, ref, hcg)
+        mine["reference_losses"] = ref[0]
+        del ref
+    mine["profile"] = nccl_share(
+        lambda: model.train_batch(batches[-1], opt), ()) \
+        if job["kind"] == "full" else None
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    del pipe, model, opt
+    torch.cuda.empty_cache()
+    if rank:
+        return None
+    cfg = mesh_config(job)
+    b, s = job["batch"]
+    cards = dist.get_world_size()
+    tokens_s = b * s * len(tail) / sum(tail)
+    flops = 6 * n_params + 6 * cfg.num_layers * cfg.hidden_size * s
+    last = next(rk for rk in ranks if rk["losses"] is not None)
+    work = [rk["profile"]["compute_ms"] for rk in ranks if rk["profile"]]
+    return dict(
+        mesh=job["mesh"], cards=cards, batch=[b, s], layers=cfg.num_layers,
+        accumulate=job["accumulate"],
+        dtype="float32" if job["exact"] else "bfloat16",
+        losses=last["losses"], reference_losses=last.get(
+            "reference_losses"), step_ms=[1e3 * x for x in secs],
+        median_step_ms=1e3 * statistics.median(tail), tokens_s=tokens_s,
+        params=n_params, flops_per_token=flops,
+        mfu=tokens_s * flops / (BF16_FLOPS_PER_S * cards), setup_s=setup_s,
+        ranks=ranks, nccl=ranks[0]["profile"],
+        skew=(max(work) - min(work)) / max(work)
+        if work and len(work) == len(ranks) and max(work) > 0 else None,
+        exact=job["exact"])
+
+
+def pp_check(job, r, card, res):
+    """One 9g run's printed readings, then its checks (the full run's
+    against 9e's GPT-3 13B run in ``res``)."""
+    name = job["name"]
+    if job["kind"] == "schedules":
+        worst = {s: max(rk["grad_rel"][s][0] for rk in r["ranks"])
+                 for s in r["ranks"][0]["grad_rel"]}
+        print("pp %s: %s, %d blocks f32, %d x %d tokens in %d micro-batches,"
+              " one pass of each schedule: gradients against 1F1B's, the "
+              "largest relative L2 of a tensor %s%s [%s]" % (
+                  name, r["mesh"], r["layers"], r["batch"][0],
+                  r["batch"][1], r["accumulate"],
+                  {s: "%.3g (%s)" % (w, max(
+                      (rk["grad_rel"][s] for rk in r["ranks"]),
+                      key=lambda x: x[0])[1]) for s, w in worst.items()},
+                  "" if "interleave" in r["schedules"] else
+                  "; the interleaved schedule needs two stages (one card)",
+                  card), flush=True)
+        for s, w in worst.items():
+            check(w <= PP_GRAD_RTOL, "pp %s: %s's gradients %.3g from "
+                  "1F1B's (bound %g)" % (name, s, w, PP_GRAD_RTOL))
+        return
+    losses, ref = r["losses"], r["reference_losses"]
+    yard = res.get("gpt3_13B") if job["kind"] == "full" else None
+    if yard is not None:
+        ref = yard["losses"]
+    loss_rel = None if ref is None else [abs(a - b) / abs(b)
+                                         for a, b in zip(losses, ref)]
+    r["loss_rel"] = loss_rel
+    print("pp %s: %s, %d layers %s, %d x %d tokens in %d micro-batches, %d "
+          "steps; losses %s%s; %.1f tokens/s, median step %.2f ms, MFU %.4f"
+          " (tokens/s x (6N + 6 L h s) / (989 TFLOP/s x %d cards), N = %d), "
+          "setup %.1f s; peak memory %s GB; p2p bytes a step %s; each "
+          "rank's launches %s, median step %s ms and device time outside "
+          "NCCL %s ms (skew %s); NCCL share of each rank's device time %s "
+          "[%s]" % (
+              name, r["mesh"], r["layers"], r["dtype"], r["batch"][0],
+              r["batch"][1], r["accumulate"], len(losses),
+              ["%.5f" % x for x in losses],
+              "" if ref is None else ", %s %s (relative differences %s)" % (
+                  "9e's GPT-3 13B mp 2 x dp 2" if yard is not None else
+                  "one rank", ["%.5f" % x for x in ref],
+                  ["%.3g" % x for x in loss_rel]),
+              r["tokens_s"], r["median_step_ms"], r["mfu"], r["cards"],
+              r["params"], r["setup_s"],
+              ["%.2f" % rk["peak_gb"] for rk in r["ranks"]],
+              ["%d" % rk["p2p_bytes_step"] for rk in r["ranks"]],
+              [{k: n for k, n in rk["launches"].items() if n}
+               for rk in r["ranks"]],
+              ["%.2f" % rk["median_step_ms"] for rk in r["ranks"]],
+              ["not measured" if rk["profile"] is None else "%.2f"
+               % rk["profile"]["compute_ms"] for rk in r["ranks"]],
+              "not measured" if r["skew"] is None else "%.4f" % r["skew"],
+              "not profiled" if job["kind"] != "full" else
+              ["not measured" if rk["profile"] is None else
+               "%.4f (%.2f of %.2f ms)" % (rk["profile"]["share"],
+                                           rk["profile"]["nccl_ms"],
+                                           rk["profile"]["busy_ms"])
+               for rk in r["ranks"]], card), flush=True)
+    check(all(np.isfinite(losses)), "pp %s: losses %s" % (name, losses))
+    for rk in r["ranks"]:
+        got = rk["launches"]
+        check(got == rk["want"] and got["K1"] > 0
+              and got["K2"] + got["K3"] > 0,
+              "pp %s: rank %d launched %s, want %s"
+              % (name, rk["rank"], got, rk["want"]))
+    if job["kind"] == "exact":
+        c = {k: max(rk["compare"][k] for rk in r["ranks"])
+             for k in ("worst", "worst_bias", "key_bias")}
+        names = {k: max(r["ranks"], key=lambda rk: rk["compare"][k])[
+            "compare"][k + "_name"] for k in ("worst", "worst_bias")}
+        print("pp %s: against one rank: largest relative L2 a tensor %.3g "
+              "(%s), a bias %.3g (%s); qkv key-bias third %.3g [%s]" % (
+                  name, c["worst"], names["worst"], c["worst_bias"],
+                  names["worst_bias"], c["key_bias"], card), flush=True)
+        check(max(loss_rel) <= MESH_EXACT_RTOL
+              and c["worst"] <= MESH_EXACT_RTOL
+              and c["worst_bias"] <= MESH_BIAS_RTOL
+              and c["key_bias"] <= 3 * MESH_LR,
+              "pp %s: against one rank beyond the bounds %g (losses, "
+              "tensors), %g (biases), %g (key third)"
+              % (name, MESH_EXACT_RTOL, MESH_BIAS_RTOL, 3 * MESH_LR))
+        return
+    check(losses[-1] < losses[0], "pp %s: loss did not fall: %s"
+          % (name, losses))
+    check(yard is not None, "pp %s: 9e's GPT-3 13B run is missing" % name)
+    later = max(loss_rel[1:] or [0.0])
+    check(loss_rel[0] <= MESH_LOSS_RTOL and later <= MESH_LATER_LOSS_RTOL,
+          "pp %s: against 9e's GPT-3 13B, first loss %.3g (bound %g), later "
+          "losses %.3g (bound %g)" % (name, loss_rel[0], MESH_LOSS_RTOL,
+                                      later, MESH_LATER_LOSS_RTOL))
 
 
 def main_path_phases(card, stamp):
@@ -5709,6 +6344,8 @@ def mesh_rows(kernels, mesh):
             continue
         paths = row.setdefault("launches_by_path", {})
         for name, r in mesh.items():
+            if "launches" not in r["ranks"][0]:
+                continue        # 9g's schedule check counts nothing
             counts = [rk["launches"][key] for rk in r["ranks"]]
             if key != "K7 rms_norm" or "llama" in name:
                 if len(set(counts)) == 1:
@@ -5727,11 +6364,14 @@ def mesh_rows(kernels, mesh):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phases", choices=("all", "ring", "mesh", "sp"), default="all",
+        "--phases", choices=("all", "ring", "mesh", "sp", "pp"),
+        default="all",
         help="all: every phase (the default); ring: only the card, the "
              "ring kernels' build and phases 4d, 9b and 9c; mesh: only the "
-             "card, K1-K3's and K7's build and phases 9e and 9f; sp: only "
-             "the card, K1-K3's and K7's build, phase 5b and phase 9f")
+             "card, K1-K3's and K7's build and phases 9e, 9f and 9g; sp: "
+             "only the card, K1-K3's and K7's build, phase 5b and phase "
+             "9f; pp: only the card, K1-K3's build and phase 9g (after "
+             "9e's GPT-3 13B run, its yardstick, on four cards)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -5756,7 +6396,8 @@ def main(argv=None):
 
     sources = {"all": _build.SOURCES, "ring": ("ring",),
                "mesh": ("flash_attn", "norms"),
-               "sp": ("flash_attn", "norms")}[args.phases]
+               "sp": ("flash_attn", "norms"),
+               "pp": ("flash_attn",)}[args.phases]
     secs = _build.build_all(sources)
     print("build: %s in %.2f s" % (", ".join(sources), secs))
     for name in sources:
@@ -5767,14 +6408,15 @@ def main(argv=None):
                 print("ptxas %s: %s" % (name, line.strip()))
     sys.stdout.flush()
 
-    if args.phases in ("mesh", "sp"):
+    if args.phases in ("mesh", "sp", "pp"):
         out = {}
         if args.phases == "sp":
             out["sp_kernels"] = sp_kernel_phase(card)
             torch.cuda.empty_cache()
             stamp("the sp kernel phase")
-        out["mesh"] = mesh_phase(card, ("mesh", "sp") if args.phases ==
-                                 "mesh" else ("sp",))
+        out["mesh"] = mesh_phase(card, {"mesh": ("mesh", "sp", "pp"),
+                                        "sp": ("sp",),
+                                        "pp": ("pp",)}[args.phases])
         stamp("the mesh paths")
         print(json.dumps(out))
     else:

@@ -15,17 +15,25 @@ parameter carrying its ``dist_layout``) :func:`shard_params` and
 into full numpy arrays (collectives: every rank calls them). The
 optimizer state's pieces follow their parameter's: ``m`` and a full
 ``v`` its layout, a factored ``vr`` the rows' and ``vc`` the columns'.
+
+A fleet pipeline (``distributed.fleet.PipelineLayer`` of the Megatron
+layers, built on every rank for its stage and mp rank) takes its pieces
+from :func:`fleet_params`: the full matrices keyed as the same
+``PipelineLayer`` built on one process keys them (``run_function.{i}.
+{name}``, ``i`` the layer's index in the whole model, the key of the JAX
+package's ``state_dict`` of it), cut to the layers of this rank's stage
+and to its mp rank's piece of every mp-split parameter.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 __all__ = ["params_from_paddle_tpu", "opt_state_from_paddle_tpu",
            "shard_params", "gather_params", "shard_opt_state",
-           "gather_opt_state", "state_layout"]
+           "gather_opt_state", "state_layout", "fleet_params"]
 
 
 def _tensor(arr: Any) -> torch.Tensor:
@@ -134,3 +142,51 @@ def gather_opt_state(step) -> Dict[str, Any]:
             lay = state_layout(key, p, e)
             out[key].append(_numpy(e if lay is None else lay.gather(e)))
     return out
+
+
+def fleet_params(state: Mapping[str, Any], model,
+                 parts: Optional[Mapping[str, int]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """This rank's pieces of a fleet ``PipelineLayer`` ``model`` (or a
+    fleet wrapper of one) from ``state``, full arrays (numpy, or
+    tensors on any device) keyed ``run_function.{i}.{name}`` with ``i``
+    the layer's index in the whole model. Returns ``model.state_dict()``'s
+    keys (``run_function.{j}.{name}``, ``j`` the local index), each the
+    piece of its parameter: an mp-split one (``is_distributed``) its mp
+    rank's part of dim ``split_axis``, the rest whole. ``parts`` names
+    the layer-local parameters whose split dim holds equal parts, each
+    split on its own (``{"qkv.weight": 3, "qkv.bias": 3}``: a fused
+    ``[q | k | v]`` column-parallel projection, so that a rank holds
+    whole heads of each). Where ``state`` holds tensors, the pieces are
+    views of them (``load_state_dict`` copies)."""
+    from .distributed.fleet.mp_layers import is_distributed
+    from .distributed.sharding import _take
+
+    layers = getattr(model, "_layers", model)
+    parts = parts or {}
+    out = {}
+    for j, i in enumerate(layers.layer_indices):
+        layer = layers.run_function[j]
+        for name, p in layer.named_parameters():
+            full = state["run_function.%d.%s" % (i, name)]
+            if not isinstance(full, torch.Tensor):
+                full = _tensor(full)
+            if is_distributed(p):
+                n = full.shape[p.split_axis] // p.shape[p.split_axis]
+                k = parts.get(name, 1)
+                full = _take(full, p.split_axis, n, k, _mp_rank(layer, p))
+            if tuple(full.shape) != tuple(p.shape):
+                raise ValueError("run_function.%d.%s: a piece of %s for a "
+                                 "parameter of %s" % (i, name,
+                                                      tuple(full.shape),
+                                                      tuple(p.shape)))
+            out["run_function.%d.%s" % (j, name)] = full
+    return out
+
+
+def _mp_rank(layer, p) -> int:
+    """The mp rank of the module of ``layer`` that holds ``p``."""
+    for mod in layer.modules():
+        if any(q is p for q in mod.parameters(recurse=False)):
+            return mod.rank
+    raise ValueError("no module of %r holds the parameter" % (layer,))

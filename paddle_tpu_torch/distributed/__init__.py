@@ -3,9 +3,11 @@ primitives (``fusion/overlap_mm.py``) and the compiled pipeline
 (:mod:`.pipeline`) run over in one process, and the multi-process
 runtime of sharded training: :func:`spawn`, :func:`init_parallel_env`,
 the collectives, :class:`ProcessMesh` and the semi-auto surface
-(:mod:`.auto_parallel`), the sharded layouts (:mod:`.sharding`) and
-sequence-parallel attention (:mod:`.sequence_parallel`)."""
-from . import collective, sequence_parallel, sharding
+(:mod:`.auto_parallel`), the sharded layouts (:mod:`.sharding`),
+sequence-parallel attention (:mod:`.sequence_parallel`) and the eager
+hybrid-parallel API of :mod:`.fleet` (the Megatron layers and the
+pipeline engine)."""
+from . import collective, fleet, sequence_parallel, sharding
 from .auto_parallel import (Partial, ProcessMesh, Replicate, Shard,
                             dtensor_from_local, get_mesh, local_value,
                             reshard, set_mesh, shard_tensor,
@@ -24,4 +26,4 @@ __all__ = ["Ring", "spawn", "init_parallel_env", "get_rank",
            "ProcessMesh", "get_mesh", "set_mesh", "Shard", "Replicate",
            "Partial", "shard_tensor", "dtensor_from_local", "reshard",
            "unshard_dtensor", "local_value", "collective", "sharding",
-           "sequence_parallel"]
+           "sequence_parallel", "fleet"]

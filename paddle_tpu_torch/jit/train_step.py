@@ -179,7 +179,9 @@ class ChunkPrefetcher:
 _MESH_AXES = ("dp", "sp", "mp")
 _UNPORTED_AXES = {
     "ep": "the expert-parallel axis",
-    "pp": "pipeline x tensor-parallel hybrids"}
+    "pp": "a pp axis (pipeline parallelism runs through paddle_tpu_torch."
+          "distributed.fleet.meta_parallel.PipelineParallel, as in the JAX "
+          "package; the compiled pipeline bridges)"}
 
 
 def _unported(what: str):

@@ -50,6 +50,17 @@ it, ``set_lr`` then raises, as in the JAX ``Optimizer``.
 :class:`SGD` is the JAX ``SGD.init_state`` / ``update`` that the compiled
 pipeline drives: no state, ``p - lr * (g + weight_decay * p)``, returning
 new tensors as the JAX version returns new arrays.
+
+Both also carry the JAX eager surface that the fleet path drives
+(``AdamW(..., parameters=model.parameters(), grad_clip=clip)``,
+``step()``, ``clear_grad()``), built on the same ``init_state`` /
+``update``: ``step`` reads each parameter's gradient (:func:`grad_of`:
+the f32 ``main_grad`` the fleet pipeline accumulates, else ``.grad``),
+clips the pairs with ``grad_clip``, makes the state on the first step
+and updates the parameters that have a gradient in place. ``_shards``
+(None, or one ``(row_group, col_group)`` a parameter, which
+``HybridParallelOptimizer`` sets for the model-parallel pieces) goes to
+``AdamW.update`` as its ``shards``.
 """
 from __future__ import annotations
 
@@ -61,7 +72,7 @@ import torch.distributed as dist
 
 from .lr import LRScheduler
 
-__all__ = ["AdamW", "SGD"]
+__all__ = ["AdamW", "SGD", "grad_of"]
 
 State = Dict[str, Union[List[torch.Tensor], torch.Tensor]]
 
@@ -144,7 +155,50 @@ class _LearningRate:
         self._learning_rate = float(value)
 
 
-class AdamW(_LearningRate):
+def grad_of(p: torch.Tensor) -> Optional[torch.Tensor]:
+    """The gradient an eager step reads: ``p.main_grad`` (the f32
+    accumulator of the fleet pipeline) when set, else ``p.grad``."""
+    g = getattr(p, "main_grad", None)
+    return g if g is not None else p.grad
+
+
+class _Eager:
+    """The eager ``step`` / ``clear_grad`` over ``parameters``."""
+
+    def _init_eager(self, parameters, grad_clip) -> None:
+        self._parameter_list = None if parameters is None else \
+            list(parameters)
+        self._grad_clip = grad_clip
+        self._state: Optional[State] = None
+        self._shards = None
+
+    def step(self) -> None:
+        """One update of the parameters that have a gradient."""
+        params = self._parameter_list
+        if params is None:
+            raise ValueError("optimizer constructed without parameters")
+        idx = [i for i, p in enumerate(params)
+               if p.requires_grad and grad_of(p) is not None]
+        pairs = [(params[i], grad_of(params[i])) for i in idx]
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(pairs)
+        if self._state is None:
+            self._state = self.init_state(params)
+        self._apply(idx, [g for _, g in pairs])
+
+    def clear_grad(self, set_to_zero: bool = False) -> None:
+        for p in self._parameter_list or ():
+            for key in ("grad", "main_grad"):
+                g = getattr(p, key, None)
+                if g is None:
+                    continue
+                if set_to_zero:
+                    g.zero_()
+                else:
+                    setattr(p, key, None)
+
+
+class AdamW(_LearningRate, _Eager):
     """``AdamW(learning_rate=1e-4, weight_decay=0.01,
     moment_dtype="bfloat16", factored_v=True)``; :meth:`init_state`
     makes the state, :meth:`update` applies one step to it.
@@ -155,8 +209,10 @@ class AdamW(_LearningRate):
                  weight_decay: float = 0.01,
                  moment_dtype: Union[str, torch.dtype] = "float32",
                  moment_quant: Optional[str] = None,
-                 factored_v: bool = False):
+                 factored_v: bool = False, parameters=None,
+                 grad_clip=None):
         super().__init__(learning_rate)
+        self._init_eager(parameters, grad_clip)
         if moment_quant not in (None, "none", "8bit"):
             raise ValueError(f"moment_quant: unknown mode {moment_quant!r}")
         self._moment_quant = moment_quant if moment_quant != "none" \
@@ -269,6 +325,17 @@ class AdamW(_LearningRate):
             p.copy_(p32)
             state["m"][i].copy_(m)
 
+    def _apply(self, idx, grads) -> None:
+        """The eager step's update of parameters ``idx`` (indices into
+        the parameter list) on a view of the state (the entries are
+        updated in place)."""
+        params = self._parameter_list
+        state = {k: v if not isinstance(v, list) else [v[i] for i in idx]
+                 for k, v in self._state.items()}
+        shards = None if self._shards is None else [self._shards[i]
+                                                    for i in idx]
+        self.update([params[i] for i in idx], grads, state, shards=shards)
+
     def _update_q8(self, i: int, p: torch.Tensor, g32: torch.Tensor,
                    state: State, lr: float, bc1: torch.Tensor,
                    bc2: torch.Tensor) -> None:
@@ -293,14 +360,16 @@ class AdamW(_LearningRate):
             state[key + "_ax"][i].copy_(ax)
 
 
-class SGD(_LearningRate):
+class SGD(_LearningRate, _Eager):
     """``SGD(learning_rate=0.001, weight_decay=None)``: plain gradient
     descent with L2 weight decay folded into the gradient;
     ``learning_rate`` may be an :class:`LRScheduler`."""
 
     def __init__(self, learning_rate=0.001,
-                 weight_decay: Optional[float] = None):
+                 weight_decay: Optional[float] = None, parameters=None,
+                 grad_clip=None):
         super().__init__(learning_rate)
+        self._init_eager(parameters, grad_clip)
         self._weight_decay = float(weight_decay or 0.0)
 
     def init_state(self, params: Sequence[torch.Tensor]) -> State:
@@ -314,3 +383,10 @@ class SGD(_LearningRate):
         lr = self.get_lr() if lr is None else lr
         wd = self._weight_decay
         return [p - lr * (g + wd * p) for p, g in zip(params, grads)], state
+
+    @torch.no_grad()
+    def _apply(self, idx, grads) -> None:
+        params = [self._parameter_list[i] for i in idx]
+        new, _ = self.update(params, grads, {})
+        for p, n in zip(params, new):
+            p.copy_(n)

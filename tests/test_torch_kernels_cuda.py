@@ -11,9 +11,11 @@ masks from a CUDA generator replayed by a recomputed block, and the
 8-bit Adam moments' encoding on the card against the CPU's, sharded
 training on an mp 2 mesh of two cards against one card, the ring
 attention's K1 parts merged by their lse and K2 from the merged lse,
-K1 / K2 / K3 at sq < sk (the gspmd sequence-parallel shape), and Llama
+K1 / K2 / K3 at sq < sk (the gspmd sequence-parallel shape), Llama
 training on an sp 2 mesh of two cards in ring and ulysses mode against
-one card. These tests need an NVIDIA Hopper GPU
+one card, and the fleet leg on two cards (the mp layers at mp 2 against
+the full matrices, the Megatron stack in 1F1B on pp 2 against one
+card). These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -218,6 +220,56 @@ def test_mesh_sp2_training_matches_one_card(tmp_path):
             got, ref = r["%s:%s" % (mode, name)], r["ref:" + name]
             rel = np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30)
             assert rel <= 1e-4, (mode, name, rel)
+
+
+@pytest.mark.cuda
+def test_fleet_mp_layers_and_1f1b_on_two_cards(tmp_path):
+    """The fleet leg on two cards (one rank a card, NCCL): the mp layers
+    at mp 2 (column-parallel gathered and not, row-parallel on a split
+    and on a replicated input, the vocabulary-parallel embedding, the
+    parallel cross entropy) against the full matrices on one process,
+    outputs and every gradient within 1e-5; then the Megatron stack (f32,
+    width 256, head_dim 64) in 1F1B on pp 2, 3 steps of 2 micro-batches
+    through HybridParallelOptimizer (factored AdamW, clip 1.0), against
+    the same modules on one card: losses within rtol 2e-4, every
+    parameter within atol 5e-5, each rank launching K1 and K2 once a
+    block a micro-batch."""
+    _need_hopper()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("a pipeline of two ranks needs two cards")
+    import _torch_fleet_workers as F
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.incubate.nn.cuda import _build
+
+    _build.build_all(("flash_attn",))
+    c = F.MEGATRON_CUDA
+    data = F.megatron_data(c, 5)
+    np.savez(tmp_path / "megatron_cuda.npz", **data)
+    spawn(F.cuda_fleet, (str(tmp_path),), nprocs=2)
+    want = F.mp_layers_reference(F.mp_layers_data())
+    for rank in range(2):
+        got = dict(np.load(tmp_path / ("mp_layers_r%d.npz" % rank)))
+        for key, full in want.items():
+            if got[key].shape != full.shape:
+                axis = next(a for a in range(full.ndim)
+                            if got[key].shape[a] != full.shape[a])
+                full = np.split(full, 2, axis)[rank]
+            np.testing.assert_allclose(got[key], full, rtol=1e-5,
+                                       atol=1e-5, err_msg=key)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, params = F.one_process("megatron_cuda", data, device="cuda")
+    recs = [dict(np.load(tmp_path / ("megatron_cuda_r%d.npz" % r)))
+            for r in range(2)]
+    np.testing.assert_allclose(
+        next(r["losses"] for r in recs if len(r["losses"])), losses,
+        rtol=2e-4, atol=1e-5)
+    blocks = c["layers"] // 2
+    for rec in recs:
+        for key in [k[2:] for k in rec if k.startswith("p:")]:
+            np.testing.assert_allclose(rec["p:" + key], params[key],
+                                       rtol=0, atol=5e-5, err_msg=key)
+        n = c["steps"] * c["accumulate"] * blocks
+        assert list(rec["launches"]) == [n, n]
 
 
 # ring attention: q, k, v cut into SP_PARTS parts of the sequence, as
