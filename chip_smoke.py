@@ -6,14 +6,15 @@ toolkit (``nvcc``)::
 
     python3 chip_smoke.py                 # every phase, on one card
     python3 chip_smoke.py --phases ring   # phases 1, 2 (ring.cu), 4d, 9b, 9c
-    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e-9g
+    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e-9g, 10d
     python3 chip_smoke.py --phases sp     # phases 1, 2 (K1-K3, K7), 5b, 9f
     python3 chip_smoke.py --phases pp     # phases 1, 2 (K1-K3), 9g
 
-Phases 9e (sharded training), 9f (sequence parallelism) and 9g (the
-fleet pipeline) spawn one process a card, four at most, all in one
-spawn: their full-width runs need four cards (``--phases mesh``, ``sp``
-or ``pp`` on four cards runs them alone; ``pp`` runs 9e's GPT-3 13B run
+Phases 9e (sharded training), 9f (sequence parallelism), 9g (the
+fleet pipeline) and 10d (DataParallel) spawn one process a card, four
+at most, all in one spawn: their full-width runs need four cards
+(``--phases mesh``, ``sp`` or ``pp`` on four cards runs them alone;
+``pp`` runs 9e's GPT-3 13B run
 first, 9g's yardstick); on fewer they run their f32 checks only (on mp 2
 / sp 2 / pp 2 on two or three cards, one rank on one) and say so.
 
@@ -294,13 +295,45 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    ``pp_want``; printed: median step, tokens/s, MFU, peak memory, p2p
    bytes a step, each rank's NCCL share and device time outside NCCL
    (one profiled step each);
-9. one JSON line with the six training paths' numbers, one with the
+10. (after 9d) the eager dygraph path. 10a: T1, the custom-op fixture
+   ``twoxplus1`` (``tests/test_custom_op.py:68``) as a hand-written CUDA
+   kernel (``tests/_torch_custom_op/twoxplus1.cu``, built in phase 2),
+   registered with ``utils.register_op`` and called through
+   ``ops.twoxplus1(to_tensor(a))`` at [2, 4] f32, 1001 x 4097 in f32 /
+   bf16 / f16 and 8192 x 8192 f32: one launch a call, each result bitwise
+   its plain version's (``x * 2 + 1``), ``deregister_op`` unmounting it;
+   the kernel, the plain version and ``torch.addcmul(1, x, 2)`` timed at
+   8192 x 8192 beside the bytes bound. 10b (``BASELINE.md`` #1): LeNet on
+   synthetic MNIST at its 60000 samples, ``DataLoader(batch_size=64,
+   shuffle=True)``, ``Adam(1e-3)``, ``CrossEntropyLoss``, one epoch:
+   images/s, median step, the device-busy share of 20 profiled steps,
+   the first and last 50 steps' mean loss (it must fall), the first 5
+   losses within 1e-4 of a CPU run's on the same weights and batches.
+   10c (#2 on one card): ``resnet50()`` f32 (TF32 off), batch 64 x 3 x
+   224 x 224 from seed 0, ``Momentum(0.1, 0.9, weight_decay 1e-4)``, 6
+   steps: images/s, median step, peak memory, MFU against 67 TFLOP/s
+   (3 x 2 x the conv and linear multiply-adds), the device split of two
+   profiled steps (cuDNN convolutions, BatchNorm, the optimizer, the
+   rest); a 2-step f32 copy at batch 2 (Momentum lr 2e-4), each step
+   against the same step on the CPU from the card's state before it
+   (logits, losses, parameters within 1e-4, BN running statistics within
+   1e-5, relative L2). 10d (in 9e's spawn, after 9g; ``--phases mesh``
+   runs it too): ResNet-50 under ``DataParallel`` on four cards, 64
+   images a rank, 4 steps at 10c's rate: images/s over the cards, the
+   speedup over one card in the same run, NCCL's share of rank 0's
+   device time, the bucket count; the ranks' parameters bitwise equal
+   after every step, and each step within 1e-5 (relative L2) of one card
+   running it from the same state over the ranks' batches in turn and
+   averaging their gradients; on fewer cards the f32 check only (8
+   images a rank, 2 steps: two ranks on two cards, one on one);
+11. one JSON line with the six training paths' numbers, one with the
    MoE numbers, one with the serving numbers, one with the decode
-   numbers, one with the mesh numbers, one with the TP and pipeline
-   numbers, then one listing every ported kernel with its numbers
-   (``--phases ring``: the last two only; ``--phases mesh`` / ``sp`` /
-   ``pp``: one line with the mesh numbers, and with ``sp`` phase 5b's);
-10. last line: ``{"ok": true, "device": {...}}``.
+   numbers, one with the eager path's numbers, one with the mesh
+   numbers, one with the TP and pipeline numbers, then one listing
+   every ported kernel with its numbers (``--phases ring``: the last two
+   only; ``--phases mesh`` / ``sp`` / ``pp``: one line with the mesh
+   numbers, and with ``sp`` phase 5b's);
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -5365,8 +5398,8 @@ def mesh_worker(out, jobs):
         t0 = time.perf_counter()
         print("mesh rank %d: %s" % (dist.get_rank(), job["name"]),
               flush=True)
-        res[job["name"]] = (pp_job if job.get("pp") else mesh_job)(
-            job, shared)
+        res[job["name"]] = (pp_job if job.get("pp") else dp_job
+                            if job.get("dp") else mesh_job)(job, shared)
         print("mesh rank %d: %s done in %.1f s" % (
             dist.get_rank(), job["name"], time.perf_counter() - t0),
             flush=True)
@@ -5375,12 +5408,12 @@ def mesh_worker(out, jobs):
             json.dump(res, f)
 
 
-def mesh_phase(card, parts=("mesh", "sp", "pp")):
-    """Phases 9e ("mesh": :func:`mesh_jobs`), 9f ("sp": :func:`sp_jobs`)
-    and 9g ("pp": :func:`pp_jobs`, after 9e's GPT-3 13B run, its
-    yardstick, which runs alone where 9e does not) in one spawn of one
-    rank a card (four at most), then each run's readings checked and
-    printed."""
+def mesh_phase(card, parts=("mesh", "sp", "pp", "dp")):
+    """Phases 9e ("mesh": :func:`mesh_jobs`), 9f ("sp": :func:`sp_jobs`),
+    9g ("pp": :func:`pp_jobs`, after 9e's GPT-3 13B run, its yardstick,
+    which runs alone where 9e does not) and 10d ("dp": :func:`dp_jobs`)
+    in one spawn of one rank a card (four at most), then each run's
+    readings checked and printed."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
@@ -5391,16 +5424,19 @@ def mesh_phase(card, parts=("mesh", "sp", "pp")):
             [j for j in mesh_jobs(cards) if j["name"] == "gpt3_13B"]
             if "pp" in parts else []) + \
         (sp_jobs(cards) if "sp" in parts else []) + \
-        (pp_jobs(cards) if "pp" in parts else [])
+        (pp_jobs(cards) if "pp" in parts else []) + \
+        (dp_jobs(cards) if "dp" in parts else [])
     if cards < 4:
         print("mesh: the full-width runs (9e: Llama-2 7B on dp 2 x mp 2, "
               "GPT-3 13B on mp 2 x dp 2, FSDP over dp; 9f: Llama-2 7B at "
               "1 x %d tokens, ring on sp 4 and ulysses on sp 2 x mp 2; 9g: "
-              "GPT-3 13B on pp 2 x mp 2) need four cards; %d here: the "
-              "f32 checks only, on %s (9g: pp 2 on two cards, one rank on "
-              "one; NCCL refuses two ranks on one card) [%s]" % (
-                  SP_SEQ, cards, sorted({str(j["mesh"]) for j in jobs}),
-                  card), flush=True)
+              "GPT-3 13B on pp 2 x mp 2; 10d: ResNet-50 DataParallel, 64 "
+              "images a rank) need four cards; %d here: the f32 checks "
+              "only, on %s (9g: pp 2 on two cards, one rank on one; 10d: "
+              "one rank a card; NCCL refuses two ranks on one card) [%s]"
+              % (SP_SEQ, cards, sorted({str(j["mesh"]) for j in jobs
+                                        if "mesh" in j}), card),
+              flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     fd, out = tempfile.mkstemp(suffix=".json")
@@ -5417,6 +5453,8 @@ def mesh_phase(card, parts=("mesh", "sp", "pp")):
     for job in jobs:
         if job.get("pp"):
             pp_check(job, res[job["name"]], card, res)
+        elif job.get("dp"):
+            dp_check(job, res[job["name"]], card)
         else:
             mesh_check(job, res[job["name"]], card)
     return res
@@ -6085,12 +6123,725 @@ def pp_check(job, r, card, res):
                                       later, MESH_LATER_LOSS_RTOL))
 
 
+# ------------------------------------------------------------ phase 10
+# The eager dygraph path (paddle_tpu_torch's to_tensor, nn.Layer,
+# io.DataLoader, the eager optimizers, vision, DataParallel and the
+# custom-op registry). 10a registers the one TPU kernel of the path, the
+# custom-op fixture twoxplus1 (tests/test_custom_op.py:68, its
+# pallas_call :69), as a hand-written CUDA kernel kept beside its
+# fixture; 10b trains BASELINE.md #1 (LeNet on synthetic MNIST at its
+# real size) and 10c #2's model (ResNet-50 at ImageNet width, f32) on one
+# card; 10d runs #2 under DataParallel in mesh_phase's spawn.
+T1_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "_torch_custom_op")
+T1_SRC = "tests/_torch_custom_op/twoxplus1.cu"
+T1_PALLAS = "tests/test_custom_op.py:68"
+# 10a's shapes: the fixture's [2, 4] f32, a ragged 1001 x 4097 in the
+# three types, and the timed 8192 x 8192 f32
+T1_CASES = (((2, 4), torch.float32), ((1001, 4097), torch.float32),
+            ((1001, 4097), torch.bfloat16), ((1001, 4097), torch.float16),
+            ((8192, 8192), torch.float32))
+LENET_BATCH = 64
+LENET_CHECK_STEPS = 5
+LENET_LOSS_RTOL = 1e-4
+LENET_WINDOW = 50           # steps averaged at each end of the epoch
+LENET_PROFILE_STEPS = 20
+RESNET_BATCH = 64
+RESNET_STEPS = 6
+RESNET_OPT = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+# 10c's f32 copy: each step from the card's state before it, at a rate
+# that moves the parameters by ~1e-3 a step (see resnet_check)
+RESNET_CHECK = dict(batch=2, steps=2, learning_rate=2e-4, rtol=1e-4,
+                    stats_rtol=1e-5)
+# a check's step must move the parameters by this many times its bound
+CHECK_MOVE = 4
+# 10d: 64 images a rank on four cards, 4 steps; on fewer cards the f32
+# check only, at 8 images a rank and 2 steps
+DP_FULL = dict(batch=64, steps=4)
+DP_CHECK = dict(batch=8, steps=2)
+DP_PARAM_RTOL = 1e-5
+
+
+def t1_module():
+    """``tests/_torch_custom_op/twoxplus1.py``, loaded from its file (the
+    fixture's wrapper: ``twoxplus1`` for the op, ``twoxplus1_cuda`` the
+    kernel with its ``launches``, ``twoxplus1_ref`` the plain version)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "twoxplus1_op", os.path.join(T1_DIR, "twoxplus1.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def t1_input(shape, dtype, seed):
+    """Normal numpy values x 100 (a spread of exponents), in ``dtype``
+    once on the card; the fixture's shape takes its ``arange``."""
+    if shape == (2, 4):
+        return np.arange(8, dtype=np.float32).reshape(2, 4)
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(shape, dtype=np.float32) * 100
+
+
+def twoxplus1_phase(card):
+    """10a: twoxplus1 registered with ``utils.register_op`` and called
+    through ``ops.twoxplus1(to_tensor(a))`` at T1_CASES, every result
+    held bitwise against the plain version on the same input; the
+    registration undone and checked; the kernel, the plain version and
+    ``torch.addcmul`` timed at 8192 x 8192 f32 beside the bytes bound."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import ops, to_tensor, utils
+
+    t1 = t1_module()
+    utils.register_op("twoxplus1", t1.twoxplus1)
+    try:
+        xs = [to_tensor(t1_input(shape, dtype, i)).to(dtype)
+              for i, (shape, dtype) in enumerate(T1_CASES)]
+        torch.cuda.synchronize()
+        t1.twoxplus1_cuda.launches = 0
+        outs = [ops.twoxplus1(x) for x in xs]      # the main path
+        torch.cuda.synchronize()
+        launches = t1.twoxplus1_cuda.launches
+    finally:
+        utils.deregister_op("twoxplus1")
+    check(launches == len(T1_CASES),
+          "10a: twoxplus1 launched %d times for %d calls"
+          % (launches, len(T1_CASES)))
+    check(not hasattr(ops, "twoxplus1") and not hasattr(pt, "twoxplus1")
+          and "twoxplus1" not in ops.__all__,
+          "10a: deregister_op left twoxplus1 mounted")
+    cases = {}
+    for (shape, dtype), x, got in zip(T1_CASES, xs, outs):
+        want = t1.twoxplus1_ref(x)
+        name = "%s %s" % ("x".join(map(str, shape)),
+                          str(dtype).split(".")[1])
+        err = (got.float() - want.float()).abs().max().item()
+        cases[name] = dict(bitwise=bool(torch.equal(got, want)),
+                           max_abs_err=err)
+        print("10a twoxplus1 %s: bitwise %s, max abs err %g"
+              % (name, cases[name]["bitwise"], err), flush=True)
+        check(cases[name]["bitwise"], "10a: twoxplus1 %s differs from "
+              "x * 2 + 1 (max abs err %g)" % (name, err))
+    x = xs[-1]
+    one = torch.tensor(1.0, device=x.device)
+    two = torch.tensor(2.0, device=x.device)
+    check(torch.equal(torch.addcmul(one, x, two), outs[-1]),
+          "10a: addcmul(1, x, 2) is not x * 2 + 1 bitwise")
+    iters = 50
+    ms = cuda_ms(lambda: t1.twoxplus1_cuda(x), iters)
+    plain_ms = cuda_ms(lambda: t1.twoxplus1_ref(x), iters)
+    library_ms = cuda_ms(lambda: torch.addcmul(one, x, two), iters)
+    bound_ms, bound_by = bound_of(2 * x.numel() * x.element_size(), 0)
+    print("10a twoxplus1 8192 x 8192 f32: kernel %.4f ms (%.1f%% of the "
+          "bytes bound %.4f ms, %.0f GB/s), plain x * 2 + 1 %.4f ms, "
+          "torch.addcmul %.4f ms; launches on the main path %d [%s]" % (
+              ms, 100 * bound_ms / ms, bound_ms,
+              2 * x.numel() * x.element_size() / ms / 1e6, plain_ms,
+              library_ms, launches, card), flush=True)
+    return {"name": "twoxplus1", "route": "cuda", "source": T1_SRC,
+            "replaces": T1_PALLAS, "status": "ported",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "at": "8192 x 8192 f32 through ops.twoxplus1 (library: "
+                  "torch.addcmul(1, x, 2) with 0-dim 1 and 2); the main "
+                  "path: one call at each of " + ", ".join(cases),
+            "cases": cases}
+
+
+def device_split(prof, scopes, groups):
+    """Busy device time of a profile and its split: a kernel goes to the
+    first of ``groups`` ((label, name fragments)) a fragment of which
+    appears in its launching CPU operation or an ancestor's name (lower
+    case); ``scopes`` are record_function ranges, not kernels."""
+    split, busy = {}, 0.0
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        names, e = [], evt
+        while e is not None:
+            names.append(e.name.lower())
+            e = e.cpu_parent
+        chain = " ".join(names)
+        label = next((g for g, pat in groups
+                      if any(x in chain for x in pat)), "other")
+        for kern in evt.kernels:
+            if kern.name in scopes:
+                continue
+            split[label] = split.get(label, 0.0) + kern.duration
+            busy += kern.duration
+    return busy, split
+
+
+def lenet_phase(card):
+    """10b, BASELINE.md #1: LeNet on synthetic MNIST (60000 samples, no
+    download), ``DataLoader(batch_size=64, shuffle=True)``, ``Adam(1e-3)``,
+    ``CrossEntropyLoss``, one epoch, as the JAX workload runs it. Gates:
+    the loss falls (the last LENET_WINDOW steps' mean below the first's),
+    and the first LENET_CHECK_STEPS steps equal a CPU run of the same
+    port model on the same weights and batches (losses within
+    LENET_LOSS_RTOL of their own). Then LENET_PROFILE_STEPS more steps
+    under torch.profiler for the device-busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    check("PADDLE_TPU_SYNTH_SAMPLES" not in os.environ,
+          "10b: PADDLE_TPU_SYNTH_SAMPLES would cut MNIST")
+    ds = MNIST(mode="train", download=False)
+    check(len(ds) == 60000, "10b: MNIST has %d samples" % len(ds))
+    pt.seed(0)
+    model = LeNet()
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = pt.optimizer.Adam(parameters=model.parameters(),
+                            learning_rate=1e-3)
+    loss_fn = pt.nn.CrossEntropyLoss()
+    loader = pt.io.DataLoader(ds, batch_size=LENET_BATCH, shuffle=True)
+    first, losses, stamps = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in loader:
+        if len(first) < LENET_CHECK_STEPS:
+            first.append((x.cpu(), y.cpu()))
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = torch.stack(losses).cpu().numpy()
+    step_ms = 1e3 * statistics.median(np.diff(stamps))
+    head = float(losses[:LENET_WINDOW].mean())
+    tail = float(losses[-LENET_WINDOW:].mean())
+    # the device's share of a window of the same loop, profiled apart
+    feed = iter(loader)
+    batches = [next(feed) for _ in range(LENET_PROFILE_STEPS)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        for x, y in batches:
+            loss = loss_fn(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - tp) * 1e6
+    busy, _ = device_split(prof, (), ())
+    # the CPU run of the same model, weights and batches
+    pt.set_device("cpu")
+    try:
+        cpu_model = LeNet()
+    finally:
+        pt.set_device(None)
+    cpu_model.set_state_dict(init)
+    cpu_opt = pt.optimizer.Adam(parameters=cpu_model.parameters(),
+                                learning_rate=1e-3)
+    cpu_losses = []
+    for x, y in first:
+        loss = loss_fn(cpu_model(x), y)
+        loss.backward()
+        cpu_opt.step()
+        cpu_opt.clear_grad()
+        cpu_losses.append(float(loss.detach()))
+    rel = [abs(float(a) - b) / abs(b)
+           for a, b in zip(losses[:LENET_CHECK_STEPS], cpu_losses)]
+    res = dict(samples=len(ds), steps=len(losses), batch=LENET_BATCH,
+               images_s=len(ds) / wall, epoch_s=wall,
+               median_step_ms=step_ms, first_mean_loss=head,
+               last_mean_loss=tail,
+               busy_share=busy / window_us if busy else None,
+               cpu_loss_rel=rel)
+    print("10b LeNet MNIST (synthetic, %d samples, batch %d, Adam 1e-3): "
+          "one epoch of %d steps in %.2f s, %.1f images/s, median step "
+          "%.3f ms (host clock between steps, data loading included); "
+          "mean loss of the first / last %d steps %.4f / %.4f; device "
+          "busy %s over %d profiled steps (their batches loaded first); "
+          "the first %d losses against "
+          "the CPU run: relative %s [%s]" % (
+              len(ds), LENET_BATCH, len(losses), wall, res["images_s"],
+              step_ms, LENET_WINDOW, head, tail,
+              "not measured" if not busy else "%.1f%%" % (
+                  100 * res["busy_share"]), LENET_PROFILE_STEPS,
+              LENET_CHECK_STEPS, ["%.2e" % r for r in rel], card),
+          flush=True)
+    check(np.all(np.isfinite(losses)), "10b: a loss is not finite")
+    check(tail < head, "10b: the loss did not fall: %.4f -> %.4f"
+          % (head, tail))
+    check(max(rel) <= LENET_LOSS_RTOL, "10b: the first %d losses are %s "
+          "from the CPU run's (bound %g)" % (LENET_CHECK_STEPS, rel,
+                                              LENET_LOSS_RTOL))
+    return res
+
+
+def conv_flops(model, x):
+    """2 x the multiply-adds of ``model``'s forward on ``x``: every
+    ``Conv2D`` (2 N Cout Cin/g kh kw Hout Wout) and ``Linear`` (2 N in
+    out), from the shapes a forward hook sees."""
+    from paddle_tpu_torch import nn
+
+    total = [0]
+
+    def hook(layer, inputs, out):
+        if isinstance(layer, nn.Conv2D):
+            w = layer.weight
+            total[0] += 2 * out.numel() * w.shape[1] * w.shape[2] * \
+                w.shape[3]
+        else:
+            total[0] += 2 * out.numel() * layer.weight.shape[0]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (nn.Conv2D, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def resnet_batch(seed, batch, classes=1000, size=224):
+    """A batch of ``batch`` normal images and labels on the card, from a
+    generator seeded ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(batch, 3, size, size, device="cuda", generator=g)
+    y = torch.randint(0, classes, (batch,), device="cuda", generator=g)
+    return x, y
+
+
+def resnet_train_steps(model, opt, batches):
+    """A step of ``model`` a batch (CrossEntropyLoss, ``opt``); the
+    losses (device tensors) and the logits of each."""
+    import paddle_tpu_torch as pt
+
+    loss_fn = pt.nn.CrossEntropyLoss()
+    losses, logits = [], []
+    for x, y in batches:
+        out = model(x)
+        loss = loss_fn(out, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        logits.append(out.detach())
+    return losses, logits
+
+
+def flat(tensors):
+    """The tensors' values in one f32 vector on the CPU."""
+    return torch.cat([t.detach().reshape(-1).float().cpu() for t in tensors])
+
+
+def bn_stats(model):
+    """Every BatchNorm running statistic of ``model``, in one vector."""
+    state = model.state_dict()
+    return flat([state[k] for k in state
+                 if k.endswith(("_mean", "_variance"))])
+
+
+def resnet_state(model, opt):
+    """The state a training step starts from, copied to the CPU:
+    ``model``'s state dict and ``opt``'s Momentum velocity (zeros before
+    its first step). A copy on the card would take blocks of the
+    allocator's cache that the next timed step would then allocate
+    anew."""
+    vel = opt._state["velocity"] if opt._state else \
+        [torch.zeros_like(p) for p in model.parameters()]
+    return ({k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()},
+            [v.detach().to("cpu", copy=True) for v in vel])
+
+
+def resnet_reference_step(state, batches, dev, opt_kw):
+    """One step of ResNet-50 on ``dev`` from ``state``
+    (:func:`resnet_state`): the gradients of ``batches`` (images, labels)
+    in turn, summed and divided by their number, then ``Momentum(
+    **opt_kw)``'s functional ``update``. Returns the losses, the logits,
+    the parameters and the BN running statistics after it."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    sd, vel = state
+    pt.set_device(dev)
+    try:
+        model = resnet50()
+    finally:
+        pt.set_device(None)
+    model.set_state_dict({k: v.to(dev) for k, v in sd.items()})
+    params = model.parameters()
+    loss_fn = pt.nn.CrossEntropyLoss()
+    grads = [torch.zeros_like(p) for p in params]
+    losses, logits = [], []
+    for x, y in batches:
+        out = model(x.to(dev))
+        loss = loss_fn(out, y.to(dev))
+        loss.backward()
+        for acc, p in zip(grads, params):
+            acc.add_(p.grad)
+        model.clear_gradients()
+        losses.append(loss.detach().reshape(1))
+        logits.append(out.detach())
+    new, _ = pt.optimizer.Momentum(**opt_kw).update(
+        params, [g.div_(len(batches)) for g in grads],
+        {"velocity": [v.to(dev) for v in vel]})
+    res = dict(loss=flat(losses), logits=flat(logits), params=flat(new),
+               stats=bn_stats(model))
+    del model, params, grads, new
+    return res
+
+
+def resnet_check(init, card):
+    """10c's gate: RESNET_CHECK["steps"] f32 steps of ResNet-50 at batch
+    RESNET_CHECK["batch"] on the card (BatchNorm in train mode, Momentum
+    at RESNET_CHECK's rate), each held against the same step on the CPU
+    from the card's state before it (parameters, BN statistics,
+    velocity) and the same batch: the loss, the logits and the
+    parameters after it within RESNET_CHECK["rtol"], the BN running
+    statistics within its stats_rtol (relative L2, each reading all
+    together). Each step starts from the card's state because this
+    training is chaotic from Paddle's init: on the CPU alone, one ulp of
+    the input moves the gradient by 2e-2 (BatchNorm's train-mode
+    backward grows the rounding with depth), and a second step from
+    parameters that differ by 1e-4 differs by 6e-2 in its logits. The
+    rate keeps one step's gradient error (2e-2 of a ~1e-3 move) inside
+    the bound, and the step's own move must be CHECK_MOVE times the
+    bound, so a lost or a wrong update fails."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    c = RESNET_CHECK
+    opt_kw = dict(RESNET_OPT, learning_rate=c["learning_rate"])
+    model = resnet50()
+    model.set_state_dict(init)
+    opt = pt.optimizer.Momentum(parameters=model.parameters(), **opt_kw)
+    loss_fn = pt.nn.CrossEntropyLoss()
+    bounds = dict(loss=c["rtol"], logits=c["rtol"], params=c["rtol"],
+                  stats=c["stats_rtol"])
+    res, fails = [], []
+    for i in range(c["steps"]):
+        x, y = resnet_batch(10 + i, c["batch"])
+        before = resnet_state(model, opt)
+        logits = model(x)
+        loss = loss_fn(logits, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        got = dict(loss=flat([loss.reshape(1)]), logits=flat([logits]),
+                   params=flat(model.parameters()), stats=bn_stats(model))
+        want = resnet_reference_step(before, [(x, y)], "cpu", opt_kw)
+        err = {k: rel_l2(got[k], want[k]) for k in bounds}
+        move = rel_l2(want["params"], flat(
+            before[0][k] for k, _ in model.named_parameters()))
+        res.append(dict(step=i + 1, rel_l2=err, move=move))
+        print("10c ResNet-50 f32 copy (batch %d, Momentum lr %g), step %d "
+              "from the card's state, card against CPU (relative L2; "
+              "bound): %s; the step moves the parameters by %.3g [%s]" % (
+                  c["batch"], c["learning_rate"], i + 1, ", ".join(
+                      "%s %.3g (%g)" % (k, err[k], bounds[k])
+                      for k in bounds), move, card), flush=True)
+        fails += ["step %d %s %.3g" % (i + 1, k, err[k]) for k in bounds
+                  if not err[k] <= bounds[k]]
+        if not move >= CHECK_MOVE * c["rtol"]:
+            fails.append("step %d moves the parameters by %.3g only"
+                         % (i + 1, move))
+        del before, want, got, logits, loss
+    del model, opt
+    torch.cuda.empty_cache()
+    check(not fails, "10c: the f32 copy is beyond its bounds: %s" % fails)
+    return res
+
+
+RESNET_GROUPS = (("optimizer", ("momentum.step",)),
+                 ("cuDNN convolutions", ("conv",)),
+                 ("BatchNorm", ("batch_norm",)),
+                 ("linear (cuBLAS)", ("addmm", "aten::mm", "aten::linear")))
+
+
+def resnet_phase(card):
+    """10c, BASELINE.md #2 on one card: ``resnet50()`` in f32 (TF32 off),
+    batch RESNET_BATCH at 3 x 224 x 224 from seed 0, ``Momentum(lr 0.1,
+    momentum 0.9, weight_decay 1e-4)``, BatchNorm in train mode,
+    RESNET_STEPS steps: images/s, median step, peak memory, MFU against
+    67 TFLOP/s f32 (3 x the forward's conv and linear flops a step), the
+    device's split over two profiled steps (the optimizer's step in a
+    record_function scope), then the f32 copy against the CPU."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    pt.seed(0)
+    model = resnet50()
+    init = {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()}
+    opt = pt.optimizer.Momentum(parameters=model.parameters(), **RESNET_OPT)
+    batches = [resnet_batch(i, RESNET_BATCH) for i in range(RESNET_STEPS)]
+    fwd_flops = conv_flops(model, batches[0][0])
+    loss_fn = pt.nn.CrossEntropyLoss()
+
+    def step(x, y):
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    feed = iter(batches)
+    losses, secs = timed_calls(lambda: step(*next(feed)), RESNET_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    tail = secs[1:]
+    median = statistics.median(tail)
+    step_flops = 3 * fwd_flops
+    images_s = RESNET_BATCH / median
+    mfu = step_flops / median / F32_FLOPS_PER_S
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches[:2]:
+            loss = loss_fn(model(x), y)
+            loss.backward()
+            with record_function("Momentum.step"):
+                opt.step()
+            opt.clear_grad()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, split = device_split(prof, ("Momentum.step",), RESNET_GROUPS)
+    res = dict(batch=RESNET_BATCH, steps=RESNET_STEPS, losses=losses,
+               step_ms=[1e3 * s for s in secs], median_step_ms=1e3 * median,
+               images_s=images_s, peak_gb=peak / 1e9,
+               forward_flops=fwd_flops, step_flops=step_flops, mfu=mfu,
+               busy_share=busy / wall_us if busy else None,
+               device_split_ms={k: v / 2e3 for k, v in split.items()})
+    print("10c ResNet-50 f32 (TF32 off), batch %d x 3 x 224 x 224, "
+          "Momentum(0.1, 0.9, wd 1e-4), %d steps: losses %s; median step "
+          "%.2f ms, %.1f images/s, peak memory %.2f GB; MFU %.4f against "
+          "67 TFLOP/s f32 (%.4g flops a step = 3 x %.4g forward: 2 x the "
+          "conv and linear multiply-adds, %.3f GFLOP an image) [%s]" % (
+              RESNET_BATCH, RESNET_STEPS, ["%.4f" % x for x in losses],
+              1e3 * median, images_s, peak / 1e9, mfu, step_flops, fwd_flops,
+              fwd_flops / RESNET_BATCH / 1e9, card), flush=True)
+    if busy:
+        print("10c ResNet-50 profile (2 steps): %.1f ms wall, device busy "
+              "%.1f%%; by launching operation: %s [%s]" % (
+                  wall_us / 1e3, 100 * busy / wall_us, ", ".join(
+                      "%s %.2f ms a step (%.1f%%)" % (k, v / 2e3,
+                                                      100 * v / busy)
+                      for k, v in sorted(split.items(),
+                                         key=lambda kv: -kv[1])), card),
+              flush=True)
+    else:
+        print("10c ResNet-50 profile: the profiler recorded no device "
+              "time: not measured", flush=True)
+    check(all(np.isfinite(losses)), "10c: losses %s" % losses)
+    del model, batches
+    torch.cuda.empty_cache()
+    res["check"] = resnet_check(init, card)
+    return res
+
+
+def eager_phase(card):
+    """Phases 10a-10c on this card; returns the kernels line's T1 row and
+    the readings."""
+    row = twoxplus1_phase(card)
+    torch.cuda.empty_cache()
+    lenet = lenet_phase(card)
+    torch.cuda.empty_cache()
+    resnet = resnet_phase(card)
+    torch.cuda.empty_cache()
+    return row, {"twoxplus1": row["cases"], "lenet": lenet,
+                 "resnet50": resnet}
+
+
+def dp_jobs(cards):
+    """Phase 10d's run: ResNet-50 under DataParallel, one rank a card
+    (four at most); the full run (DP_FULL) on four cards, the f32 check
+    (DP_CHECK) on fewer."""
+    full = cards >= 4
+    return [dict(name="resnet50_dp" if full else "resnet50_dp_f32_check",
+                 dp=True, full=full, **(DP_FULL if full else DP_CHECK))]
+
+
+def param_digest(params):
+    """A hash of every parameter's bytes, in order (the JAX test's)."""
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in params]).cpu()
+    return hashlib.sha1(flat.numpy().tobytes()).hexdigest()
+
+
+def one_card_seconds(init, batch):
+    """The one-card yardstick of 10d's call: the median of two timed
+    plain steps of ResNet-50 from ``init`` at one rank's batch (after a
+    first one), RESNET_OPT."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    model = resnet50()
+    model.set_state_dict(init)
+    opt = pt.optimizer.Momentum(parameters=model.parameters(), **RESNET_OPT)
+    x, y = resnet_batch(0, batch)
+    _, secs = timed_calls(lambda: resnet_train_steps(
+        model, opt, [(x, y)])[0][0], 3)
+    del model, opt
+    torch.cuda.empty_cache()
+    return statistics.median(secs[1:])
+
+
+def dp_job(job, shared):
+    """10d on every rank: ResNet-50 (f32) under ``DataParallel`` from
+    seed 0 (the wrap broadcasts rank 0's parameters), RESNET_OPT, rank
+    r's batches from generators seeded 1000 step + r, ``job["steps"]``
+    timed steps with a hash of the parameters after each; then rank 0
+    alone (the others wait) holds each step against one card that runs
+    it from the state before it (:func:`resnet_state`, kept on the CPU
+    in the timed loop) over every rank's batch in turn and averages the
+    gradients; then NCCL's share of a profiled step. Rank 0 first times
+    one card (:func:`one_card_seconds`). Returns every rank's readings
+    (on rank 0)."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    pt.seed(0)
+    model = resnet50()
+    one_card_s = one_card_seconds(model.state_dict(), job["batch"]) \
+        if rank == 0 else None
+    dist.barrier()
+    dp = pt.DataParallel(model)
+    opt = pt.optimizer.Momentum(parameters=dp.parameters(), **RESNET_OPT)
+    loss_fn = pt.nn.CrossEntropyLoss()
+
+    def step(x, y):
+        loss = loss_fn(dp(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    batches = [resnet_batch(1000 * s + rank, job["batch"])
+               for s in range(job["steps"])]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, digests, states = [], [], [], []
+    for x, y in batches:
+        if rank == 0:
+            states.append(resnet_state(model, opt))
+        dist.barrier()      # after rank 0's copy: each step starts together
+        loss, sec = timed_calls(lambda: step(x, y), 1)
+        losses += loss
+        secs += sec
+        digests.append(param_digest(dp.parameters()))
+        if rank == 0:
+            states[-1] += (flat(dp.parameters()),)
+    peak = torch.cuda.max_memory_allocated()
+    red = dp._reducer
+    flushes = None if red is None else red.flushes
+    compare = []
+    for s, (sd, vel, after) in enumerate(states):
+        want = resnet_reference_step(
+            (sd, vel), [resnet_batch(1000 * s + r, job["batch"])
+                        for r in range(n)], "cuda", RESNET_OPT)["params"]
+        compare.append(dict(
+            step=s + 1, params_rel_l2=rel_l2(after, want),
+            move=rel_l2(want, flat(sd[k] for k, _ in
+                                   model.named_parameters()))))
+    del states
+    torch.cuda.empty_cache()
+    dist.barrier()
+    profile = nccl_share(step, batches[-1]) if n > 1 else None
+    mine = dict(rank=rank, losses=losses, digests=digests,
+                step_ms=[1e3 * s for s in secs], peak_gb=peak / 1e9,
+                profile=profile,
+                buckets=None if red is None else len(red.buckets),
+                flushes=flushes)
+    ranks = [None] * n
+    dist.all_gather_object(ranks, mine)
+    del model, dp, opt, batches
+    torch.cuda.empty_cache()
+    if rank != 0:
+        return None
+    tail = secs[1:] or secs
+    median = statistics.median(tail)
+    return dict(cards=n, batch=job["batch"], steps=job["steps"],
+                full=job["full"], ranks=ranks, compare=compare,
+                median_step_ms=1e3 * median,
+                images_s=n * job["batch"] / median,
+                one_card_step_ms=1e3 * one_card_s,
+                one_card_images_s=job["batch"] / one_card_s,
+                nccl=ranks[0]["profile"])
+
+
+def dp_check(job, r, card):
+    """10d's readings printed, then its gates: every rank's parameters
+    bitwise equal after every step, and after every step within
+    DP_PARAM_RTOL (relative L2, all parameters together) of one card
+    that ran the same step from the same state over the ranks' batches
+    and averaged their gradients, a step that moves the parameters by
+    at least CHECK_MOVE times that bound."""
+    n, c = r["cards"], r["compare"]
+    digests = [rk["digests"] for rk in r["ranks"]]
+    nccl = r["nccl"]
+    print("10d ResNet-50 under DataParallel%s: %d ranks, one a card, %d "
+          "images a rank, %d steps, f32; losses of rank 0 %s; median step "
+          "%.2f ms, %.1f images/s over the cards; one card in the same "
+          "run %.2f ms a step, %.1f images/s (speedup %.3f, %.1f%% of "
+          "linear); buckets %s, flushed %s times in the steps; NCCL share "
+          "of rank 0's device time %s; peak memory a rank %s GB [%s]" % (
+              "" if r["full"] else " (the f32 check only: the full run "
+              "needs four cards)", n, r["batch"], r["steps"],
+              ["%.4f" % x for x in r["ranks"][0]["losses"]],
+              r["median_step_ms"], r["images_s"], r["one_card_step_ms"],
+              r["one_card_images_s"], r["images_s"] / r["one_card_images_s"],
+              100 * r["images_s"] / r["one_card_images_s"] / n,
+              r["ranks"][0]["buckets"], r["ranks"][0]["flushes"],
+              "not measured" if nccl is None else "%.4f (%.2f of %.2f ms)"
+              % (nccl["share"], nccl["nccl_ms"], nccl["busy_ms"]),
+              ["%.2f" % rk["peak_gb"] for rk in r["ranks"]], card),
+          flush=True)
+    print("10d each step against one card running it from the same state "
+          "over the %d ranks' batches, gradients averaged: parameters %s "
+          "relative L2 (bound %g; the step's own move %s); the ranks' "
+          "parameter hashes equal after every step: %s [%s]" % (
+              n, ["%.3g" % x["params_rel_l2"] for x in c], DP_PARAM_RTOL,
+              ["%.3g" % x["move"] for x in c],
+              all(d == digests[0] for d in digests), card), flush=True)
+    check(all(np.isfinite(rk["losses"]).all() for rk in r["ranks"]),
+          "10d: a loss is not finite")
+    check(all(d == digests[0] for d in digests),
+          "10d: the ranks' parameters differ after a step")
+    check(len(set(digests[0])) == r["steps"],
+          "10d: a step left the parameters as they were")
+    check(all(x["params_rel_l2"] <= DP_PARAM_RTOL
+              and x["move"] >= CHECK_MOVE * DP_PARAM_RTOL for x in c),
+          "10d: against one card averaging the ranks' gradients, %s "
+          "(bound %g, a step's move at least %g x it)"
+          % (c, DP_PARAM_RTOL, CHECK_MOVE))
+    if n > 1:
+        rk = r["ranks"][0]
+        check(rk["buckets"] > 0 and rk["flushes"] == rk["buckets"]
+              * r["steps"], "10d: %s buckets flushed %s times in %d steps"
+              % (rk["buckets"], rk["flushes"], r["steps"]))
+
+
 def main_path_phases(card, stamp):
-    """Phases 3 to 9a, with 4d, and 9d: every kernel phase, training,
-    serving in both layouts, the profiles, the MoE path and the decode
-    paths. Returns the kernels line's rows of K1-K8, its JSON lines of
-    the training, MoE, serving and decode numbers, and phase 4d's K9 /
-    K10 readings."""
+    """Phases 3 to 9a, with 4d, 9d and 10a-10c: every kernel phase,
+    training, serving in both layouts, the profiles, the MoE path, the
+    decode paths and the eager path on one card. Returns the kernels
+    line's rows of K1-K8 and T1, its JSON lines of the training, MoE,
+    serving, decode and eager numbers and phase 4d's K9 / K10
+    readings."""
     k4 = kernel_phase(card)
     k5 = q8_kernel_phase(card)
     k7 = norm_phase(card)
@@ -6159,6 +6910,8 @@ def main_path_phases(card, stamp):
     decode = decode_phase(card)
     torch.cuda.empty_cache()
     stamp("the decode paths")
+    t1_row, eager = eager_phase(card)
+    stamp("the eager path")
     dg, dl = decode["gpt3_1p3B"], decode["llama2_7B"]
 
     rpa_src = "paddle_tpu_torch/incubate/nn/csrc/ragged_paged_attention.cu"
@@ -6287,7 +7040,9 @@ def main_path_phases(card, stamp):
                                      "llama2_7B_int8": llama,
                                      "gpt3_1p3B_off": off_gpt,
                                      "llama2_7B_int8_off": off_llama}}),
-             json.dumps({"decode": decode})]
+             json.dumps({"decode": decode}),
+             json.dumps({"eager": eager})]
+    kernels.append(t1_row)
     return kernels, lines, ring
 
 
@@ -6394,12 +7149,15 @@ def main(argv=None):
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    sources = {"all": _build.SOURCES, "ring": ("ring",),
+    t1_src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          T1_SRC)
+    sources = {"all": _build.SOURCES + (t1_src,), "ring": ("ring",),
                "mesh": ("flash_attn", "norms"),
                "sp": ("flash_attn", "norms"),
                "pp": ("flash_attn",)}[args.phases]
     secs = _build.build_all(sources)
-    print("build: %s in %.2f s" % (", ".join(sources), secs))
+    print("build: %s in %.2f s" % (", ".join(
+        os.path.relpath(n) if n == t1_src else n for n in sources), secs))
     for name in sources:
         for line in _build.ptxas_report(name).splitlines():
             # (C7517) / (C7518): a wgmma kernel waits where it should not
@@ -6414,7 +7172,7 @@ def main(argv=None):
             out["sp_kernels"] = sp_kernel_phase(card)
             torch.cuda.empty_cache()
             stamp("the sp kernel phase")
-        out["mesh"] = mesh_phase(card, {"mesh": ("mesh", "sp", "pp"),
+        out["mesh"] = mesh_phase(card, {"mesh": ("mesh", "sp", "pp", "dp"),
                                         "sp": ("sp",),
                                         "pp": ("pp",)}[args.phases])
         stamp("the mesh paths")

@@ -11,11 +11,24 @@ Adam moments, dropout, ``TrainStep.run_steps_stream``; ``seed(n)``
 seeds dropout outside a ``TrainStep``), and whole-generation decoding
 (``models.generate`` / ``beam_search`` / ``speculative_generate`` over
 int8 / int4 weights and an int8 KV cache, ``forward(caches=...)``;
-``seed(n)`` seeds their sampling too). Every TPU kernel on those
-slices is rewritten by hand for ``sm_90a``. Entry points run on ``cuda``
-unless the caller passes ``device="cpu"`` (or a ring of CPU devices).
+``seed(n)`` seeds their sampling too), and the eager dygraph surface
+(``to_tensor``, ``nn.Layer`` and its layers, ``io.DataLoader``, the
+eager optimizers, ``vision`` (MNIST, LeNet, ResNet), ``DataParallel``
+and the custom-op registry ``utils.register_op``, whose ops are mounted
+on ``ops`` and here). Every TPU kernel on those slices is rewritten by
+hand for ``sm_90a``. Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"`` (or a ring of CPU devices) or calls
+``set_device("cpu")``.
 """
+from . import io, nn, ops, optimizer, utils, vision
+from .core.autograd import (backward, enable_grad, grad, is_grad_enabled,
+                            no_grad, set_grad_enabled)
 from .core.random import seed
-from .device import resolve_device
+from .core.tensor import is_tensor, to_tensor
+from .device import get_device, resolve_device, set_device
+from .distributed.parallel import DataParallel
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["resolve_device", "seed", "set_device", "get_device",
+           "to_tensor", "is_tensor", "no_grad", "enable_grad",
+           "set_grad_enabled", "is_grad_enabled", "grad", "backward", "nn",
+           "io", "ops", "optimizer", "utils", "vision", "DataParallel"]

@@ -1,6 +1,7 @@
 """The environment knobs the port reads: the ``PADDLE_TPU_SERVE_*`` rows
-of the serving engine, the training health policy and the TP overlap
-mode of ``fusion/overlap_mm.py``.
+of the serving engine, the training health policy, the TP overlap
+mode of ``fusion/overlap_mm.py`` and the datasets' rows
+(``PADDLE_TPU_DATA_HOME``, ``PADDLE_TPU_SYNTH_SAMPLES``).
 
 The port keeps its own copy of the rows it needs, with the same names,
 types, defaults and parse rules as the JAX package's registry, so one
@@ -47,6 +48,10 @@ _ALL = (
        "Non-finite grad policy: off|warn|skip|raise."),
     _k("TP_OVERLAP", "str", "auto",
        "TP comm/compute overlap: auto|on|off|pallas."),
+    _k("DATA_HOME", "str", "~/.cache/paddle_tpu", "Dataset cache root."),
+    _k("SYNTH_SAMPLES", "int", 32,
+       "Synthetic-fallback dataset size (datasets override the "
+       "default per split)."),
 )
 
 KNOBS: Dict[str, Knob] = {k.name: k for k in _ALL}

@@ -16,6 +16,12 @@ into full numpy arrays (collectives: every rank calls them). The
 optimizer state's pieces follow their parameter's: ``m`` and a full
 ``v`` its layout, a factored ``vr`` the rows' and ``vc`` the columns'.
 
+An eager ``nn.Layer`` (LeNet, ResNet, ...) keeps the JAX ``Layer``'s
+``state_dict`` names and layouts (``BatchNorm2D``'s ``_mean`` /
+``_variance`` buffers, ``Linear``'s ``[in, out]`` weight):
+:func:`layer_params` checks a JAX ``state_dict()`` (numpy arrays)
+against the layer and gives the tensors ``set_state_dict`` takes.
+
 A fleet pipeline (``distributed.fleet.PipelineLayer`` of the Megatron
 layers, built on every rank for its stage and mp rank) takes its pieces
 from :func:`fleet_params`: the full matrices keyed as the same
@@ -33,7 +39,7 @@ import torch
 
 __all__ = ["params_from_paddle_tpu", "opt_state_from_paddle_tpu",
            "shard_params", "gather_params", "shard_opt_state",
-           "gather_opt_state", "state_layout", "fleet_params"]
+           "gather_opt_state", "state_layout", "fleet_params", "layer_params"]
 
 
 def _tensor(arr: Any) -> torch.Tensor:
@@ -190,3 +196,26 @@ def _mp_rank(layer, p) -> int:
         if any(q is p for q in mod.parameters(recurse=False)):
             return mod.rank
     raise ValueError("no module of %r holds the parameter" % (layer,))
+
+
+def layer_params(state: Mapping[str, Any], layer=None
+                 ) -> Dict[str, torch.Tensor]:
+    """A JAX ``Layer``'s ``state_dict()`` as numpy arrays -> ``{name:
+    tensor}`` under the same names, for ``layer.set_state_dict`` (or
+    ``load_state_dict``). Given ``layer``, every name and shape must be
+    the layer's own (parameters and persistable buffers, both ways), and
+    the tensors come on the layer's devices in its types."""
+    out = {name: _tensor(arr) for name, arr in state.items()}
+    if layer is None:
+        return out
+    own = layer.state_dict()
+    if set(own) != set(out):
+        raise KeyError("state and layer differ: only in the state %s, only "
+                       "in the layer %s" % (sorted(set(out) - set(own)),
+                                            sorted(set(own) - set(out))))
+    for name, t in own.items():
+        if tuple(out[name].shape) != tuple(t.shape):
+            raise ValueError("%s: state %s, layer %s" % (
+                name, tuple(out[name].shape), tuple(t.shape)))
+        out[name] = out[name].to(device=t.device, dtype=t.dtype)
+    return out

@@ -1,4 +1,5 @@
-"""Core services of the port (so far the random streams of dropout)."""
-from . import random
+"""Core services of the port: the random streams (dropout, parameter
+initialisation, the samplers), tensor creation and grad mode."""
+from . import autograd, random, tensor
 
-__all__ = ["random"]
+__all__ = ["autograd", "random", "tensor"]

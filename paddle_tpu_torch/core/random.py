@@ -1,4 +1,5 @@
-"""The random streams that dropout draws from.
+"""The random streams that dropout, parameter initialisation and the
+data samplers draw from.
 
 Counterpart of ``paddle_tpu/core/random.py`` (``seed``, ``next_key``,
 ``rng_guard``). The JAX package splits a host key for every random op and
@@ -12,7 +13,9 @@ tensors' device, never from the global ``torch`` RNG:
   ``seed=`` argument), which it installs with :func:`rng_guard` for the
   duration of each step.
 
-:func:`generator` is what every draw asks for. The state is the
+:func:`generator` is what every draw on a device asks for;
+:func:`host_generator` is the ``np.random.RandomState`` of the data
+samplers (``io.RandomSampler``), reseeded by :func:`seed` too. The state is the
 process's, not a thread's (the JAX package keeps it per thread): the
 autograd engine runs a CUDA backward, and with it a recomputed block's
 forward, on a thread of its own, which must draw from the generator the
@@ -23,9 +26,10 @@ from __future__ import annotations
 from contextlib import contextmanager
 from typing import Dict
 
+import numpy as np
 import torch
 
-__all__ = ["seed", "generator", "rng_guard"]
+__all__ = ["seed", "generator", "host_generator", "rng_guard"]
 
 
 class _RNGState:
@@ -33,6 +37,7 @@ class _RNGState:
         self.seed = 0
         self.defaults: Dict[torch.device, torch.Generator] = {}
         self.guarded = []           # generators installed by rng_guard
+        self.host = None            # the samplers' RandomState
 
 
 _state = _RNGState()
@@ -51,7 +56,16 @@ def seed(s: int) -> int:
     _state.seed = int(s)
     for g in _state.defaults.values():
         g.manual_seed(_state.seed)
+    _state.host = None
     return _state.seed
+
+
+def host_generator() -> np.random.RandomState:
+    """The host's random stream of the data samplers, seeded by
+    :func:`seed` (0 until it is called)."""
+    if _state.host is None:
+        _state.host = np.random.RandomState(_state.seed)
+    return _state.host
 
 
 def generator(device) -> torch.Generator:

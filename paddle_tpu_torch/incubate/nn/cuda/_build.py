@@ -8,6 +8,11 @@ seconds. Libraries go to ``paddle_tpu_torch/_build/`` (listed in
 edited source is always rebuilt and a stale library is never loaded.
 ``nvcc``'s resource report (``-Xptxas -v``: registers, shared memory,
 spills per kernel) is kept beside each library as ``<lib>.log``.
+
+A kernel source outside ``csrc/`` (a custom op's kernel kept beside its
+op, e.g. ``tests/_torch_custom_op/twoxplus1.cu``) is named by its path
+(a ``Path``, or a string ending in ``.cu``) wherever a name is taken: it
+is built the same way, its library named after the file's stem.
 """
 from __future__ import annotations
 
@@ -50,8 +55,16 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC / (name + ".cu")
+def _source(name) -> Path:
+    """``csrc/<name>.cu``, or the named ``.cu`` file itself."""
+    if isinstance(name, Path) or str(name).endswith(".cu"):
+        return Path(name).resolve()
+    return CSRC / (name + ".cu")
+
+
+def _lib_path(name) -> Path:
+    src = _source(name)
+    name = src.stem
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
     return BUILD_DIR / ("lib%s-%s.so" % (name, digest))
 
@@ -67,8 +80,7 @@ def _start(name: str):
     log = open(str(lib) + ".log", "w")
     try:
         proc = subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-             str(CSRC / (name + ".cu"))],
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))],
             stdout=log, stderr=subprocess.STDOUT)
     finally:
         log.close()
@@ -79,13 +91,13 @@ def _finish(name: str, started) -> None:
     proc, tmp, lib = started
     rc = proc.wait()
     if rc != 0:
-        raise RuntimeError("nvcc failed (%d) on %s.cu:\n%s"
-                           % (rc, name, ptxas_report(name)))
+        raise RuntimeError("nvcc failed (%d) on %s:\n%s"
+                           % (rc, _source(name).name, ptxas_report(name)))
     os.replace(tmp, lib)            # atomic: a reader sees all or nothing
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` if its library is missing; returns the
+def build(name) -> Path:
+    """Compile ``csrc/<name>.cu`` (or the named ``.cu`` file) if its library is missing; returns the
     library's path."""
     started = _start(name)
     if started is not None:
@@ -93,7 +105,7 @@ def build(name: str) -> Path:
     return _lib_path(name)
 
 
-def build_all(names: Iterable[str] = SOURCES) -> float:
+def build_all(names: Iterable = SOURCES) -> float:
     """Build every kernel source, one ``nvcc`` per source, all started
     together; returns the wall seconds it took."""
     t0 = time.perf_counter()
@@ -105,17 +117,19 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def ptxas_report(name: str) -> str:
+def ptxas_report(name) -> str:
     """What ``nvcc`` printed while building ``name`` (empty when the
     library came from an earlier build without its log)."""
     log = Path(str(_lib_path(name)) + ".log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load(name) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (or of the named ``.cu``
+    file), built on first use."""
+    key = str(_source(name))
     with _lock:
-        lib: Optional[ctypes.CDLL] = _libs.get(name)
+        lib: Optional[ctypes.CDLL] = _libs.get(key)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(str(build(name)))
+            lib = _libs[key] = ctypes.CDLL(str(build(name)))
         return lib

@@ -1,6 +1,13 @@
-"""Neural-network pieces of the port: functionals (so far dropout) and
-the global-norm gradient clip the eager optimizers take."""
-from . import functional
+"""Neural-network pieces of the port: the eager ``Layer`` API and its
+layers (:mod:`.layer`), functionals, initializers, and the global-norm
+gradient clip the eager optimizers take."""
+from . import functional, initializer
 from .clip import ClipGradByGlobalNorm
+from .layer import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm2D, Conv2D,
+                    CrossEntropyLoss, Flatten, Layer, Linear, MaxPool2D,
+                    Parameter, ReLU, Sequential)
 
-__all__ = ["functional", "ClipGradByGlobalNorm"]
+__all__ = ["functional", "initializer", "ClipGradByGlobalNorm", "Layer",
+           "Parameter", "Linear", "Flatten", "ReLU", "Sequential", "Conv2D",
+           "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D", "BatchNorm2D",
+           "CrossEntropyLoss"]

@@ -1,4 +1,7 @@
-"""Dropout.
+"""Dropout and ``linear``.
+
+``linear(x, weight, bias)`` is ``x @ weight + bias`` with Paddle's
+``[in, out]`` weight (``paddle_tpu/nn/functional/common.py``).
 
 Port of ``dropout`` of ``paddle_tpu/nn/functional/common.py``: in
 training, a keep mask of probability ``1 - p`` (over ``x``'s shape, or
@@ -18,7 +21,7 @@ import torch
 
 from ...core import random as _random
 
-__all__ = ["dropout", "dropout_mask"]
+__all__ = ["dropout", "dropout_mask", "linear"]
 
 
 def dropout_mask(shape, p: float, device) -> torch.Tensor:
@@ -47,3 +50,8 @@ def dropout(x: torch.Tensor, p: float = 0.5, axis=None,
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
+    """``x @ weight + bias``, ``weight`` of shape ``[in, out]``."""
+    return torch.nn.functional.linear(x, weight.t(), bias)

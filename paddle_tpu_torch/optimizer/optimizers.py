@@ -1,4 +1,5 @@
-"""AdamW and SGD, as functional updates over lists of tensors.
+"""AdamW, Adam, SGD and Momentum, as functional updates over lists of
+tensors.
 
 Port of the functional path of ``paddle_tpu/optimizer/optimizers.py``
 (``Adam.init_state`` / ``_functional_update`` as ``AdamW.update`` runs
@@ -49,10 +50,14 @@ it, ``set_lr`` then raises, as in the JAX ``Optimizer``.
 
 :class:`SGD` is the JAX ``SGD.init_state`` / ``update`` that the compiled
 pipeline drives: no state, ``p - lr * (g + weight_decay * p)``, returning
-new tensors as the JAX version returns new arrays.
+new tensors as the JAX version returns new arrays. :class:`Momentum`
+(``velocity`` state, ``use_nesterov``) returns new tensors the same way.
+:class:`Adam` is :class:`AdamW`'s update with the JAX ``Adam``'s coupled
+L2 decay (``g + weight_decay * p``) in place of the decoupled one.
 
-Both also carry the JAX eager surface that the fleet path drives
-(``AdamW(..., parameters=model.parameters(), grad_clip=clip)``,
+All four also carry the JAX eager surface that the fleet and dygraph
+paths drive (``AdamW(..., parameters=model.parameters(),
+grad_clip=clip)``,
 ``step()``, ``clear_grad()``), built on the same ``init_state`` /
 ``update``: ``step`` reads each parameter's gradient (:func:`grad_of`:
 the f32 ``main_grad`` the fleet pipeline accumulates, else ``.grad``),
@@ -72,7 +77,7 @@ import torch.distributed as dist
 
 from .lr import LRScheduler
 
-__all__ = ["AdamW", "SGD", "grad_of"]
+__all__ = ["Adam", "AdamW", "SGD", "Momentum", "grad_of"]
 
 State = Dict[str, Union[List[torch.Tensor], torch.Tensor]]
 
@@ -219,6 +224,7 @@ class AdamW(_LearningRate, _Eager):
             else None
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._coeff = float(weight_decay)
+        self._l2 = 0.0      # Adam's coupled decay, added to the gradient
         self._moment_dtype = moment_dtype if isinstance(
             moment_dtype, torch.dtype) else getattr(torch, moment_dtype)
         self._factored_v = bool(factored_v)
@@ -291,12 +297,13 @@ class AdamW(_LearningRate, _Eager):
         bc2 = 1 - torch.pow(b2, state["t"])
         if self._moment_quant == "8bit":
             for i, (p, g) in enumerate(zip(params, grads)):
-                self._update_q8(i, p, g.float(), state, lr, bc1, bc2)
+                self._update_q8(i, p, self._grad32(p, g), state, lr, bc1,
+                                bc2)
             return
         for i, (p, g) in enumerate(zip(params, grads)):
             # .float() of an f32 tensor is the tensor itself: m and p are
             # then updated in place, which is what the copies below do too
-            g32 = g.float()
+            g32 = self._grad32(p, g)
             m = state["m"][i].float().mul_(b1).add_(g32, alpha=1 - b1)
             if self._factored_v and p.dim() >= 2:
                 rows, cols = shards[i] if shards is not None else (None,
@@ -324,6 +331,10 @@ class AdamW(_LearningRate, _Eager):
             p32.addcdiv_(m / bc1, denom, value=-lr)
             p.copy_(p32)
             state["m"][i].copy_(m)
+
+    def _grad32(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """The f32 gradient the update takes (Adam: plus ``wd * p``)."""
+        return g.float() + self._l2 * p.float() if self._l2 else g.float()
 
     def _apply(self, idx, grads) -> None:
         """The eager step's update of parameters ``idx`` (indices into
@@ -360,6 +371,35 @@ class AdamW(_LearningRate, _Eager):
             state[key + "_ax"][i].copy_(ax)
 
 
+class Adam(AdamW):
+    """Adam (port of ``Adam`` of ``paddle_tpu/optimizer/optimizers.py``):
+    :class:`AdamW`'s update with the JAX ``Adam``'s weight decay, the
+    coupled L2 (``_decayed``: ``g + weight_decay * p`` enters the
+    moments), where AdamW's is decoupled (``p *= 1 - lr *
+    weight_decay``). ``weight_decay`` is a float or an ``L2Decay``-like
+    object with a ``coeff``."""
+
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 moment_dtype: Union[str, torch.dtype] = "float32",
+                 moment_quant: Optional[str] = None,
+                 factored_v: bool = False):
+        super().__init__(learning_rate, beta1, beta2, epsilon, 0.0,
+                         moment_dtype, moment_quant, factored_v, parameters,
+                         grad_clip)
+        self._l2 = _coeff(weight_decay)
+
+
+def _coeff(weight_decay) -> float:
+    """A weight decay given as a number, None or an object with a
+    ``coeff`` (``L2Decay``)."""
+    if weight_decay is None or isinstance(weight_decay, (int, float)):
+        return float(weight_decay or 0.0)
+    return float(getattr(weight_decay, "_coeff",
+                         getattr(weight_decay, "coeff", 0.0)))
+
+
 class SGD(_LearningRate, _Eager):
     """``SGD(learning_rate=0.001, weight_decay=None)``: plain gradient
     descent with L2 weight decay folded into the gradient;
@@ -390,3 +430,53 @@ class SGD(_LearningRate, _Eager):
         new, _ = self.update(params, grads, {})
         for p, n in zip(params, new):
             p.copy_(n)
+
+
+class Momentum(_LearningRate, _Eager):
+    """``Momentum(learning_rate=0.001, momentum=0.9, use_nesterov=False,
+    weight_decay=None)`` (port of ``Momentum`` of
+    ``paddle_tpu/optimizer/optimizers.py``): with ``g' = g + wd * p``,
+    ``v = momentum * v + g'`` and ``p -= lr * v``, or ``p -= lr * (g' +
+    momentum * v)`` with ``use_nesterov``. State ``{"velocity": [...]}``
+    beside the parameters. :meth:`update` is the JAX functional update
+    (new tensors back, as :class:`SGD`'s); the eager ``step`` copies
+    them into the parameters."""
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 parameters=None, use_nesterov: bool = False,
+                 weight_decay=None, grad_clip=None):
+        super().__init__(learning_rate)
+        self._init_eager(parameters, grad_clip)
+        self._momentum = float(momentum)
+        self._use_nesterov = bool(use_nesterov)
+        self._weight_decay = _coeff(weight_decay)
+
+    def init_state(self, params: Sequence[torch.Tensor]) -> State:
+        return {"velocity": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def update(self, params: Sequence[torch.Tensor],
+               grads: Sequence[torch.Tensor], state: State,
+               lr: Optional[float] = None):
+        """``(new_params, new_state)`` after one step."""
+        lr = self.get_lr() if lr is None else lr
+        wd, mu = self._weight_decay, self._momentum
+        new_p, new_v = [], []
+        for p, g, v in zip(params, grads, state["velocity"]):
+            if wd:
+                g = g + wd * p
+            v = mu * v + g
+            new_v.append(v)
+            new_p.append(p - lr * (g + mu * v if self._use_nesterov else v))
+        return new_p, {"velocity": new_v}
+
+    @torch.no_grad()
+    def _apply(self, idx, grads) -> None:
+        params = [self._parameter_list[i] for i in idx]
+        vel = self._state["velocity"]
+        new, st = self.update(params, grads,
+                              {"velocity": [vel[i] for i in idx]})
+        for p, n in zip(params, new):
+            p.copy_(n)
+        for i, v in zip(idx, st["velocity"]):
+            vel[i] = v

@@ -15,7 +15,11 @@ K1 / K2 / K3 at sq < sk (the gspmd sequence-parallel shape), Llama
 training on an sp 2 mesh of two cards in ring and ulysses mode against
 one card, and the fleet leg on two cards (the mp layers at mp 2 against
 the full matrices, the Megatron stack in 1F1B on pp 2 against one
-card). These tests need an NVIDIA Hopper GPU
+card), and the eager path's T1 (``twoxplus1``, the custom-op fixture's
+kernel in ``tests/_torch_custom_op/``: bitwise against ``x * 2 + 1`` in
+f32 / bf16 / f16, a transposed and a misaligned input, refused types,
+mounted through ``register_op``) with a LeNet step on the card against
+the CPU. These tests need an NVIDIA Hopper GPU
 (``cuda`` marker) and skip elsewhere; the tests that every kernel
 wrapper raises on CPU tensors run anywhere. The file imports neither JAX nor
 the JAX package, so it also runs on a machine that has only PyTorch,
@@ -2363,3 +2367,140 @@ def test_decode_quantizers_on_the_card_match_the_cpu(kind):
         for key in cpu:
             assert card[key].dtype == cpu[key].dtype
             assert torch.equal(card[key].cpu(), cpu[key]), (dtype, key)
+
+
+# --------------------------------------------- T1: twoxplus1, the eager path
+def _twoxplus1():
+    from _torch_custom_op import twoxplus1 as t1
+
+    return t1
+
+
+TWOXPLUS1_CASES = [((2, 4), torch.float32)] + [
+    ((1001, 4097), dt) for dt in (torch.float32, torch.bfloat16,
+                                  torch.float16)] + [
+    ((8192, 8192), torch.float32), ((1,), torch.bfloat16),
+    ((7,), torch.float16), ((3, 5, 0), torch.float32)]
+
+
+def test_twoxplus1_kernel_raises_on_cpu_tensors():
+    t1 = _twoxplus1()
+    before = t1.twoxplus1_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        t1.twoxplus1_cuda(torch.ones(3))
+    assert t1.twoxplus1_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", TWOXPLUS1_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_twoxplus1_bitwise(shape, dtype):
+    """T1 equals its plain version ``x * 2 + 1`` bit for bit: ``x * 2``
+    is exact and ``fmaf`` rounds once, as PyTorch's add does (then once
+    more to bf16 / f16 in both)."""
+    _need_hopper()
+    t1 = _twoxplus1()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(shape, device="cuda", generator=g) * 100).to(dtype)
+    before = t1.twoxplus1_cuda.launches
+    got = t1.twoxplus1_cuda(x)
+    torch.cuda.synchronize()
+    assert t1.twoxplus1_cuda.launches == before + (x.numel() > 0)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, t1.twoxplus1_ref(x))
+
+
+@pytest.mark.cuda
+def test_twoxplus1_layouts_and_refused_dtypes():
+    """A transposed view is made contiguous first; a view 4 bytes past an
+    aligned start takes the scalar path; f64 / int are refused."""
+    _need_hopper()
+    t1 = _twoxplus1()
+    x = torch.randn(333, 257, device="cuda")
+    assert torch.equal(t1.twoxplus1_cuda(x.t()), x.t() * 2 + 1)
+    off = x.view(-1)[1:]
+    assert off.data_ptr() % 16 != 0
+    assert torch.equal(t1.twoxplus1_cuda(off), off * 2 + 1)
+    for bad in (x.double(), x.int()):
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+            t1.twoxplus1_cuda(bad)
+
+
+@pytest.mark.cuda
+def test_twoxplus1_registers_as_a_custom_op():
+    """register_op mounts the kernel; the op launches it on CUDA tensors,
+    refuses a tensor that records its gradient (no backward), and
+    deregister_op restores what it shadowed."""
+    _need_hopper()
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.utils import deregister_op, register_op
+
+    t1 = _twoxplus1()
+    had = hasattr(pt.ops, "twoxplus1")
+    register_op("twoxplus1", t1.twoxplus1, tensor_method=True)
+    try:
+        a = np.arange(8, dtype=np.float32).reshape(2, 4)
+        before = t1.twoxplus1_cuda.launches
+        out = pt.ops.twoxplus1(pt.to_tensor(a, place="cuda"))
+        y = pt.to_tensor(a, place="cuda").twoxplus1()
+        assert t1.twoxplus1_cuda.launches == before + 2
+        assert out.is_cuda
+        np.testing.assert_array_equal(out.cpu().numpy(), a * 2 + 1)
+        assert torch.equal(y, out)
+        with pytest.raises(RuntimeError, match="backward="):
+            pt.ops.twoxplus1(pt.to_tensor(a, place="cuda",
+                                          stop_gradient=False))
+    finally:
+        deregister_op("twoxplus1")
+    assert hasattr(pt.ops, "twoxplus1") == had
+    assert "twoxplus1" not in pt.ops.__all__
+    assert not hasattr(torch.Tensor, "twoxplus1")
+
+
+@pytest.mark.cuda
+def test_lenet_step_on_the_card_matches_the_cpu():
+    """One LeNet step (CrossEntropyLoss, Adam) on the card against the
+    same weights and batch on the CPU: logits, loss and gradients within
+    1e-4 (cuDNN's f32 convolutions, TF32 off, sum in other orders), the
+    parameters after the step within 1e-5."""
+    _need_hopper()
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import LeNet
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        pt.seed(0)
+        models = {}
+        for dev in ("cpu", "cuda"):
+            pt.set_device(dev)
+            models[dev] = LeNet()
+        pt.set_device(None)
+        models["cuda"].set_state_dict(models["cpu"].state_dict())
+        rng = np.random.RandomState(0)
+        x = rng.rand(64, 1, 28, 28).astype(np.float32)
+        y = rng.randint(0, 10, 64)
+        res = {}
+        for dev, m in models.items():
+            opt = pt.optimizer.Adam(parameters=m.parameters(),
+                                    learning_rate=1e-3)
+            logits = m(pt.to_tensor(x, place=dev))
+            loss = pt.nn.CrossEntropyLoss()(logits, pt.to_tensor(y,
+                                                                 place=dev))
+            loss.backward()
+            grads = {n: p.grad.cpu().clone() for n, p in m.named_parameters()}
+            opt.step()
+            res[dev] = (logits.detach().cpu(), loss.detach().cpu(), grads,
+                        {n: p.detach().cpu() for n, p in
+                         m.named_parameters()})
+        tol = dict(rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(res["cuda"][0], res["cpu"][0], **tol)
+        torch.testing.assert_close(res["cuda"][1], res["cpu"][1], **tol)
+        for n in res["cpu"][2]:
+            torch.testing.assert_close(res["cuda"][2][n], res["cpu"][2][n],
+                                       **tol)
+            torch.testing.assert_close(res["cuda"][3][n], res["cpu"][3][n],
+                                       rtol=1e-5, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        pt.set_device(None)
