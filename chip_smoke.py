@@ -6,13 +6,13 @@ toolkit (``nvcc``)::
 
     python3 chip_smoke.py                 # every phase, on one card
     python3 chip_smoke.py --phases ring   # phases 1, 2 (ring.cu), 4d, 9b, 9c
-    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e-9g, 10d
+    python3 chip_smoke.py --phases mesh   # phases 1, 2 (K1-K3, K7), 9e-9g, 10d, 11b
     python3 chip_smoke.py --phases sp     # phases 1, 2 (K1-K3, K7), 5b, 9f
     python3 chip_smoke.py --phases pp     # phases 1, 2 (K1-K3), 9g
 
 Phases 9e (sharded training), 9f (sequence parallelism), 9g (the
-fleet pipeline) and 10d (DataParallel) spawn one process a card, four
-at most, all in one spawn: their full-width runs need four cards
+fleet pipeline), 10d (DataParallel) and 11b (group sharding) spawn one
+process a card, four at most, all in one spawn: their full-width runs need four cards
 (``--phases mesh``, ``sp`` or ``pp`` on four cards runs them alone;
 ``pp`` runs 9e's GPT-3 13B run
 first, 9g's yardstick); on fewer they run their f32 checks only (on mp 2
@@ -102,6 +102,11 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    ``scaled_dot_product_attention``; backward: its aten backward op; both
    timed only) and its bound, and K3 again at the split route's shape
    (where the backward takes it) beside aten's backward and the bound;
+   then K1 and K2 (the backward's route there) at BERT-base's attention
+   (``BASELINE.md`` #3: b 32, s 512, 12 heads, d 64, not causal) in f32
+   (the FFMA route, held within FLASH_F32_ROW_TOL) and bf16, each timed
+   beside its plain version, aten's SDPA (f32: its memory-efficient
+   kernels) and the bound;
 5b. K1, K2, K3 at the sequence-parallel shapes of phase 9f, Llama-2 7B's
    attention (32 heads, d 128, bf16, causal) at 1 x 16384: the ring's
    loop over 4 parts without the ring (K1 on each rank's own part,
@@ -326,14 +331,43 @@ Phases, in order; a failure in any of them raises and exits non-zero:
    running it from the same state over the ranks' batches in turn and
    averaging their gradients; on fewer cards the f32 check only (8
    images a rank, 2 steps: two ranks on two cards, one on one);
-11. one JSON line with the six training paths' numbers, one with the
+11. (after 10c) ``BASELINE.md`` #3, BERT-base pretraining (the eager
+   ``nn.Layer`` model, K1 / K2 in every layer's attention). 11a:
+   ``bert_base()`` f32 (TF32 off), 32 x 512 tokens (BERT's phase-2
+   length; the largest power-of-two batch that fits if it does not, and
+   said), 15% of the positions with MLM labels and NSP labels from seed
+   0, dropout 0.1, ``AdamW(1e-4, weight_decay 0.01)``, 6 steps:
+   tokens/s, median step, peak memory, MFU against 67 TFLOP/s f32 (6N +
+   12 L h s flops a token, N every parameter once), the device split of
+   two profiled steps (cuBLAS, K1 / K2, LayerNorm, the MLM log-softmax,
+   AdamW, the rest), K1 and K2 launched exactly once a layer a step; a
+   2-layer f32 copy (dropout 0, 2 x 512) whose first loss and gradients
+   through K1 / K2 are held against the plain attention's on the card,
+   and its loss against the CPU's, within 1e-4 (relative; each gradient
+   in relative L2). 11b (in 9e's spawn, after 10d; ``--phases mesh``
+   runs it too): on four cards, 32 x 512 a rank, 4 steps from rank 0's
+   weights, under ``DataParallel``, ``group_sharded_parallel`` at
+   ``os``, ``os_g`` and ``p_g_os``, and fleet (``sharding_degree`` 4,
+   stage 1, ``ClipGradByGlobalNorm(1.0)``): tokens/s over the cards, the
+   median step, peak memory and AdamW state a rank, NCCL's share of each
+   rank's device time (each rank profiled in a step of its own) and the
+   rank's time outside NCCL; the ranks' parameters bitwise equal after every
+   step; each sharded run's step against DataParallel's step from the
+   same state (the same batches and dropout seeds): the loss within
+   2e-4, each weight tensor and all parameters together within 1e-4
+   (relative L2), each bias within 3e-3 (zero at the start, a bias is one
+   Adam step after the first), the keys' biases by their gradient
+   (rounding alone: at most 1e-3 of the queries' biases', in the
+   reference step), a step moving the parameters by at least 4x 1e-4; on
+   fewer cards the check only (4 x 512 a rank, 2 steps);
+12. one JSON line with the six training paths' numbers, one with the
    MoE numbers, one with the serving numbers, one with the decode
-   numbers, one with the eager path's numbers, one with the mesh
-   numbers, one with the TP and pipeline numbers, then one listing
-   every ported kernel with its numbers (``--phases ring``: the last two
-   only; ``--phases mesh`` / ``sp`` / ``pp``: one line with the mesh
-   numbers, and with ``sp`` phase 5b's);
-12. last line: ``{"ok": true, "device": {...}}``.
+   numbers, one with the eager path's numbers, one with BERT-base's,
+   one with the mesh numbers, one with the TP and pipeline numbers, then
+   one listing every ported kernel with its numbers (``--phases ring``:
+   the last two only; ``--phases mesh`` / ``sp`` / ``pp``: one line
+   with the mesh numbers, and with ``sp`` phase 5b's);
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -1412,14 +1446,15 @@ def visible_pairs(sq, sk, causal):
     return int(lim.sum())
 
 
-def flash_work(b, sq, sk, h, d, causal, backward):
+def flash_work(b, sq, sk, h, d, causal, backward, esize=2):
     """Bytes each kernel must move (every input read once, every output
-    written once, bf16 tensors, f32 lse) and the flops of the function:
+    written once, tensors of ``esize`` bytes (bf16 by default), f32 lse)
+    and the flops of the function:
     4*d per visible pair forward (q.k and p.v), 10*d backward (s, dv,
     dp, dk, dq; K3 recomputes s and dp in its second kernel, which the
     bound does not count)."""
-    qo = b * sq * h * d * 2
-    kv = b * sk * h * d * 2
+    qo = b * sq * h * d * esize
+    kv = b * sk * h * d * esize
     lse = b * h * sq * 4
     pairs = visible_pairs(sq, sk, causal) * b * h
     if not backward:               # q, k, v in; out, lse out
@@ -5399,7 +5434,8 @@ def mesh_worker(out, jobs):
         print("mesh rank %d: %s" % (dist.get_rank(), job["name"]),
               flush=True)
         res[job["name"]] = (pp_job if job.get("pp") else dp_job
-                            if job.get("dp") else mesh_job)(job, shared)
+                            if job.get("dp") else bert_job
+                            if job.get("bert") else mesh_job)(job, shared)
         print("mesh rank %d: %s done in %.1f s" % (
             dist.get_rank(), job["name"], time.perf_counter() - t0),
             flush=True)
@@ -5408,12 +5444,12 @@ def mesh_worker(out, jobs):
             json.dump(res, f)
 
 
-def mesh_phase(card, parts=("mesh", "sp", "pp", "dp")):
+def mesh_phase(card, parts=("mesh", "sp", "pp", "dp", "bert")):
     """Phases 9e ("mesh": :func:`mesh_jobs`), 9f ("sp": :func:`sp_jobs`),
     9g ("pp": :func:`pp_jobs`, after 9e's GPT-3 13B run, its yardstick,
-    which runs alone where 9e does not) and 10d ("dp": :func:`dp_jobs`)
-    in one spawn of one rank a card (four at most), then each run's
-    readings checked and printed."""
+    which runs alone where 9e does not), 10d ("dp": :func:`dp_jobs`) and
+    11b ("bert": :func:`bert_jobs`) in one spawn of one rank a card (four
+    at most), then each run's readings checked and printed."""
     import tempfile
 
     from paddle_tpu_torch.distributed import spawn
@@ -5425,15 +5461,17 @@ def mesh_phase(card, parts=("mesh", "sp", "pp", "dp")):
             if "pp" in parts else []) + \
         (sp_jobs(cards) if "sp" in parts else []) + \
         (pp_jobs(cards) if "pp" in parts else []) + \
-        (dp_jobs(cards) if "dp" in parts else [])
+        (dp_jobs(cards) if "dp" in parts else []) + \
+        (bert_jobs(cards) if "bert" in parts else [])
     if cards < 4:
         print("mesh: the full-width runs (9e: Llama-2 7B on dp 2 x mp 2, "
               "GPT-3 13B on mp 2 x dp 2, FSDP over dp; 9f: Llama-2 7B at "
               "1 x %d tokens, ring on sp 4 and ulysses on sp 2 x mp 2; 9g: "
               "GPT-3 13B on pp 2 x mp 2; 10d: ResNet-50 DataParallel, 64 "
-              "images a rank) need four cards; %d here: the f32 checks "
-              "only, on %s (9g: pp 2 on two cards, one rank on one; 10d: "
-              "one rank a card; NCCL refuses two ranks on one card) [%s]"
+              "images a rank; 11b: BERT-base under group sharding, 32 x 512 "
+              "a rank) need four cards; %d here: the f32 checks only, on %s "
+              "(9g: pp 2 on two cards, one rank on one; 10d, 11b: one rank "
+              "a card; NCCL refuses two ranks on one card) [%s]"
               % (SP_SEQ, cards, sorted({str(j["mesh"]) for j in jobs
                                         if "mesh" in j}), card),
               flush=True)
@@ -5455,6 +5493,8 @@ def mesh_phase(card, parts=("mesh", "sp", "pp", "dp")):
             pp_check(job, res[job["name"]], card, res)
         elif job.get("dp"):
             dp_check(job, res[job["name"]], card)
+        elif job.get("bert"):
+            bert_check_11b(job, res[job["name"]], card)
         else:
             mesh_check(job, res[job["name"]], card)
     return res
@@ -6671,12 +6711,22 @@ def dp_jobs(cards):
                  dp=True, full=full, **(DP_FULL if full else DP_CHECK))]
 
 
-def param_digest(params):
-    """A hash of every parameter's bytes, in order (the JAX test's)."""
-    import hashlib
+def same_on_every_rank(tensors):
+    """True when every rank holds ``tensors`` (4-byte elements) bit for
+    bit: rank 0's broadcast one at a time and compared as int32 on the
+    card, with no copy to the host."""
+    import torch.distributed as dist
 
-    flat = torch.cat([p.detach().reshape(-1) for p in params]).cpu()
-    return hashlib.sha1(flat.numpy().tobytes()).hexdigest()
+    if dist.get_world_size() == 1:
+        return True
+    bad = 0
+    for t in tensors:
+        mine = t.detach().contiguous().view(torch.int32)
+        theirs = mine.clone()
+        dist.broadcast(theirs, 0)
+        bad = bad + (theirs != mine).sum()
+    dist.all_reduce(bad)
+    return bad.item() == 0
 
 
 def one_card_seconds(init, batch):
@@ -6701,7 +6751,8 @@ def dp_job(job, shared):
     """10d on every rank: ResNet-50 (f32) under ``DataParallel`` from
     seed 0 (the wrap broadcasts rank 0's parameters), RESNET_OPT, rank
     r's batches from generators seeded 1000 step + r, ``job["steps"]``
-    timed steps with a hash of the parameters after each; then rank 0
+    timed steps, whether the ranks' parameters are bitwise equal after
+    each (:func:`same_on_every_rank`); then rank 0
     alone (the others wait) holds each step against one card that runs
     it from the state before it (:func:`resnet_state`, kept on the CPU
     in the timed loop) over every rank's batch in turn and averages the
@@ -6734,7 +6785,7 @@ def dp_job(job, shared):
                for s in range(job["steps"])]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, secs, digests, states = [], [], [], []
+    losses, secs, equal, states = [], [], [], []
     for x, y in batches:
         if rank == 0:
             states.append(resnet_state(model, opt))
@@ -6742,7 +6793,7 @@ def dp_job(job, shared):
         loss, sec = timed_calls(lambda: step(x, y), 1)
         losses += loss
         secs += sec
-        digests.append(param_digest(dp.parameters()))
+        equal.append(same_on_every_rank(dp.parameters()))
         if rank == 0:
             states[-1] += (flat(dp.parameters()),)
     peak = torch.cuda.max_memory_allocated()
@@ -6761,7 +6812,7 @@ def dp_job(job, shared):
     torch.cuda.empty_cache()
     dist.barrier()
     profile = nccl_share(step, batches[-1]) if n > 1 else None
-    mine = dict(rank=rank, losses=losses, digests=digests,
+    mine = dict(rank=rank, losses=losses, equal=equal,
                 step_ms=[1e3 * s for s in secs], peak_gb=peak / 1e9,
                 profile=profile,
                 buckets=None if red is None else len(red.buckets),
@@ -6791,7 +6842,7 @@ def dp_check(job, r, card):
     and averaged their gradients, a step that moves the parameters by
     at least CHECK_MOVE times that bound."""
     n, c = r["cards"], r["compare"]
-    digests = [rk["digests"] for rk in r["ranks"]]
+    equal = all(all(rk["equal"]) for rk in r["ranks"])
     nccl = r["nccl"]
     print("10d ResNet-50 under DataParallel%s: %d ranks, one a card, %d "
           "images a rank, %d steps, f32; losses of rank 0 %s; median step "
@@ -6813,16 +6864,13 @@ def dp_check(job, r, card):
     print("10d each step against one card running it from the same state "
           "over the %d ranks' batches, gradients averaged: parameters %s "
           "relative L2 (bound %g; the step's own move %s); the ranks' "
-          "parameter hashes equal after every step: %s [%s]" % (
+          "parameters bitwise equal after every step: %s [%s]" % (
               n, ["%.3g" % x["params_rel_l2"] for x in c], DP_PARAM_RTOL,
-              ["%.3g" % x["move"] for x in c],
-              all(d == digests[0] for d in digests), card), flush=True)
+              ["%.3g" % x["move"] for x in c], equal, card), flush=True)
     check(all(np.isfinite(rk["losses"]).all() for rk in r["ranks"]),
           "10d: a loss is not finite")
-    check(all(d == digests[0] for d in digests),
-          "10d: the ranks' parameters differ after a step")
-    check(len(set(digests[0])) == r["steps"],
-          "10d: a step left the parameters as they were")
+    check(equal, "10d: the ranks' parameters differ after a step (%s)"
+          % [rk["equal"] for rk in r["ranks"]])
     check(all(x["params_rel_l2"] <= DP_PARAM_RTOL
               and x["move"] >= CHECK_MOVE * DP_PARAM_RTOL for x in c),
           "10d: against one card averaging the ranks' gradients, %s "
@@ -6835,12 +6883,764 @@ def dp_check(job, r, card):
               % (rk["buckets"], rk["flushes"], r["steps"]))
 
 
+# ----------------------------------------------------------- phases 5 (BERT), 11a, 11b
+# BASELINE.md #3: BERT-base pretraining. Phase 5 holds K1 / K2 at its
+# attention shape (b 32, s 512, 12 heads, d 64, non-causal) in f32 (the
+# model path's type: the JAX package's, amp is not ported) and bf16.
+# 11a trains bert_base() in f32 (TF32 off) on one card; 11b trains it
+# under group sharding (os, os_g, p_g_os), DataParallel and fleet's
+# sharding axis on four, each step of a sharded run held against a
+# DataParallel step from the same state (10d's method: AdamW at lr
+# 1e-4 moves a parameter by ~lr a step, a gradient's rounding can flip
+# such a step, so whole trajectories are not compared).
+BERT_FLASH = (32, 512, 512, 12, 64, False)    # b, sq, sk, heads, d, causal
+BERT_BATCH = (32, 512)
+BERT_STEPS = 6
+BERT_OPT = dict(learning_rate=1e-4, weight_decay=0.01)
+BERT_MLM_SHARE = 0.15           # positions with an MLM label
+# 11a's device split: the launching operation's scope (lower case), after
+# K1 / K2 and cuBLAS by kernel name
+BERT_GROUPS = (("AdamW", ("adamw.step",)),
+               ("LayerNorm", ("layer_norm",)),
+               ("MLM log-softmax", ("log_softmax",)))
+# 11a's f32 copy: 2 layers at full width, dropout 0, 2 x 512 tokens; the
+# card's first loss against the CPU's, and the kernels' loss and every
+# gradient against the plain attention's on the card, relative
+BERT_CHECK = dict(layers=2, batch=2, rtol=1e-4)
+# 11b: 32 x 512 a rank, 4 steps on four cards; on fewer the check only
+BERT_SHARD_FULL = dict(batch=32, steps=4)
+BERT_SHARD_CHECK = dict(batch=4, steps=2)
+BERT_SHARD_RUNS = ("dp", "os", "os_g", "p_g_os", "fleet")
+BERT_LOSS_RTOL = 2e-4           # tests/test_baseline_alignment.py:199
+BERT_PARAM_RTOL = 1e-4          # each weight tensor, relative L2
+# each bias tensor, relative L2: a bias starts at 0, so after step 1 it
+# IS one Adam step, g / (|g| + eps) lr an element, and an element whose
+# gradient is near eps moves with its rounding. On one H100 one rank at
+# 4 x 512 read up to 1.02e-3 after step 1 (fleet's clip shrinks g; an
+# out_proj bias), 1.75e-6 after step 2; four ranks at 32 x 512 up to
+# 3.22e-5. About 3x the worst one-rank reading
+BERT_BIAS_RTOL = 3e-3
+# the keys' biases' gradient, relative L2, at most this share of the
+# queries' (:func:`is_key_bias`); read 4.98e-6 and 5.16e-6 in 11a
+BERT_KEY_BIAS_GRAD = 1e-3
+BERT_CLIP = 1.0                 # fleet's run: ClipGradByGlobalNorm
+
+
+def is_key_bias(name):
+    """The keys' biases: they add ``q . b`` to a whole row of scores, which
+    the softmax cancels, so their gradient is rounding alone, which Adam
+    turns into steps of up to the learning rate of either sign. They are
+    held by their gradient (at most BERT_KEY_BIAS_GRAD of the queries'
+    biases'), not by their values."""
+    return name.endswith("k_proj.bias")
+
+
+def key_bias_grad_ratio(grads):
+    """The largest ratio, over the layers, of the keys' biases' gradient
+    to the queries' biases' (norms; ``grads`` by parameter name)."""
+    return max(grads[n].norm().item() / grads[n.replace(
+        "k_proj", "q_proj")].norm().item() for n in grads if is_key_bias(n))
+
+
+def bert_batch(seed, batch, seq=512, vocab=30522, device="cuda"):
+    """Token ids, MLM labels (BERT_MLM_SHARE of the positions, -100
+    elsewhere) and NSP labels from ``np.random.RandomState(seed)``."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq))
+    mlm = np.full((batch, seq), -100)
+    pick = rng.rand(batch, seq) < BERT_MLM_SHARE
+    mlm[pick] = rng.randint(0, vocab, int(pick.sum()))
+    nsp = rng.randint(0, 2, (batch,))
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                 for a in (ids, mlm, nsp))
+
+
+def sdpa_bwd(hm, causal):
+    """The backward of ``scaled_dot_product_attention`` on head-major q,
+    k, v, do (after one forward, its graph kept): the library yardstick of
+    K2 in f32, where aten's flash attention does not run (SDPA takes its
+    memory-efficient kernels)."""
+    leaves = [x.detach().clone().requires_grad_() for x in hm[:3]]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal)
+    return lambda: torch.autograd.grad(out, leaves, hm[3],
+                                       retain_graph=True)
+
+
+def bert_flash_phase(card):
+    """Phase 5 at BERT's shape: K1 and K2 (the backward's route there) in
+    f32 and bf16, each held row by row against its plain version (f32:
+    FLASH_F32_ROW_TOL, bf16: FLASH_ROW_TOL; lse FLASH_LSE_ATOL) and timed
+    beside it, aten's SDPA for the same function and the bound."""
+    from paddle_tpu_torch.incubate.nn.cuda import flash_attn as fa
+
+    b, sq, sk, h, d, causal = BERT_FLASH
+    check(fa.uses_fused_bwd(sq, sk, d), "BERT's attention shape would not "
+          "take K2")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scale = d ** -0.5
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tname = str(dtype).split(".")[-1]
+        f32 = dtype == torch.float32
+        tol = FLASH_F32_ROW_TOL if f32 else FLASH_ROW_TOL
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
+                                   device="cuda").to(dtype)
+                       for s in (sq, sk, sk, sq))
+        hm = [x.transpose(1, 2) for x in (q, k, v, do)]
+        out, lse = fa.flash_fwd(q, k, v, causal, scale)
+        ref_out, ref_lse = fa.flash_fwd_ref(*hm[:3], causal, scale)
+        ref_grads = [g.transpose(1, 2) for g in fa.flash_bwd_ref(
+            *hm[:3], ref_out, ref_lse, hm[3], causal, scale)]
+        ref_out, ref_lse = ref_out.transpose(1, 2), ref_lse[..., 0]
+        before = (fa.flash_bwd_fused.launches, fa.flash_bwd_split.launches)
+        grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal, scale)
+        check((fa.flash_bwd_fused.launches - before[0],
+               fa.flash_bwd_split.launches - before[1]) == (1, 0),
+              "BERT's shape %s: the backward did not take K2" % tname)
+        torch.cuda.synchronize()
+        lse_err = (lse - ref_lse).abs().max().item()
+        errs = {"K1": row_err(out, ref_out)}
+        gerrs = [row_err(g, w) for g, w in zip(grads, ref_grads)]
+        errs["K2"] = (max(e for e, _ in gerrs), max(r for _, r in gerrs))
+        check(bool(torch.isfinite(out).all()) and
+              all(bool(torch.isfinite(g).all()) for g in grads),
+              "BERT's shape %s: non-finite" % tname)
+        check(lse_err <= FLASH_LSE_ATOL, "BERT's shape %s K1: lse max abs "
+              "err %.4g" % (tname, lse_err))
+        for kname, (err, rel) in errs.items():
+            check(rel <= tol, "BERT's shape %s %s: max abs err %.4g, %.4g "
+                  "of its row's RMS > %g" % (tname, kname, err, rel, tol))
+        lse4 = ref_lse[..., None]
+        times = {
+            "K1": (cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, scale),
+                           20),
+                   cuda_ms(lambda: fa.flash_fwd_ref(*hm[:3], causal, scale),
+                           3, warmup=1),
+                   cuda_ms(lambda: sdpa(*hm[:3], is_causal=causal), 20)),
+            "K2": (cuda_ms(lambda: fa.flash_bwd_fused(
+                       q, k, v, ref_out, ref_lse, do, causal, scale), 10),
+                   cuda_ms(lambda: fa.flash_bwd_ref(
+                       *hm[:3], ref_out.transpose(1, 2), lse4, hm[3],
+                       causal, scale), 3, warmup=1),
+                   cuda_ms(sdpa_bwd(hm, causal) if f32 else
+                           aten_flash_bwd(hm, causal, scale), 10))}
+        res[tname] = {}
+        for kname, (ms, plain_ms, library_ms) in times.items():
+            nbytes, flops = flash_work(b, sq, sk, h, d, causal,
+                                       backward=kname == "K2",
+                                       esize=q.element_size())
+            bound_ms, bound_by = bound_of(
+                nbytes, flops, F32_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S)
+            res[tname][kname] = dict(
+                max_abs_err=errs[kname][0], row_err=errs[kname][1],
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops, shape=[b, sq, sk, h, d], causal=causal,
+                library="scaled_dot_product_attention (memory-efficient "
+                "kernels)" if f32 else "aten flash attention")
+            print("%s BERT's shape %s (b %d, s %d, %d heads, d %d, not "
+                  "causal): kernel=%.4f ms plain=%.4f ms library=%.4f ms "
+                  "(%s) bound=%.4f ms (%s, %.1f MB, %.2f GFLOP); max_abs_err "
+                  "%.3g, %.3g of its row's RMS (limit %g)%s [%s]"
+                  % (kname, tname, b, sq, h, d, ms, plain_ms, library_ms,
+                     res[tname][kname]["library"], bound_ms, bound_by,
+                     nbytes / 1e6, flops / 1e9, errs[kname][0],
+                     errs[kname][1], tol, "; lse max abs err %.3g" % lse_err
+                     if kname == "K1" else "", card), flush=True)
+        del q, k, v, do, hm, out, lse, ref_out, ref_lse, ref_grads, grads
+        torch.cuda.empty_cache()
+    return res
+
+
+def bert_model(layers=None, dropout=True, device=None):
+    """``BertForPreTraining(bert_base())`` on ``device`` (the card when
+    None), ``layers`` deep (all 12 when None), dropout 0.1 or 0."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import BertForPreTraining, bert_base
+
+    kw = {} if dropout else dict(hidden_dropout=0.0, attention_dropout=0.0)
+    if layers:
+        kw["num_layers"] = layers
+    pt.set_device(device)
+    try:
+        return BertForPreTraining(bert_base(**kw))
+    finally:
+        pt.set_device(None)
+
+
+def bert_criterion():
+    from paddle_tpu_torch.models import BertPretrainingCriterion
+
+    return BertPretrainingCriterion(30522)
+
+
+def bert_flops_per_token(model, seq):
+    """6N + 12 L h s: N every parameter once (the tied matrix too),
+    non-causal attention (q.k and p.v over every pair, three times with
+    the backward)."""
+    cfg = model.config
+    n = sum(p.numel() for p in model.parameters())
+    return n, 6 * n + 12 * cfg.num_layers * cfg.hidden_size * seq
+
+
+def bert_split(prof):
+    """Busy device time of a profile and its split: K1 / K2 and cuBLAS by
+    kernel name, the others by their launching operation's scope
+    (BERT_GROUPS), else "the rest"."""
+    split, busy = {}, 0.0
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        names, e = [], evt
+        while e is not None:
+            names.append(e.name.lower())
+            e = e.cpu_parent
+        chain = " ".join(names)
+        for kern in evt.kernels:
+            g = group_of(kern.name)
+            if g == "flash K1-K3":
+                label = "K1 / K2"
+            elif g == "GEMM (cuBLAS)":
+                label = "cuBLAS"
+            else:
+                label = next((lab for lab, pat in BERT_GROUPS
+                              if any(x in chain for x in pat)), "the rest")
+            split[label] = split.get(label, 0.0) + kern.duration
+            busy += kern.duration
+    return busy, split
+
+
+def bert_train_phase(card):
+    """11a, BASELINE.md #3 on one card: ``bert_base()`` f32 (TF32 off),
+    BERT_BATCH from seed 0 (or the largest power-of-two batch that fits),
+    dropout 0.1, ``AdamW(1e-4, weight_decay 0.01)``, BERT_STEPS steps:
+    tokens/s, median step, peak memory, MFU against 67 TFLOP/s f32, K1 /
+    K2 launches (exactly one of each a layer a step), the device split of
+    two profiled steps; then the 2-layer f32 copy (:func:`bert_check`)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import paddle_tpu_torch as pt
+
+    b, s = BERT_BATCH
+    while True:
+        pt.seed(0)
+        model = bert_model()
+        crit = bert_criterion()
+        opt = pt.optimizer.AdamW(parameters=model.parameters(), **BERT_OPT)
+        batches = [bert_batch(i, b, s) for i in range(BERT_STEPS)]
+
+        def step(ids, mlm, nsp):
+            loss = crit(*model(ids), mlm, nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        read = zero_counts()
+        feed = iter(batches)
+        try:
+            losses, secs = timed_calls(lambda: step(*next(feed)), BERT_STEPS)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print("11a: batch %d x %d does not fit; halving it" % (b, s),
+                  flush=True)
+            del model, opt, batches
+            torch.cuda.empty_cache()
+            check(b > 1, "11a: one sequence does not fit")
+            b //= 2
+    launches = read()
+    peak = torch.cuda.max_memory_allocated()
+    n_params, per_token = bert_flops_per_token(model, s)
+    tail = secs[1:]
+    median = statistics.median(tail)
+    tokens_s = b * s * len(tail) / sum(tail)
+    mfu = tokens_s * per_token / F32_FLOPS_PER_S
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ids, mlm, nsp in batches[:2]:
+            loss = crit(*model(ids), mlm, nsp)
+            loss.backward()
+            with record_function("AdamW.step"):
+                opt.step()
+            opt.clear_grad()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, split = bert_split(prof)
+    L = model.config.num_layers
+    want = {"K1": L * BERT_STEPS, "K2": L * BERT_STEPS, "K3": 0}
+    res = dict(batch=[b, s], fits_32=b == BERT_BATCH[0], steps=BERT_STEPS,
+               dtype="float32", losses=losses,
+               step_ms=[1e3 * x for x in secs], median_step_ms=1e3 * median,
+               tokens_s=tokens_s, params=n_params, flops_per_token=per_token,
+               mfu=mfu, peak_gb=peak / 1e9,
+               launches={k: launches[k] for k in want},
+               busy_share=busy / wall_us if busy else None,
+               device_split_ms={k: v / 2e3 for k, v in split.items()})
+    print("11a BERT-base f32 (TF32 off), batch %d x %d%s, dropout 0.1, "
+          "AdamW(1e-4, wd 0.01), %d steps: losses %s; median step %.2f ms, "
+          "%.1f tokens/s, MFU %.4f against 67 TFLOP/s f32 (%d params, the "
+          "tied matrix once; %.4g flops a token = 6N + 12 L h s), peak "
+          "memory %.2f GB; launches %s [%s]" % (
+              b, s, "" if b == BERT_BATCH[0] else " (the largest "
+              "power-of-two batch that fits)", BERT_STEPS,
+              ["%.4f" % x for x in losses], 1e3 * median, tokens_s, mfu,
+              n_params, per_token, peak / 1e9, res["launches"], card),
+          flush=True)
+    if busy:
+        print("11a BERT-base profile (2 steps): %.1f ms wall, device busy "
+              "%.1f%%; %s [%s]" % (
+                  wall_us / 1e3, 100 * busy / wall_us, ", ".join(
+                      "%s %.2f ms a step (%.1f%%)" % (k, v / 2e3,
+                                                      100 * v / busy)
+                      for k, v in sorted(split.items(),
+                                         key=lambda kv: -kv[1])), card),
+              flush=True)
+    else:
+        print("11a BERT-base profile: the profiler recorded no device time: "
+              "not measured", flush=True)
+    check(all(np.isfinite(losses)), "11a: losses %s" % losses)
+    check(res["launches"] == want, "11a: launches %s, want %s (one K1 and "
+          "one K2 a layer a step)" % (res["launches"], want))
+    del model, opt, batches, prof
+    torch.cuda.empty_cache()
+    res["check"] = bert_check(card)
+    return res
+
+
+def bert_loss_grads(model, batch):
+    """The pretraining loss of ``batch`` and every parameter's gradient
+    (by name), from zeroed gradients."""
+    model.clear_gradients()
+    loss = bert_criterion()(*model(batch[0]), batch[1], batch[2])
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.clear_gradients()
+    return loss.item(), grads
+
+
+def bert_check(card):
+    """11a's f32 copy: BERT_CHECK["layers"] layers of bert_base at full
+    width, dropout 0, on BERT_CHECK["batch"] x 512 tokens: its first loss
+    and every gradient through K1 / K2 (one launch each a layer) against
+    the same through the plain attention (``plain_hooks``), and the loss
+    against a CPU run of the same weights and batch, all within
+    BERT_CHECK["rtol"] (relative; gradients in relative L2, each tensor,
+    the keys' biases against the learning rate's scale instead: see
+    :func:`is_key_bias`)."""
+    import paddle_tpu_torch as pt
+
+    rtol = BERT_CHECK["rtol"]
+    pt.seed(1)
+    model = bert_model(BERT_CHECK["layers"], dropout=False)
+    batch = bert_batch(7, BERT_CHECK["batch"])
+    read = zero_counts()
+    loss, grads = bert_loss_grads(model, batch)
+    launches = read()
+    plain_loss, plain_grads = with_hooks(
+        lambda: bert_loss_grads(model, batch), model, **plain_hooks(model))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    cpu = bert_model(BERT_CHECK["layers"], dropout=False, device="cpu")
+    cpu.set_state_dict(state)
+    with torch.no_grad():
+        cpu_loss = bert_criterion()(*cpu(batch[0].cpu()), batch[1].cpu(),
+                                    batch[2].cpu()).item()
+    errs = {n: rel_l2(g, plain_grads[n]) for n, g in grads.items()
+            if not is_key_bias(n)}
+    key_bias = key_bias_grad_ratio(grads)
+    worst = max(errs, key=errs.get)
+    res = dict(loss=loss, plain_loss=plain_loss, cpu_loss=cpu_loss,
+               loss_vs_plain=abs(loss - plain_loss) / abs(plain_loss),
+               loss_vs_cpu=abs(loss - cpu_loss) / abs(cpu_loss),
+               grad_rel_l2_max=errs[worst], grad_worst=worst,
+               key_bias_grad_ratio=key_bias,
+               launches={k: launches[k] for k in ("K1", "K2", "K3")})
+    print("11a f32 copy (%d layers, full width, dropout 0, %d x 512): loss "
+          "%.6f through K1 / K2, %.6f through the plain attention (%.3g), "
+          "%.6f on the CPU (%.3g); gradients against the plain attention's "
+          "at most %.3g relative L2 (%s; limit %g); the keys' biases' "
+          "gradient %.3g of the queries'; launches %s [%s]" % (
+              BERT_CHECK["layers"], BERT_CHECK["batch"], loss, plain_loss,
+              res["loss_vs_plain"], cpu_loss, res["loss_vs_cpu"],
+              errs[worst], worst, rtol, key_bias, res["launches"], card),
+          flush=True)
+    L = BERT_CHECK["layers"]
+    check(res["launches"] == {"K1": L, "K2": L, "K3": 0},
+          "11a f32 copy: launches %s" % res["launches"])
+    check(res["loss_vs_plain"] <= rtol and res["loss_vs_cpu"] <= rtol,
+          "11a f32 copy: loss %s" % res)
+    check(errs[worst] <= rtol, "11a f32 copy: %s's gradient %.3g from the "
+          "plain attention's" % (worst, errs[worst]))
+    check(key_bias <= BERT_KEY_BIAS_GRAD, "11a f32 copy: the keys' biases' "
+          "gradient %.3g of the queries'" % key_bias)
+    del model, cpu, grads, plain_grads
+    torch.cuda.empty_cache()
+    return res
+
+
+def bert_jobs(cards):
+    """Phase 11b's run: one rank a card (four at most); the full run
+    (BERT_SHARD_FULL) on four cards, the check (BERT_SHARD_CHECK) on
+    fewer."""
+    full = cards >= 4
+    return [dict(name="bert_base_sharding" if full else
+                 "bert_base_sharding_check", bert=True, full=full,
+                 **(BERT_SHARD_FULL if full else BERT_SHARD_CHECK))]
+
+
+def sharding_of(opt):
+    """The stage-1 / stage-2 sharding optimizer under ``opt`` (a
+    HybridParallelOptimizer wraps one after its first step), or None."""
+    from paddle_tpu_torch.distributed.fleet.sharding_optimizer import (
+        DygraphShardingOptimizer)
+
+    while opt is not None and not isinstance(opt, DygraphShardingOptimizer):
+        opt = vars(opt).get("_inner_opt")
+    return opt
+
+
+def bert_params(run, model, wrapped):
+    """A run's whole parameters by name, on the card (stage 3: the
+    wrapper's ``state_dict``, a collective that gathers them)."""
+    params = wrapped.state_dict() if run == "p_g_os" else model.state_dict()
+    return {k: v.detach() for k, v in params.items()}
+
+
+def to_host(params):
+    return {k: v.to("cpu", copy=True) for k, v in params.items()}
+
+
+def bert_state(run, model, wrapped, opt):
+    """The state a step of ``run`` starts from, whole, copied to the CPU:
+    the parameters (:func:`bert_params`) and the AdamW moments in
+    parameter order (None before the first step). Stage 1 / 2 keep each
+    parameter's moments on its owner only: every rank takes them from the
+    owner (a collective)."""
+    import torch.distributed as dist
+
+    params = to_host(bert_params(run, model, wrapped))
+    state = opt._state
+    if state is None:
+        return params, None
+    so = sharding_of(opt)
+    if so is None:
+        moments = {k: [t.detach().to("cpu", copy=True) for t in state[k]]
+                   for k in ("m", "v")}
+    else:
+        local = {id(p): i for i, p in enumerate(so._local_params)}
+        moments = {"m": [], "v": []}
+        for p in model.parameters():
+            owner = so._owner_rank(so._param_owner[id(p)])
+            for k in ("m", "v"):
+                t = state[k][local[id(p)]] if id(p) in local else \
+                    torch.empty_like(p, dtype=torch.float32)
+                if so._nranks > 1:
+                    dist.broadcast(t, owner, group=so._group.process_group)
+                moments[k].append(t.detach().to("cpu", copy=True))
+    moments["t"] = float(state["t"])
+    return params, moments
+
+
+def adam_state_bytes(opt):
+    """The bytes of the AdamW state this rank holds."""
+    state = opt._state or {}
+    return sum(t.numel() * t.element_size() for v in state.values()
+               for t in (v if isinstance(v, list) else [v]))
+
+
+def bert_run(run, job, init, batches, rank, n):
+    """One 11b run on every rank from ``init``: the timed steps (a
+    barrier before each; dropout reseeded for each step and rank) between
+    zeroed and read kernel counts, each step's peak memory, whether the
+    ranks' parameters are equal after each, the state before each step
+    (not for DataParallel, the yardstick) and, on rank 0, the parameters
+    after it, on the CPU. Returns this rank's readings and those
+    copies."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+
+    model = bert_model()
+    model.set_state_dict(init)
+    crit = bert_criterion()
+    opt = pt.optimizer.AdamW(
+        parameters=model.parameters(), **BERT_OPT,
+        grad_clip=pt.nn.ClipGradByGlobalNorm(BERT_CLIP)
+        if run == "fleet" else None)
+    if run == "dp":
+        wrapped = pt.DataParallel(model)
+    elif run == "fleet":
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
+                                   "pp_degree": 1, "sharding_degree": n}
+        strategy.sharding = True
+        strategy.sharding_configs = {"stage": 1}
+        fleet.init(is_collective=True, strategy=strategy)
+        wrapped = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    else:
+        wrapped, opt, _ = group_sharded_parallel(model, opt, run)
+
+    def step(ids, mlm, nsp):
+        loss = crit(*wrapped(ids), mlm, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    read = zero_counts()
+    losses, secs, peaks, equal, befores, afters = [], [], [], [], [], []
+    t_copies = 0.0
+    for s, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        if run != "dp":
+            befores.append(bert_state(run, model, wrapped, opt))
+        t_copies += time.perf_counter() - t0
+        dist.barrier()
+        pt.seed(1000 * s + rank)
+        torch.cuda.reset_peak_memory_stats()
+        loss, sec = timed_calls(lambda: step(*batch), 1)
+        peaks.append(torch.cuda.max_memory_allocated())
+        losses += loss
+        secs += sec
+        t0 = time.perf_counter()
+        after = bert_params(run, model, wrapped)
+        equal.append(same_on_every_rank(after.values()))
+        if rank == 0 and run != "dp":
+            afters.append(to_host(after))
+        del after
+        t_copies += time.perf_counter() - t0
+    launches = read()
+    opt_bytes = adam_state_bytes(opt)
+    L = model.config.num_layers
+    dist.barrier()
+    t0 = time.perf_counter()
+    profile = nccl_share(step, batches[-1]) if n > 1 else None
+    t_profile = time.perf_counter() - t0
+    fleet.fleet._hcg = None
+    del model, wrapped, opt
+    torch.cuda.empty_cache()
+    mine = dict(rank=rank, losses=losses, step_ms=[1e3 * x for x in secs],
+                equal=equal, peak_gb=max(peaks) / 1e9,
+                adam_state_gb=opt_bytes / 1e9,
+                launches={k: launches[k] for k in ("K1", "K2", "K3")},
+                want={"K1": L * len(batches), "K2": L * len(batches),
+                      "K3": 0}, profile=profile, copies_s=t_copies,
+                profile_s=t_profile)
+    return mine, befores, afters
+
+
+def bert_reference_steps(run, befores, afters, batches, rank, losses):
+    """DataParallel's step from each state of ``befores`` (a run's), on
+    the same batches and dropout seeds (AdamW with the run's clip), and
+    on rank 0 the run's step after it (``afters``, its ``losses``)
+    against it: :func:`bert_compare` a step, with the step's
+    :func:`key_bias_grad_ratio` (None on the other ranks)."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+
+    model = bert_model()
+    dp = pt.DataParallel(model)
+    crit = bert_criterion()
+    out = []
+    for s, ((params, moments), batch) in enumerate(zip(befores, batches)):
+        model.set_state_dict(params)
+        opt = pt.optimizer.AdamW(
+            parameters=model.parameters(), **BERT_OPT,
+            grad_clip=pt.nn.ClipGradByGlobalNorm(BERT_CLIP)
+            if run == "fleet" else None)
+        if moments is not None:
+            plist = model.parameters()
+            opt._state = {
+                k: [t.to(p.device) for t, p in zip(moments[k], plist)]
+                for k in ("m", "v")}
+            opt._state["t"] = torch.tensor(moments["t"], dtype=torch.float32,
+                                           device=plist[0].device)
+        dist.barrier()
+        pt.seed(1000 * s + rank)
+        loss = crit(*dp(batch[0]), batch[1], batch[2])
+        loss.backward()
+        ratio = key_bias_grad_ratio(
+            {k: p.grad for k, p in model.named_parameters()})
+        opt.step()
+        opt.clear_grad()
+        if rank == 0:
+            out.append(dict(bert_compare(
+                s + 1, losses[s], loss.item(), afters[s], model.state_dict(),
+                params), key_bias_grad_ratio=ratio))
+        del opt
+    del model, dp
+    torch.cuda.empty_cache()
+    return out if rank == 0 else None
+
+
+def bert_compare(step, loss, ref_loss, got, want, before):
+    """A run's step (``got``, on the CPU) against DataParallel's from the
+    same state (``want``, on the card; ``before`` the state's parameters,
+    on the CPU): the loss, the largest relative L2 of a weight tensor and
+    of a bias (but the keys' biases: their largest absolute difference),
+    all of them together, and the step's move (all parameters but the
+    keys' biases, relative L2), on the card."""
+    errs, sq = {}, torch.zeros(4, dtype=torch.float64,
+                               device=next(iter(want.values())).device)
+    key_bias = 0.0
+    for k, w in want.items():
+        g, b = got[k].to(w.device), before[k].to(w.device)
+        if is_key_bias(k):
+            key_bias = max(key_bias, (g - w).abs().max().item())
+            continue
+        d2, w2 = (g - w).double().square().sum(), w.double().square().sum()
+        errs[k] = (d2, w2)
+        sq += torch.stack([d2, w2, (w - b).double().square().sum(),
+                           b.double().square().sum()])
+    rel = {k: (d2 / w2).sqrt().item() for k, (d2, w2) in errs.items()}
+    weights = [k for k in rel if not k.endswith("bias")]
+    worst = max(weights, key=rel.get)
+    worst_bias = max((k for k in rel if k.endswith("bias")), key=rel.get)
+    sq = sq.tolist()
+    return dict(step=step, loss=loss, ref_loss=ref_loss,
+                loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+                param_rel_l2_max=rel[worst], worst=worst,
+                bias_rel_l2_max=rel[worst_bias], worst_bias=worst_bias,
+                all_rel_l2=math.sqrt(sq[0] / sq[1]),
+                key_bias_max_abs=key_bias, move=math.sqrt(sq[2] / sq[3]))
+
+
+def bert_job(job, shared):
+    """11b on every rank: bert_base f32 from one set of weights (rank
+    0's, broadcast), rank r's batches from seeds 1000 step + r, each run
+    of BERT_SHARD_RUNS in turn (:func:`bert_run`), after each sharded run
+    DataParallel's step from each of its states and the comparison (on
+    rank 0). Returns every rank's readings (on rank 0)."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as pt
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    pt.seed(0)
+    model = bert_model()
+    with torch.no_grad():
+        for p in model.parameters():
+            dist.broadcast(p.data, 0)
+    init = to_host(model.state_dict())
+    del model
+    torch.cuda.empty_cache()
+    batches = [bert_batch(1000 * s + rank, job["batch"])
+               for s in range(job["steps"])]
+    runs = {}
+    for run in BERT_SHARD_RUNS:
+        t0 = time.perf_counter()
+        mine, befores, afters = bert_run(run, job, init, batches, rank, n)
+        ranks = [None] * n
+        dist.all_gather_object(ranks, mine)
+        runs[run] = dict(ranks=ranks, seconds=time.perf_counter() - t0)
+        if run == "dp":
+            continue
+        # DataParallel's step from each state, after the run (its model
+        # freed): the run's peak memory is its own
+        t0 = time.perf_counter()
+        runs[run]["compare"] = bert_reference_steps(
+            run, befores, afters, batches, rank, mine["losses"])
+        runs[run]["reference_s"] = time.perf_counter() - t0
+        del befores, afters
+    if rank != 0:
+        return None
+    b, s = job["batch"], 512
+    for run, r in runs.items():
+        tail = [x for rk in r["ranks"] for x in rk["step_ms"][1:]] or \
+            [x for rk in r["ranks"] for x in rk["step_ms"]]
+        med = statistics.median(tail)
+        r.update(median_step_ms=med, tokens_s=n * b * s / (med / 1e3))
+    return dict(cards=n, batch=[b, s], steps=job["steps"], full=job["full"],
+                runs=runs)
+
+
+def bert_check_11b(job, r, card):
+    """11b's readings printed, then its gates: every run's losses finite,
+    each rank's K1 / K2 launches one a layer a step, the ranks'
+    parameters bitwise equal after every step, and each sharded run's
+    step against DataParallel's step from the same state: its loss
+    within BERT_LOSS_RTOL, each weight tensor and all parameters together
+    within BERT_PARAM_RTOL (relative L2), each bias within BERT_BIAS_RTOL
+    (the keys' biases by the step's gradient instead, at most
+    BERT_KEY_BIAS_GRAD of the queries', :func:`is_key_bias`), a step that
+    moves the parameters by at least CHECK_MOVE times BERT_PARAM_RTOL."""
+    n = r["cards"]
+    dp = r["runs"]["dp"]
+    for run, x in r["runs"].items():
+        print("11b BERT-base %s%s: %d ranks, one a card, %d x %d a rank, %d "
+              "steps, f32; losses of rank 0 %s; median step %.2f ms, %.1f "
+              "tokens/s over the cards (%.3f of DataParallel's); peak memory "
+              "a rank %s GB; AdamW state a rank %s GB; NCCL's share of each "
+              "rank's device time, each rank profiled in its own step, and "
+              "the rank's time outside NCCL %s; launches of rank 0 %s; %.1f "
+              "s of run (rank "
+              "0: %.1f s of state copies and checks, %.1f s of profile), %s "
+              "s of reference steps [%s]" % (
+                  run, "" if r["full"] else " (the check only: the full run "
+                  "needs four cards)", n, r["batch"][0], r["batch"][1],
+                  r["steps"], ["%.4f" % v for v in x["ranks"][0]["losses"]],
+                  x["median_step_ms"], x["tokens_s"],
+                  x["tokens_s"] / dp["tokens_s"],
+                  ["%.2f" % rk["peak_gb"] for rk in x["ranks"]],
+                  ["%.3f" % rk["adam_state_gb"] for rk in x["ranks"]],
+                  ["%.4f (%.2f of %.2f ms; %.2f ms outside)" % (
+                      p["share"], p["nccl_ms"], p["busy_ms"], p["compute_ms"])
+                   if p else "not measured"
+                   for p in (rk["profile"] for rk in x["ranks"])],
+                  x["ranks"][0]["launches"], x["seconds"],
+                  x["ranks"][0]["copies_s"], x["ranks"][0]["profile_s"],
+                  "%.1f" % x["reference_s"] if "reference_s" in x else "no",
+                  card), flush=True)
+        for c in x.get("compare", ()):
+            print("11b %s step %d against DataParallel's step from the same "
+                  "state: loss %.6f / %.6f (%.3g), weights at most %.3g "
+                  "relative L2 (%s; limit %g), biases %.3g (%s; limit %g), "
+                  "all together %.3g, the keys' biases %.3g (their "
+                  "gradient %.3g of the queries', limit %g), the step's "
+                  "move %.3g [%s]" % (
+                      run, c["step"], c["loss"], c["ref_loss"], c["loss_rel"],
+                      c["param_rel_l2_max"], c["worst"], BERT_PARAM_RTOL,
+                      c["bias_rel_l2_max"], c["worst_bias"], BERT_BIAS_RTOL,
+                      c["all_rel_l2"], c["key_bias_max_abs"],
+                      c["key_bias_grad_ratio"], BERT_KEY_BIAS_GRAD,
+                      c["move"], card), flush=True)
+    for run, x in r["runs"].items():
+        check(all(np.isfinite(rk["losses"]).all() for rk in x["ranks"]),
+              "11b %s: a loss is not finite" % run)
+        check(all(rk["launches"] == rk["want"] for rk in x["ranks"]),
+              "11b %s: launches %s, want %s" % (
+                  run, [rk["launches"] for rk in x["ranks"]],
+                  x["ranks"][0]["want"]))
+        check(all(all(rk["equal"]) for rk in x["ranks"]),
+              "11b %s: the ranks' parameters differ after a step (%s)"
+              % (run, [rk["equal"] for rk in x["ranks"]]))
+        for c in x.get("compare", ()):
+            check(c["loss_rel"] <= BERT_LOSS_RTOL
+                  and c["param_rel_l2_max"] <= BERT_PARAM_RTOL
+                  and c["bias_rel_l2_max"] <= BERT_BIAS_RTOL
+                  and c["all_rel_l2"] <= BERT_PARAM_RTOL
+                  and c["key_bias_grad_ratio"] <= BERT_KEY_BIAS_GRAD
+                  and c["move"] >= CHECK_MOVE * BERT_PARAM_RTOL,
+                  "11b %s: against DataParallel's step from the same state, "
+                  "%s" % (run, c))
+
+
 def main_path_phases(card, stamp):
-    """Phases 3 to 9a, with 4d, 9d and 10a-10c: every kernel phase,
+    """Phases 3 to 9a, with 4d, 9d, 10a-10c and 11a: every kernel phase,
     training, serving in both layouts, the profiles, the MoE path, the
-    decode paths and the eager path on one card. Returns the kernels
-    line's rows of K1-K8 and T1, its JSON lines of the training, MoE,
-    serving, decode and eager numbers and phase 4d's K9 / K10
+    decode paths, the eager path and BERT-base on one card. Returns the
+    kernels line's rows of K1-K8 and T1, its JSON lines of the training,
+    MoE, serving, decode, eager and BERT numbers and phase 4d's K9 / K10
     readings."""
     k4 = kernel_phase(card)
     k5 = q8_kernel_phase(card)
@@ -6851,6 +7651,8 @@ def main_path_phases(card, stamp):
     ring = ring_kernel_phase(card)
     torch.cuda.empty_cache()
     flash = flash_kernel_phase(card)
+    torch.cuda.empty_cache()
+    bert_flash = bert_flash_phase(card)
     torch.cuda.empty_cache()
     sp_kernels = sp_kernel_phase(card)
     torch.cuda.empty_cache()
@@ -6912,6 +7714,9 @@ def main_path_phases(card, stamp):
     stamp("the decode paths")
     t1_row, eager = eager_phase(card)
     stamp("the eager path")
+    bert = bert_train_phase(card)
+    torch.cuda.empty_cache()
+    stamp("BERT-base")
     dg, dl = decode["gpt3_1p3B"], decode["llama2_7B"]
 
     rpa_src = "paddle_tpu_torch/incubate/nn/csrc/ragged_paged_attention.cu"
@@ -6995,7 +7800,11 @@ def main_path_phases(card, stamp):
             **({"sp_parts": dict(sp_kernels["ring"],
                                  times_ms=sp_kernels["times_ms"])}
                if kname == "K1" else {}),
-            **({"decode_shapes": decode["k1"]} if kname == "K1" else {})})
+            **({"decode_shapes": decode["k1"]} if kname == "K1" else {}),
+            **({"bert_shape": {t: r[kname] for t, r in bert_flash.items()}}
+               if kname in ("K1", "K2") else {})})
+        kernels[-1]["launches_by_path"]["bert_base"] = \
+            bert["launches"][kname]
     for name, route, mix, prefill, line, status, off, shape in (
             ("paged_attention", "K6", "gpt_decode", "gpt_prefill", 53,
              "ported", off_gpt, "bf16 pools, 16 heads, d 128 (GPT-3 1.3B "
@@ -7041,7 +7850,8 @@ def main_path_phases(card, stamp):
                                      "gpt3_1p3B_off": off_gpt,
                                      "llama2_7B_int8_off": off_llama}}),
              json.dumps({"decode": decode}),
-             json.dumps({"eager": eager})]
+             json.dumps({"eager": eager}),
+             json.dumps({"bert": bert})]
     kernels.append(t1_row)
     return kernels, lines, ring
 
@@ -7099,6 +7909,12 @@ def mesh_rows(kernels, mesh):
             continue
         paths = row.setdefault("launches_by_path", {})
         for name, r in mesh.items():
+            if "runs" in r:     # 11b: one K1 / K2 a layer a step, each run
+                if key in ("K1", "K2"):
+                    for run, x in r["runs"].items():
+                        paths["mesh %s %s, a rank" % (name, run)] = \
+                            x["ranks"][0]["launches"][key]
+                continue
             if "launches" not in r["ranks"][0]:
                 continue        # 9g's schedule check counts nothing
             counts = [rk["launches"][key] for rk in r["ranks"]]
@@ -7123,10 +7939,10 @@ def main(argv=None):
         default="all",
         help="all: every phase (the default); ring: only the card, the "
              "ring kernels' build and phases 4d, 9b and 9c; mesh: only the "
-             "card, K1-K3's and K7's build and phases 9e, 9f and 9g; sp: "
-             "only the card, K1-K3's and K7's build, phase 5b and phase "
-             "9f; pp: only the card, K1-K3's build and phase 9g (after "
-             "9e's GPT-3 13B run, its yardstick, on four cards)")
+             "card, K1-K3's and K7's build and phases 9e, 9f, 9g, 10d and "
+             "11b; sp: only the card, K1-K3's and K7's build, phase 5b and "
+             "phase 9f; pp: only the card, K1-K3's build and phase 9g "
+             "(after 9e's GPT-3 13B run, its yardstick, on four cards)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -7172,9 +7988,9 @@ def main(argv=None):
             out["sp_kernels"] = sp_kernel_phase(card)
             torch.cuda.empty_cache()
             stamp("the sp kernel phase")
-        out["mesh"] = mesh_phase(card, {"mesh": ("mesh", "sp", "pp", "dp"),
-                                        "sp": ("sp",),
-                                        "pp": ("pp",)}[args.phases])
+        out["mesh"] = mesh_phase(card, {
+            "mesh": ("mesh", "sp", "pp", "dp", "bert"), "sp": ("sp",),
+            "pp": ("pp",)}[args.phases])
         stamp("the mesh paths")
         print(json.dumps(out))
     else:

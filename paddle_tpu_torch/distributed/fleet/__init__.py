@@ -2,21 +2,21 @@
 
 Port of ``paddle_tpu/distributed/fleet/__init__.py`` for the slice the
 port holds: ``fleet.init`` over a :class:`DistributedStrategy`, the
-:class:`HybridCommunicateGroup` of the ``dp`` x ``pp`` x ``mp`` ranks,
-the Megatron layers (:mod:`.mp_layers`), the pipeline engine
-(:mod:`.meta_parallel`: 1F1B, interleaved, zero-bubble), recompute,
-gradient synchronisation (:mod:`.hybrid_parallel_util`) and
-:class:`HybridParallelOptimizer`. One process a rank
-(:func:`paddle_tpu_torch.distributed.spawn`); ``fleet.init(...,
-device="cpu")`` runs the ranks over gloo, the default over NCCL, a card
-a rank.
+:class:`HybridCommunicateGroup` of the ``dp`` x ``pp`` x ``sharding`` x
+``mp`` ranks, the Megatron layers (:mod:`.mp_layers`), the pipeline
+engine (:mod:`.meta_parallel`: 1F1B, interleaved, zero-bubble), group
+sharding (:mod:`.sharding_optimizer`, ZeRO stages 1-3, and
+:class:`ShardingParallel`), recompute, gradient synchronisation
+(:mod:`.hybrid_parallel_util`) and :class:`HybridParallelOptimizer`. One
+process a rank (:func:`paddle_tpu_torch.distributed.spawn`);
+``fleet.init(..., device="cpu")`` runs the ranks over gloo, the default
+over NCCL, a card a rank.
 
-Not ported yet (``ROADMAP.md``): group sharding (``sharding_optimizer``),
-``sequence_parallel_utils``, the role makers and data generators
-(``base_role``), elastic training, fleet amp and
-``HybridParallelGradScaler``.
+Not ported yet (``ROADMAP.md``): ``sequence_parallel_utils``, the role
+makers and data generators (``base_role``), elastic training,
+``SegmentParallel``, fleet amp and ``HybridParallelGradScaler``.
 """
-from . import hybrid_parallel_util, meta_parallel
+from . import hybrid_parallel_util, meta_parallel, sharding_optimizer
 from .distributed_strategy import DistributedStrategy
 from .fleet import (Fleet, barrier_worker, distributed_model,
                     distributed_optimizer, get_hybrid_communicate_group,
@@ -25,7 +25,7 @@ from .hybrid_parallel_optimizer import HybridParallelOptimizer
 from .meta_parallel import (LayerDesc, PipelineLayer, PipelineParallel,
                             PipelineParallelWithInterleave,
                             PipelineParallelZeroBubble, SharedLayerDesc,
-                            TensorParallel)
+                            ShardingParallel, TensorParallel)
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                         RowParallelLinear, VocabParallelEmbedding)
 from .recompute import recompute, recompute_sequential
@@ -62,5 +62,6 @@ __all__ = ["DistributedStrategy", "Fleet", "init", "barrier_worker",
            "VocabParallelEmbedding", "LayerDesc", "PipelineLayer",
            "PipelineParallel", "PipelineParallelWithInterleave",
            "PipelineParallelZeroBubble", "SharedLayerDesc",
-           "TensorParallel", "hybrid_parallel_util",
+           "TensorParallel", "ShardingParallel", "sharding_optimizer",
+           "hybrid_parallel_util",
            "HybridParallelOptimizer", "utils", "layers"]

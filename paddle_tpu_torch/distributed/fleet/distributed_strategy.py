@@ -5,13 +5,14 @@ plain tree of the reference's field names (``hybrid_configs``,
 ``pipeline_configs``, ``recompute`` / ``recompute_configs``,
 ``gradient_merge`` / ``gradient_merge_configs``, ...).
 
-The port honours the hybrid degrees ``dp``, ``pp`` and ``mp`` (in any
-``order``), the pipeline's ``accumulate_steps``, recompute of the named
+The port honours the hybrid degrees ``dp``, ``pp``, ``sharding`` and
+``mp`` (in any ``order``), ``sharding`` with ``sharding_configs``'
+``stage``, the pipeline's ``accumulate_steps``, recompute of the named
 sublayers and gradient merge. :meth:`DistributedStrategy.check` raises
 ``NotImplementedError`` for a field it cannot honour yet (``amp``,
-``sharding`` and ``sharding_degree > 1``, ``sep_degree > 1``, ``lamb``,
-``dgc``, ``a_sync``, ``auto``, ``heter_ccl_mode``); ``fleet.init``,
-``distributed_model`` and ``distributed_optimizer`` call it.
+``sep_degree > 1``, ``lamb``, ``dgc``, ``a_sync``, ``auto``,
+``heter_ccl_mode``); ``fleet.init``, ``distributed_model`` and
+``distributed_optimizer`` call it.
 """
 from __future__ import annotations
 
@@ -20,15 +21,13 @@ __all__ = ["DistributedStrategy"]
 # switches the port does not honour yet, and what they are
 _UNPORTED_FLAGS = {
     "amp": "fleet amp (auto_cast of the model, HybridParallelGradScaler)",
-    "sharding": "group sharding (sharding_optimizer)",
     "lamb": "the LAMB meta-optimizer",
     "dgc": "deep gradient compression",
     "a_sync": "the parameter-server mode",
     "auto": "the auto-parallel strategy search",
     "heter_ccl_mode": "heterogeneous collectives",
 }
-_UNPORTED_DEGREES = {"sharding_degree": "group sharding (sharding_optimizer)",
-                     "sep_degree": "segment parallelism (SegmentParallel)"}
+_UNPORTED_DEGREES = {"sep_degree": "segment parallelism (SegmentParallel)"}
 
 
 def unported(what: str) -> NotImplementedError:

@@ -7,10 +7,14 @@ gloo on the CPU) when the run has more than one rank, lays the ranks out
 by ``strategy.hybrid_configs`` and makes the
 :class:`~.topology.HybridCommunicateGroup`; :func:`distributed_model`
 wraps a model by the run's parallel mode (``PipelineParallel`` for
-``pp > 1``, ``TensorParallel`` for ``mp > 1``) after routing the
-sublayers named in ``strategy.recompute_configs["checkpoints"]``
-through :func:`.recompute.recompute`; :func:`distributed_optimizer`
-wraps an optimizer in :class:`.HybridParallelOptimizer`.
+``pp > 1``, ``TensorParallel`` for ``mp > 1``, ``ShardingParallel`` for
+``sharding > 1``) after routing the sublayers named in
+``strategy.recompute_configs["checkpoints"]`` through
+:func:`.recompute.recompute`; :func:`distributed_optimizer` wraps an
+optimizer in :class:`.HybridParallelOptimizer`, which shards it over the
+sharding group (stage 1) at its first step; with ``strategy.sharding``
+and ``sharding_configs={"stage": 2}`` it wraps the stage-2 optimizer
+(:class:`.sharding_optimizer.GroupShardedOptimizerStage2`) first.
 
 The role makers and the parameter-server mode are not ported
 (``ROADMAP.md``): ``init`` raises for a non-collective run, and so does
@@ -127,7 +131,8 @@ class Fleet:
             dist.barrier()
 
     def distributed_model(self, model):
-        from .meta_parallel import PipelineParallel, TensorParallel
+        from .meta_parallel import (PipelineParallel, ShardingParallel,
+                                    TensorParallel)
 
         if self._strategy is not None:
             self._strategy.check()
@@ -140,6 +145,9 @@ class Fleet:
                                     strategy=self._strategy)
         if mode == ParallelMode.TENSOR_PARALLEL:
             return TensorParallel(model, self._hcg, strategy=self._strategy)
+        if mode == ParallelMode.SHARDING_PARALLEL:
+            return ShardingParallel(model, self._hcg,
+                                    strategy=self._strategy)
         if self._hcg.get_data_parallel_world_size() > 1:
             raise unported("pure data parallelism (an eager DataParallel)")
         return model
@@ -152,6 +160,23 @@ class Fleet:
             strategy.check()
         if self._hcg is None:
             return optimizer
+        if strategy is not None and strategy.sharding and int(
+                strategy.sharding_configs.get("stage", 1)) == 2:
+            if strategy.gradient_merge:
+                # stage 2 reduces each backward's gradients from hooks;
+                # with clear_grad deferred mid-merge every micro-step
+                # would re-reduce (and re-average) the accumulated ones
+                raise ValueError(
+                    "gradient_merge cannot compose with sharding stage 2 "
+                    "(hook-based reduction re-reduces accumulated grads); "
+                    "use sharding stage 1 or the compiled "
+                    "TrainStep(accumulate_steps=k) path")
+            if self._hcg.get_sharding_parallel_world_size() > 1:
+                from .sharding_optimizer import GroupShardedOptimizerStage2
+
+                optimizer = GroupShardedOptimizerStage2(
+                    list(optimizer._parameter_list), optimizer,
+                    group=self._hcg.get_sharding_parallel_group())
         return HybridParallelOptimizer(optimizer, self._hcg, strategy)
 
 

@@ -5,7 +5,8 @@ a rank over ``torch.distributed`` (NCCL on cards, gloo on the CPU):
 
 - :class:`TensorParallel`: broadcasts the parameters the model-parallel
   ranks share (and the data-parallel replicas') from the group's first
-  rank.
+  rank; :class:`ShardingParallel` broadcasts the parameters over the
+  sharding group.
 - :class:`LayerDesc` / :class:`SharedLayerDesc` and
   :class:`PipelineLayer`: a sequential model cut into stages, uniformly
   by layer count over ``num_stages x num_virtual_pipeline_stages``
@@ -57,7 +58,8 @@ from .distributed_strategy import unported
 from .hybrid_parallel_util import (_broadcast_parameters,
                                    fused_allreduce_gradients)
 
-__all__ = ["TensorParallel", "LayerDesc", "SharedLayerDesc",
+__all__ = ["TensorParallel", "ShardingParallel", "LayerDesc",
+           "SharedLayerDesc",
            "PipelineLayer", "PipelineParallel",
            "PipelineParallelWithInterleave", "PipelineParallelZeroBubble"]
 
@@ -103,6 +105,17 @@ class TensorParallel(_MetaParallelBase):
                               hcg.get_model_parallel_group_src_rank(), True)
         _broadcast_parameters(self._layers, hcg.get_data_parallel_group(),
                               hcg.get_data_parallel_group_src_rank(), False)
+
+
+class ShardingParallel(_MetaParallelBase):
+    """The model of a group-sharding run: its parameters broadcast over
+    the sharding group from the group's first rank."""
+
+    def _prepare_for_model(self):
+        hcg = self._hcg
+        _broadcast_parameters(self._layers, hcg.get_sharding_parallel_group(),
+                              hcg.get_sharding_parallel_group_src_rank(),
+                              False)
 
 
 class LayerDesc:

@@ -34,6 +34,11 @@ reduce-scatter (summed over the data-parallel ranks). The parameters
 outside the blocks (embeddings, final norm, head) form the root unit,
 gathered once for the whole forward. Without recompute autograd keeps a
 block's gathered weights until its backward.
+
+:func:`group_sharded_parallel` is the eager group-sharding entry of the
+JAX ``distributed/sharding/__init__.py`` (its import path is this
+module's): ZeRO stages 1-3 of an ``nn.Layer`` and its eager optimizer,
+over :mod:`.fleet.sharding_optimizer`.
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 
 __all__ = ["Layout", "FSDPUnit", "copy_to", "reduce_from", "gather_dim",
            "vocab_parallel_embedding", "shard_model",
-           "fsdp_spec", "param_layout"]
+           "fsdp_spec", "param_layout", "group_sharded_parallel"]
 
 
 # the names of torch 2.11's collectives, which later releases keep
@@ -378,3 +383,42 @@ def shard_model(model: torch.nn.Module, mesh, fsdp_axis: Optional[str]
     for name, m in blocks:
         m.fsdp = FSDPUnit(units[name], group) if units[name] else None
     return FSDPUnit(root, group) if root else None
+
+
+def group_sharded_parallel(model, optimizer, level, scaler=None, group=None,
+                           offload=False, sync_buffers=False,
+                           buffer_max_size=2 ** 23, segment_size=2 ** 20,
+                           sync_comm=False, dp_group=None,
+                           exclude_layer=None):
+    """``(model, optimizer, scaler)`` sharded over ``group`` (every rank
+    when None) at ``level``: ``"os"`` the optimizer state (stage 1),
+    ``"os_g"`` and the gradients (stage 2: the model wrapped), ``"p_g_os"``
+    and the parameters (stage 3: the model wrapped, ``optimizer.step``
+    routed through the wrapper). Any other level raises ``ValueError``."""
+    from .fleet.sharding_optimizer import (DygraphShardingOptimizer,
+                                           GroupShardedOptimizerStage2,
+                                           GroupShardedStage2,
+                                           GroupShardedStage3)
+
+    if level not in ("os", "os_g", "p_g_os"):
+        raise ValueError(f"unknown sharding level {level!r}; use os | os_g "
+                         "| p_g_os")
+    if group is None:
+        from .collective import get_group
+
+        group = get_group(0)
+    if level == "os":
+        return model, DygraphShardingOptimizer(optimizer, group=group), \
+            scaler
+    if level == "os_g":
+        opt = GroupShardedOptimizerStage2(
+            list(model.parameters()), optimizer, group=group, offload=offload)
+        wrapped = GroupShardedStage2(model, opt, group=group,
+                                     sync_buffers=sync_buffers,
+                                     buffer_max_size=buffer_max_size)
+        return wrapped, opt, scaler
+    wrapped = GroupShardedStage3(model, optimizer, group=group,
+                                 sync_buffers=sync_buffers,
+                                 segment_size=segment_size,
+                                 sync_comm=sync_comm, offload=offload)
+    return wrapped, optimizer, scaler

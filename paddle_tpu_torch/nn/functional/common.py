@@ -1,7 +1,10 @@
-"""Dropout and ``linear``.
+"""Dropout, ``linear`` and ``embedding``.
 
 ``linear(x, weight, bias)`` is ``x @ weight + bias`` with Paddle's
 ``[in, out]`` weight (``paddle_tpu/nn/functional/common.py``).
+``embedding(x, weight, padding_idx)`` gathers rows of ``weight``, and
+where an index is ``padding_idx`` gives zeros (so that row gets no
+gradient), as the JAX function does.
 
 Port of ``dropout`` of ``paddle_tpu/nn/functional/common.py``: in
 training, a keep mask of probability ``1 - p`` (over ``x``'s shape, or
@@ -21,7 +24,7 @@ import torch
 
 from ...core import random as _random
 
-__all__ = ["dropout", "dropout_mask", "linear"]
+__all__ = ["dropout", "dropout_mask", "linear", "embedding"]
 
 
 def dropout_mask(shape, p: float, device) -> torch.Tensor:
@@ -55,3 +58,13 @@ def dropout(x: torch.Tensor, p: float = 0.5, axis=None,
 def linear(x: torch.Tensor, weight: torch.Tensor, bias=None) -> torch.Tensor:
     """``x @ weight + bias``, ``weight`` of shape ``[in, out]``."""
     return torch.nn.functional.linear(x, weight.t(), bias)
+
+
+def embedding(x: torch.Tensor, weight: torch.Tensor, padding_idx=None,
+              sparse: bool = False, name=None) -> torch.Tensor:
+    """``weight[x]``; zeros where ``x == padding_idx``."""
+    idx = torch.as_tensor(x, device=weight.device).long()
+    out = torch.nn.functional.embedding(idx, weight)
+    if padding_idx is not None:
+        out = torch.where((idx == padding_idx)[..., None], 0.0, out)
+    return out

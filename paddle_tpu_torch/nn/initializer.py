@@ -2,7 +2,7 @@
 
 Port of the initializers of ``paddle_tpu/nn/initializer/__init__.py``
 that the eager layers take by default (``Constant``, ``Uniform``,
-``XavierNormal``; the others wait, ``ROADMAP.md`` §1 item 9), with the JAX package's fan rule (``_fans``: a conv
+``XavierNormal``) and BERT's ``Normal``; the others wait, ``ROADMAP.md`` §1 item 9), with the JAX package's fan rule (``_fans``: a conv
 weight ``[out, in, *k]`` has fan in ``in * prod(k)``). Each call draws
 from :func:`paddle_tpu_torch.core.random.generator` of the target
 device, which ``paddle_tpu_torch.seed(n)`` seeds: the same distribution
@@ -16,7 +16,7 @@ import torch
 
 from ..core import random as _random
 
-__all__ = ["Initializer", "Constant", "Uniform", "XavierNormal"]
+__all__ = ["Initializer", "Constant", "Uniform", "Normal", "XavierNormal"]
 
 
 def _fans(shape):
@@ -66,6 +66,14 @@ class Uniform(Initializer):
 
     def __call__(self, shape, dtype=torch.float32, device="cpu"):
         return _uniform(shape, self.low, self.high, dtype, device)
+
+
+class Normal(Initializer):
+    def __init__(self, mean=0.0, std=1.0):
+        self.mean, self.std = mean, std
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu"):
+        return _normal(shape, self.mean, self.std, dtype, device)
 
 
 class XavierNormal(Initializer):

@@ -12,8 +12,12 @@ PyTorch's. On top it carries Paddle's names:
   with ``initializer`` / ``trainable`` (a ``ParamAttr``; a
   ``learning_rate`` other than 1 raises) overrides the default;
 * ``parameters()`` as a list, ``named_parameters(prefix,
-  include_sublayers)``, ``add_sublayer``, ``register_buffer(name,
-  tensor, persistable)``, ``clear_gradients()``;
+  include_sublayers)``, ``sublayers(include_self)``, ``add_sublayer``,
+  ``register_buffer(name, tensor, persistable)``, ``clear_gradients()``;
+* ``register_forward_pre_hook(hook)`` (``hook(layer, inputs)``, which
+  may return new inputs) and ``register_forward_post_hook(hook)``
+  (``hook(layer, inputs, outputs)``, which may return new outputs), each
+  returning a remover with ``remove()``: PyTorch's forward hooks;
 * ``state_dict()`` under the JAX package's key names (a Paddle
   ``BatchNorm``'s ``_mean`` / ``_variance``, a ``Linear``'s ``[in, out]``
   weight), and ``set_state_dict(state)`` taking tensors or numpy arrays,
@@ -83,6 +87,15 @@ class Layer(torch.nn.Module):
         return super().named_parameters(
             prefix, include_sublayers if recurse is None else recurse,
             remove_duplicate)
+
+    def sublayers(self, include_self: bool = False) -> List["Layer"]:
+        """Every layer below this one, depth first (this one first with
+        ``include_self``)."""
+        mods = list(self.modules())
+        return mods if include_self else mods[1:]
+
+    def register_forward_post_hook(self, hook):
+        return self.register_forward_hook(hook)
 
     def set_state_dict(self, state_dict, use_structured_name: bool = True):
         """Copy ``state_dict``'s entries (tensors or numpy arrays) into

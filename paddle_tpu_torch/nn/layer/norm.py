@@ -1,6 +1,7 @@
-"""``BatchNorm2D`` (port of ``paddle_tpu/nn/layer/norm.py``): weight 1,
-bias 0, and the running statistics as buffers under the JAX package's
-names, ``_mean`` (zeros) and ``_variance`` (ones), in f32."""
+"""``BatchNorm2D`` and ``LayerNorm`` (port of
+``paddle_tpu/nn/layer/norm.py``): weight 1, bias 0; BatchNorm's running
+statistics are buffers under the JAX package's names, ``_mean`` (zeros)
+and ``_variance`` (ones), in f32."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +11,7 @@ from .. import functional as F
 from ..initializer import Constant
 from .layers import Layer
 
-__all__ = ["BatchNorm2D"]
+__all__ = ["BatchNorm2D", "LayerNorm"]
 
 
 class BatchNorm2D(Layer):
@@ -45,3 +46,27 @@ class BatchNorm2D(Layer):
     def extra_repr(self) -> str:
         return "num_features=%d, momentum=%s" % (self._num_features,
                                                  self._momentum)
+
+
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=Constant(1.0)) \
+            if weight_attr is not False else None
+        self.bias = self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True) \
+            if bias_attr is not False else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
+
+    def extra_repr(self) -> str:
+        return "normalized_shape=%s" % (self._normalized_shape,)

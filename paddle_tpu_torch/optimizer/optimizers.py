@@ -192,15 +192,20 @@ class _Eager:
         self._apply(idx, [g for _, g in pairs])
 
     def clear_grad(self, set_to_zero: bool = False) -> None:
-        for p in self._parameter_list or ():
-            for key in ("grad", "main_grad"):
-                g = getattr(p, key, None)
-                if g is None:
-                    continue
-                if set_to_zero:
-                    g.zero_()
-                else:
-                    setattr(p, key, None)
+        clear_grads(self._parameter_list or (), set_to_zero)
+
+
+def clear_grads(params, set_to_zero: bool = False) -> None:
+    """Drop (or zero) each parameter's ``.grad`` and ``main_grad``."""
+    for p in params:
+        for key in ("grad", "main_grad"):
+            g = getattr(p, key, None)
+            if g is None:
+                continue
+            if set_to_zero:
+                g.zero_()
+            else:
+                setattr(p, key, None)
 
 
 class AdamW(_LearningRate, _Eager):

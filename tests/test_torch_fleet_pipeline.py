@@ -536,6 +536,6 @@ def test_fleet_raises_for_unported_strategy():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         fleet.init(is_collective=True, strategy=s, device="cpu")
     s = fleet.DistributedStrategy()
-    s.hybrid_configs["sharding_degree"] = 2
+    s.hybrid_configs["sep_degree"] = 2
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         s.check()

@@ -2504,3 +2504,130 @@ def test_lenet_step_on_the_card_matches_the_cpu():
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
         pt.set_device(None)
+
+
+# BERT-base's attention (BASELINE.md #3): b 32, s 512, 12 heads, d 64,
+# not causal; the backward's route there is K2
+BERT_SHAPE = (32, 512, 12, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_at_bert_shape(dtype):
+    """K1 and K2 where BERT-base training runs them, in f32 (the model
+    path's type) and bf16, against the plain versions (K2 from the plain
+    forward's out and lse)."""
+    _need_hopper()
+    b, s, h, d = BERT_SHAPE
+    q, k, v, do = _flash_inputs(b, s, s, h, d, getattr(torch, dtype), seed=12)
+    scale = d ** -0.5
+    assert fa.uses_fused_bwd(s, s, d)
+    out, lse = fa.flash_fwd(q, k, v, False, scale)
+    want_out, want_lse = _ref_fwd(q, k, v, False, scale)
+    _assert_close(out, want_out, FLASH_TOL[dtype], "out")
+    _assert_lse_close(lse, want_lse)
+    before = (fa.flash_bwd_fused.launches, fa.flash_bwd_split.launches)
+    got = fa.flash_bwd(q, k, v, want_out, want_lse, do, False, scale)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_fused.launches, fa.flash_bwd_split.launches) == (
+        before[0] + 1, before[1])
+    want = _ref_bwd(q, k, v, want_out, want_lse, do, False, scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _assert_close(g, w, FLASH_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sdpa_reaches_k1_k2_at_bert_shape(dtype, monkeypatch):
+    """``nn.functional.scaled_dot_product_attention`` (BERT's call, no
+    mask) on CUDA tensors at BERT's shape launches K1 forward and K2
+    backward, once each, and never the plain attention."""
+    _need_hopper()
+    import sys
+
+    import paddle_tpu_torch.nn.functional as F
+
+    fmod = sys.modules["paddle_tpu_torch.incubate.nn.functional."
+                       "flash_attention"]
+
+    def plain(*a, **k):
+        raise AssertionError("the plain attention ran on CUDA tensors")
+
+    monkeypatch.setattr(fmod, "flash_attention_ref", plain)
+    b, s, h, d = BERT_SHAPE
+    q, k, v, do = (x.requires_grad_() if i < 3 else x for i, x in
+                   enumerate(_flash_inputs(b, s, s, h, d,
+                                           getattr(torch, dtype), seed=13)))
+    counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+              fa.flash_bwd_split.launches)
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=False,
+                                         dropout_p=0.0, training=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_fused.launches,
+            fa.flash_bwd_split.launches) == (counts[0] + 1, counts[1] + 1,
+                                             counts[2])
+    assert all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_bert_base_two_layer_step_kernels_vs_plain():
+    """A 2-layer ``bert_base`` (full width, f32, dropout 0, TF32 off) on
+    2 x 512 tokens through K1 / K2 against the same model through the
+    plain attention: the loss and every gradient within 1e-4 (relative;
+    relative L2 a tensor), but the keys' biases, whose gradient is
+    rounding alone (held below 1e-3 of the queries' biases'), one K1 and
+    one K2 a layer."""
+    _need_hopper()
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import (BertForPreTraining,
+                                         BertPretrainingCriterion,
+                                         bert_base)
+    from paddle_tpu_torch.models import bert as bert_module
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        pt.seed(3)
+        model = BertForPreTraining(bert_base(
+            num_layers=2, hidden_dropout=0.0, attention_dropout=0.0))
+        crit = BertPretrainingCriterion(30522)
+        rng = np.random.RandomState(3)
+        ids = torch.from_numpy(rng.randint(0, 30522, (2, 512))).cuda()
+        mlm = np.full((2, 512), -100)
+        mlm[:, ::7] = rng.randint(0, 30522, (2, 74))
+        mlm = torch.from_numpy(mlm).cuda()
+        nsp = torch.from_numpy(rng.randint(0, 2, (2,))).cuda()
+
+        def run():
+            model.clear_gradients()
+            loss = crit(*model(ids), mlm, nsp)
+            loss.backward()
+            return loss.item(), {n: p.grad.clone()
+                                 for n, p in model.named_parameters()}
+
+        counts = (fa.flash_fwd.launches, fa.flash_bwd_fused.launches)
+        loss, grads = run()
+        assert (fa.flash_fwd.launches - counts[0],
+                fa.flash_bwd_fused.launches - counts[1]) == (2, 2)
+        sdpa = bert_module.scaled_dot_product_attention
+
+        def plain(query, key, value, attn_mask=None, dropout_p=0.0,
+                  is_causal=False, training=True):
+            return fa.flash_attention_ref(query, key, value,
+                                          causal=is_causal)
+
+        bert_module.scaled_dot_product_attention = plain
+        try:
+            want_loss, want = run()
+        finally:
+            bert_module.scaled_dot_product_attention = sdpa
+        assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+        for n, g in grads.items():
+            if n.endswith("k_proj.bias"):
+                q_bias = grads[n.replace("k_proj", "q_proj")]
+                assert g.norm() <= 1e-3 * q_bias.norm(), n
+                continue
+            assert _rel_l2(g, want[n]) <= 1e-4, (n, _rel_l2(g, want[n]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
